@@ -1,10 +1,13 @@
 PY ?= python
 export PYTHONPATH := src
 
-.PHONY: test test-quick obs-smoke chaos-smoke bench bench-quick bench-formats bench-affinity bench-gate
+.PHONY: test test-torch test-quick obs-smoke chaos-smoke bench bench-quick bench-formats bench-affinity bench-gate
 
 test:            ## full tier-1 suite (ROADMAP verify command)
 	$(PY) -m pytest -x -q
+
+test-torch:      ## the PyTorch/CUDA port's parity tests (CPU; `cuda`-marked tests skip)
+	$(PY) -m pytest -q tests/test_torch_*.py
 
 test-quick:      ## BFS substrate + engine + formats + API (fast inner loop)
 	$(PY) -m pytest -x -q tests/test_bitmap.py tests/test_kernels.py \

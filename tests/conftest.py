@@ -1,0 +1,8 @@
+"""Pytest settings: registers the marker of tests that need a GPU."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc (the port's CUDA kernels); "
+        "skipped where torch.cuda.is_available() is False")
