@@ -10,19 +10,31 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    and compaction must match exactly; gather-expand must give the same
    repaired ``out``/``visited`` and marked set, and every mark must
    name a frontier neighbour); each kernel's median time, its plain
-   version's, and its bound;
+   version's, and its bound.  The same on that layer for K4 (the
+   prefetch ring, depths 1, 2, 4: K3's contract) and K5 (one layer in
+   one launch: n_active, ``out`` and the marked set bitwise, exactly
+   one CUDA launch per call by the profiler), and for K2/K3 at B = 1
+   from a ``run(root)`` traversal;
 4. main path: Graph500 R-MAT SCALE 22 / edgefactor 16 from ``--seed``,
    an all-auto plan (must resolve to BeamerHybrid + fused_gather), a
    batch of 8 roots with degree > 0, timed; every tree validated and
    its depths checked against an independent level-synchronous BFS;
-5. the four direction policies at SCALE 16, batch 8;
-6. GPU vs the port's CPU path at SCALE 12: visited, depths, the stats
+5. the fusion paths at the same size — ``fused_gather`` at
+   ``prefetch_depth=2`` (K4), ``megakernel`` at depth 0 and 2 (K5) and
+   ``persistent`` (K6): each timed over 3 runs, trees valid, visited,
+   frontier, depths, layers, stats columns 0-6 and the direction log
+   equal to the main path's, the launches column as contracted, no
+   degrade, and by the profiler one K5 launch per layer and one K6
+   launch per traversal; K6 against its plain version on the batch's
+   initial state;
+6. the four direction policies at SCALE 16, batch 8, on every pipeline;
+7. GPU vs the port's CPU path at SCALE 12: visited, depths, the stats
    buffer and the direction log must be identical;
-7. the kernels' launch counts from the main-path run (all > 0).
+8. the kernels' launch counts from their paths' runs (all > 0).
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--scale 22]
+    python3 chip_smoke.py [--seed 0] [--scale 22] [--profile]
 """
 from __future__ import annotations
 
@@ -43,12 +55,29 @@ REPLACES = {
     "restoration": "src/repro/kernels/restoration.py:65",
     "frontier_compact_batched": "src/repro/kernels/compact.py:211",
     "gather_expand_batched": "src/repro/kernels/gather_expand.py:565",
+    "gather_expand_prefetch": "src/repro/kernels/gather_expand.py:565",
+    "layer_fused_batched": "src/repro/kernels/layer_fused.py:308",
+    "traversal_fused_batched": "src/repro/kernels/traversal_fused.py:457",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "restoration": "src/repro_torch/kernels/csrc/restoration.cu",
-    "frontier_compact_batched": "src/repro_torch/kernels/csrc/compact.cu",
-    "gather_expand_batched": "src/repro_torch/kernels/csrc/gather_expand.cu",
+    "restoration": CSRC + "restoration.cu",
+    "frontier_compact_batched": CSRC + "compact.cu",
+    "gather_expand_batched": CSRC + "gather_expand.cu",
+    "gather_expand_prefetch": CSRC + "gather_expand.cu",
+    "layer_fused_batched": CSRC + "layer_fused.cu",
+    "traversal_fused_batched": CSRC + "traversal_fused.cu",
 }
+#: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
+#: each must launch
+PATHS = {
+    "fused_gather_d2": (dict(prefetch_depth=2), "gather_expand_prefetch"),
+    "megakernel": (dict(pipeline="megakernel"), "layer_fused_batched"),
+    "megakernel_d2": (dict(pipeline="megakernel", prefetch_depth=2),
+                      "layer_fused_batched"),
+    "persistent": (dict(pipeline="persistent"), "traversal_fused_batched"),
+}
+PREFETCH_DEPTHS = (1, 2, 4)
 
 
 def log(msg: str) -> None:
@@ -125,7 +154,9 @@ class Capture:
                     tiles=tiles, compact=self._pending, wl=wl.clone(),
                     na=na.clone(), rows=rows, colstarts=colstarts,
                     frontier=frontier.clone(), visited=visited.clone(),
-                    out=out.clone(), p=p.clone(), kw=dict(kw))
+                    out=out.clone(), p=p.clone(),
+                    kw={k: v for k, v in kw.items()
+                        if k != "prefetch_depth"})
             return orig_gather(wl, na, rows, colstarts, frontier, visited,
                                out, p, **kw)
 
@@ -164,6 +195,48 @@ def k3_bytes(cap, n_marked: int) -> int:
             + 4 * n_marked)
 
 
+def fused_layer_bytes(fg, frontier, visited, bottom_up: bool,
+                      n_marked: int) -> int:
+    """Bytes one fused layer (K5) must move, each input read once: the
+    planning reads (two owner ids per block, the degree bitmap, the
+    frontier and visited words), the rows of the union of active blocks
+    and the colstarts entries they span, P read once for restoration,
+    one P word written per discovery, ``out`` and the counts written."""
+    import torch
+    from repro_torch.kernels.layer_fused import plan_blocks_plain
+    wl, na = plan_blocks_plain(fg, visited if bottom_up else frontier,
+                               bottom_up)
+    used = torch.zeros((fg.n_blocks,), dtype=torch.bool,
+                       device=wl.device)
+    for b in range(wl.shape[0]):
+        used[wl[b, :int(na[b])].long()] = True
+    blocks = torch.nonzero(used).flatten()
+    cs_entries = int((fg.blk_hi[blocks] - fg.blk_lo[blocks] + 2).sum())
+    n_batch, n_words = frontier.shape
+    v_pad = int(fg.deg.shape[0])
+    return (4 * fg.tile * int(blocks.numel()) + 4 * cs_entries
+            + 8 * fg.n_blocks + 4 * n_words + 8 * n_batch * n_words
+            + 4 * n_batch * v_pad + 4 * n_marked + 4 * n_batch * n_words
+            + 4 * n_batch)
+
+
+def device_kernels(fn):
+    """Run ``fn`` under the profiler: {kernel name: launches} of the
+    device-side events (kernels and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0}
+
+
+def launches_of(kernels: dict, name: str) -> int:
+    return sum(n for k, n in kernels.items() if name in k)
+
+
 def check_marks(cap, p_racy, frontier_b):
     """Every marked P names a frontier vertex adjacent to its vertex."""
     import torch
@@ -191,8 +264,10 @@ def check_marks(cap, p_racy, frontier_b):
             f"root {b}: a marked parent is not a neighbour"
 
 
-def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int):
-    """Phase 3: each kernel against its plain version on the card."""
+def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
+                  label: str = ""):
+    """Phase 3: each kernel against its plain version on the card.  The
+    plain K3's output stays in ``cap["plain_k3"]`` for phase 3b."""
     import torch
     from repro_torch.kernels import compact as ck
     from repro_torch.kernels import gather_expand as ge
@@ -236,6 +311,7 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int):
     assert k3_err == 0, "gather_expand: the marked sets disagree"
     check_marks(cap, p_k, cap["frontier"])
     n_marked = int(marked_k.sum())
+    cap["plain_k3"] = (out_p, p_p)
     out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
 
     def reset():
@@ -269,18 +345,175 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int):
                          max(3, reps // 4)))
     for name, r in results.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        log(json.dumps({"kernel": name, "ms": r["ms"],
+        log(json.dumps({"kernel": name + label, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bytes": r["bytes"],
                         "bound_ms": r["bound_ms"],
                         "max_abs_err": r["max_abs_err"]}))
-    log(f"K3 layer: {cap['tiles']} active tiles, {n_marked} marked, "
-        f"bottom_up={kw['bottom_up']}")
+    log(f"K3 layer{label}: {cap['tiles']} active tiles, {n_marked} "
+        f"marked, bottom_up={kw['bottom_up']}")
     return results
 
 
-def profile_run(ct, roots) -> None:
-    """Trace one main-path run: device time by kernel name and the
-    device's idle share of the run's wall time."""
+def phase_prefetch(cap, reps: int, k3: dict):
+    """Phase 3b: K4 at each depth on the captured layer, on K3's
+    contract against the plain version (K3's)."""
+    import torch
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels import restoration as rest
+    kw, n = cap["kw"], cap["kw"]["n_vertices"]
+    out_p, p_p = cap["plain_k3"]
+    _, delta_p = rest.restoration_plain(p_p, n)
+    out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
+
+    def reset():
+        out_buf.copy_(cap["out"])
+        p_buf.copy_(cap["p"])
+
+    per_depth = {}
+    for depth in PREFETCH_DEPTHS:
+        reset()
+        run = lambda: ge.gather_expand_cuda(
+            cap["wl"], cap["na"], cap["rows"], cap["colstarts"],
+            cap["frontier"], cap["visited"], out_buf, p_buf,
+            prefetch_depth=depth, **kw)
+        run()
+        torch.cuda.synchronize()
+        _, delta_k = rest.restoration_plain(p_buf, n)
+        err = int(((p_buf < 0) != (p_p < 0)).sum())
+        for name, a, b in (("out|delta", out_buf | delta_k, out_p | delta_p),
+                           ("visited|delta", cap["visited"] | delta_k,
+                            cap["visited"] | delta_p)):
+            err = max(err, int((a != b).sum()))
+        assert err == 0, f"K4 at depth {depth} disagrees with K3's plain"
+        check_marks(cap, p_buf, cap["frontier"])
+        per_depth[depth] = cuda_ms(run, reps, setup=reset)
+        log(json.dumps({"kernel": "gather_expand_prefetch",
+                        "prefetch_depth": depth, "ms": per_depth[depth],
+                        "k3_ms": k3["ms"], "max_abs_err": err}))
+    return dict(max_abs_err=0, ms=per_depth[2], plain_ms=k3["plain_ms"],
+                bytes=k3["bytes"], bound_ms=k3["bound_ms"],
+                per_depth=per_depth)
+
+
+def phase_layer_fused(cap, v_pad: int, reps: int):
+    """Phase 3c: K5 on the captured layer against its plain version:
+    n_active, ``out`` and the marked set bitwise, every parent a
+    frontier neighbour, one CUDA launch per call."""
+    import torch
+    from repro_torch.kernels import layer_fused as lf
+    kw, n = cap["kw"], cap["kw"]["n_vertices"]
+    fg = lf.fused_csr(cap["colstarts"], cap["rows"], n, kw["tile"], v_pad)
+    bu = kw["bottom_up"]
+    p_buf = cap["p"].clone()
+    run = lambda: lf.layer_fused_cuda(fg, cap["frontier"], cap["visited"],
+                                      p_buf, bottom_up=bu)
+    out_k, p_k, na_k = run()
+    p_plain = cap["p"].clone()
+    out_p, p_p, na_p = lf.layer_fused_plain(fg, cap["frontier"],
+                                            cap["visited"], p_plain,
+                                            bottom_up=bu)
+    torch.cuda.synchronize()
+    marked_k, marked_p = p_k != cap["p"], p_p != cap["p"]
+    err = max(int((na_k != na_p).sum()), int((na_k != cap["na"]).sum()),
+              int((out_k != out_p).sum()), int((marked_k != marked_p).sum()),
+              int(((cap["visited"] | out_k)
+                   != (cap["visited"] | out_p)).sum()))
+    assert err == 0, "layer_fused disagrees with its plain version"
+    check_marks(cap, torch.where(marked_k, p_k - n, cap["p"]),
+                cap["frontier"])
+    n_marked = int(marked_k.sum())
+
+    def reset():
+        p_buf.copy_(cap["p"])
+
+    reset()
+    kernels = device_kernels(run)
+    assert sum(kernels.values()) == 1 \
+        and launches_of(kernels, "layer_fused_kernel") == 1, \
+        f"K5 must be one CUDA launch per call, profiler saw {kernels}"
+    res = dict(max_abs_err=err, n_marked=n_marked,
+               bytes=fused_layer_bytes(fg, cap["frontier"], cap["visited"],
+                                       bu, n_marked),
+               ms=cuda_ms(run, reps, setup=reset),
+               plain_ms=cuda_ms(lambda: lf.layer_fused_plain(
+                   fg, cap["frontier"], cap["visited"], p_plain,
+                   bottom_up=bu), 3, setup=lambda: p_plain.copy_(cap["p"])))
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"kernel": "layer_fused_batched", "ms": res["ms"],
+                    "plain_ms": res["plain_ms"], "bytes": res["bytes"],
+                    "bound_ms": res["bound_ms"], "max_abs_err": err,
+                    "cuda_launches_per_call": 1}))
+    return res
+
+
+class LayerCapture:
+    """Records every K5 layer's inputs (frontier, visited, direction) and
+    its discoveries while a megakernel traversal runs."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.layers = []
+
+    def __enter__(self):
+        orig = self._orig = self.ops.layer_fused_batched
+
+        def layer(graph, frontier, visited, parent, **kw):
+            f, v = frontier.clone(), visited.clone()
+            out, p, na = orig(graph, frontier, visited, parent, **kw)
+            from repro_torch.core.engine import row_popcounts
+            self.layers.append((graph, f, v, kw["bottom_up"],
+                                int(row_popcounts(out).sum())))
+            return out, p, na
+
+        self.ops.layer_fused_batched = layer
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.layer_fused_batched = self._orig
+        return False
+
+
+def phase_persistent_kernel(ct, roots, layers, reps: int):
+    """K6 against its plain version on the batch's initial state; bytes
+    = the per-layer K5 bytes of the same traversal (``layers`` from a
+    `LayerCapture`) plus one read of the degrees."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import traversal_fused as tf
+    fmt, spec = ct.fmt, ct.resolved
+    fg = fmt.fused_graph(spec)
+    r = torch.as_tensor(roots, dtype=torch.int32, device=fmt.device)
+    state = engine._init_batched(r, fmt.n_vertices, fmt.n_vertices_padded)
+    code = engine.encode_policy(spec.policy, fmt.n_vertices, len(roots),
+                                spec.max_layers)
+    kw = dict(code=code, max_layers=spec.max_layers)
+    got = tf.traversal_fused_cuda(fg, *state, **kw)
+    want = tf.traversal_fused_plain(fg, *state, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for i, name in ((0, "frontier"), (1, "visited"), (3, "depths"),
+                    (4, "layers"), (5, "stats")):
+        err = max(err, int((got[i] != want[i]).sum()))
+        assert torch.equal(got[i], want[i]), \
+            f"traversal_fused: {name} disagrees with its plain version"
+    bytes_ = sum(fused_layer_bytes(g, f, v, bu, m)
+                 for g, f, v, bu, m in layers) + 4 * int(fg.deg.shape[0])
+    res = dict(max_abs_err=err, bytes=bytes_,
+               bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+               ms=cuda_ms(lambda: tf.traversal_fused_cuda(fg, *state, **kw),
+                          reps),
+               plain_ms=cuda_ms(lambda: tf.traversal_fused_plain(
+                   fg, *state, **kw), 1))
+    log(json.dumps({"kernel": "traversal_fused_batched", "ms": res["ms"],
+                    "plain_ms": res["plain_ms"], "bytes": bytes_,
+                    "bound_ms": res["bound_ms"], "max_abs_err": err,
+                    "layers": int(got[4][0])}))
+    return res
+
+
+def profile_run(ct, roots, label: str = "main path", top: int = 15):
+    """Trace one run: device time by kernel name and the device's idle
+    share of the run's wall time.  Returns {kernel name: launches}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -296,11 +529,13 @@ def profile_run(ct, roots) -> None:
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
-    for e in events[:15]:
+    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, "
+        f"{sum(e.count for e in events)} device events")
+    for e in events[:top]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    return {e.key: e.count for e in events}
 
 
 def make_graph(scale: int, seed: int, device: str):
@@ -334,6 +569,54 @@ def trees_ok(g, res, roots, oracle):
     return parents
 
 
+def run_path(g, roots, name: str, base, oracle, edges: int):
+    """Phase 5: one fusion path at the main path's size, counted, timed
+    over 3 runs and held to the main path's result."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import errors
+    from repro_torch.kernels import ops
+    fields, kernel = PATHS[name]
+    ct = bfs.plan(g, bfs.TraversalSpec(**fields))
+    assert isinstance(ct.resolved.policy, bfs.BeamerHybrid), ct.resolved
+    ct.run_batched(roots)                           # warm-up
+    torch.cuda.synchronize()
+    errors.DEGRADES.clear()
+    ops.reset_kernel_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = ct.run_batched(roots)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            launches = dict(ops.KERNEL_LAUNCHES)
+    assert not errors.DEGRADES, f"{name}: degraded: {errors.DEGRADES}"
+    assert launches[kernel] > 0, f"{name}: {kernel} was never launched"
+    n_layers = int(base.state.layer)
+    modes = base.stats[:n_layers, 3]
+    assert bool((modes != 0).all()), "BeamerHybrid ran a scalar layer"
+    for what, a, b in (("visited", res.state.visited, base.state.visited),
+                       ("frontier", res.state.frontier, base.state.frontier),
+                       ("depths", res.depths, base.depths),
+                       ("stats columns 0-6", res.stats[:, :7],
+                        base.stats[:, :7])):
+        assert torch.equal(a, b), f"{name}: {what} differ from fused_gather"
+    assert int(res.state.layer) == n_layers
+    assert bfs.direction_log(res) == bfs.direction_log(base)
+    col = res.stats[:n_layers, 7].tolist()
+    want = {"persistent": [1] + [0] * (n_layers - 1),
+            "fused_gather_d2": [3] * n_layers}.get(name, [1] * n_layers)
+    assert col == want, f"{name}: launches column {col}, expected {want}"
+    trees_ok(g, res, roots, oracle)
+    log(f"path {name}: {len(roots)} roots, {n_layers} layers, "
+        f"{edges} traversed edges, runs {[round(t, 6) for t in times]} s "
+        f"-> {edges / times[0]:.6e} TEPS (first run); {kernel} launches "
+        f"{launches[kernel]}; trees valid, visited/depths/stats/direction "
+        f"log equal fused_gather; no degrade")
+    return ct, launches, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -353,6 +636,7 @@ def main(argv=None) -> int:
               "smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import repro_torch.bfs as bfs
+    from repro_torch import errors
     from repro_torch.core import bfs_serial
     from repro_torch.core.csr import traversed_edges
     from repro_torch.kernels import _build, ops
@@ -398,10 +682,21 @@ def main(argv=None) -> int:
         ct.run_batched(roots)
     torch.cuda.synchronize()
 
-    # 3. kernels vs plain versions
+    # 3. kernels vs plain versions; 3b K4; 3c K5; K2/K3 at B = 1
     kres = phase_kernels(cap.best, g.n_vertices, g.n_vertices_padded,
                          args.reps)
+    kres["gather_expand_prefetch"] = phase_prefetch(
+        cap.best, args.reps, kres["gather_expand_batched"])
+    kres["layer_fused_batched"] = phase_layer_fused(
+        cap.best, g.n_vertices_padded, args.reps)
     del cap
+    torch.cuda.empty_cache()
+    with Capture(ops) as cap1:
+        ct.run(roots[0])
+    torch.cuda.synchronize()
+    phase_kernels(cap1.best, g.n_vertices, g.n_vertices_padded,
+                  max(5, args.reps // 4), label="_b1")
+    del cap1
     torch.cuda.empty_cache()
 
     # 4. main path (the counted run)
@@ -425,9 +720,9 @@ def main(argv=None) -> int:
         torch.arange(g.n_vertices, device="cuda"), g.degrees().long(),
         output_size=g.n_edges)
     dst = g.rows[:g.n_edges].long()
-    parents = trees_ok(
-        g, res, roots,
-        lambda root: level_bfs_depths(src, dst, g.n_vertices, root))
+    oracle_depths = {r: level_bfs_depths(src, dst, g.n_vertices, r)
+                     for r in roots}
+    parents = trees_ok(g, res, roots, oracle_depths.__getitem__)
     del src, dst
     edges = sum(int(traversed_edges(g, parents[b] >= 0))
                 for b in range(len(roots)))
@@ -439,11 +734,38 @@ def main(argv=None) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if args.profile:
         profile_run(ct, roots)
-    del ct, res, parents, g
+
+    # 5. the fusion paths at the main path's size
+    path_launches = {}
+    for name in PATHS:
+        ct_path, launched, _ = run_path(g, roots, name, res,
+                                        oracle_depths.__getitem__, edges)
+        path_launches[PATHS[name][1]] = launched[PATHS[name][1]]
+        if name == "megakernel":
+            kernels = profile_run(ct_path, roots, "megakernel", top=8)
+            n_layers = int(res.state.layer)
+            assert launches_of(kernels, "layer_fused_kernel") == n_layers, \
+                "K5 must be one CUDA launch per layer"
+            log(f"megakernel: {n_layers} K5 launches for {n_layers} layers")
+            with LayerCapture(ops) as fused_layers:
+                ct_path.run_batched(roots)
+        if name == "persistent":
+            kernels = profile_run(ct_path, roots, "persistent", top=8)
+            assert launches_of(kernels, "traversal_fused_kernel") == 1, \
+                "K6 must be one CUDA launch per traversal"
+            log(f"persistent: 1 K6 launch per traversal; "
+                f"{sum(kernels.values()) - 1} other device events "
+                f"(initial state)")
+            kres["traversal_fused_batched"] = phase_persistent_kernel(
+                ct_path, roots, fused_layers.layers, 5)
+        del ct_path
+    del fused_layers
+    launches.update(path_launches)
+    del ct, res, parents, g, oracle_depths
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
 
-    # 5. four policies at SCALE 16
+    # 6. four policies at SCALE 16, every pipeline
     g16 = make_graph(16, args.seed, "cuda")
     roots16 = pick_roots(g16, BATCH, args.seed + 1)
     rows_np = g16.rows.cpu().numpy()
@@ -458,35 +780,54 @@ def main(argv=None) -> int:
 
     for pol in (bfs.TopDown(), bfs.ThresholdSimd(), bfs.PaperLiteralLayers(),
                 bfs.BeamerHybrid()):
-        res = bfs.plan(g16, bfs.TraversalSpec(policy=pol)) \
+        base16 = bfs.plan(g16, bfs.TraversalSpec(policy=pol)) \
             .run_batched(roots16)
-        trees_ok(g16, res, roots16, serial)
+        trees_ok(g16, base16, roots16, serial)
+        errors.DEGRADES.clear()
+        for fields, _ in PATHS.values():
+            res = bfs.plan(g16, bfs.TraversalSpec(policy=pol, **fields)) \
+                .run_batched(roots16)
+            trees_ok(g16, res, roots16, serial)
+            for what, a, b in (
+                    ("visited", res.state.visited, base16.state.visited),
+                    ("depths", res.depths, base16.depths),
+                    ("stats columns 0-4", res.stats[:, :5],
+                     base16.stats[:, :5])):
+                assert torch.equal(a, b), \
+                    f"{type(pol).__name__} {fields}: {what} differ"
+            assert bfs.direction_log(res) == bfs.direction_log(base16)
+        assert not errors.DEGRADES, errors.DEGRADES
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
-            f"depths equal bfs_serial; {bfs.direction_log(res)}")
+            f"depths equal bfs_serial, every pipeline equals fused_gather; "
+            f"{bfs.direction_log(base16)}")
     del g16
     bfs.clear_plan_cache()
 
-    # 6. GPU vs the port's CPU path at SCALE 12
+    # 7. GPU vs the port's CPU path at SCALE 12
     g12 = make_graph(12, args.seed, "cuda")
     roots12 = pick_roots(g12, BATCH, args.seed + 2)
     g12_cpu = type(g12)(g12.rows.cpu(), g12.colstarts.cpu(),
                         g12.n_vertices, g12.n_edges)
     for pol in (bfs.TopDown(), bfs.ThresholdSimd(2048),
                 bfs.PaperLiteralLayers(), bfs.BeamerHybrid()):
-        spec = bfs.TraversalSpec(policy=pol)
-        a = bfs.plan(g12, spec).run_batched(roots12)
-        c = bfs.plan(g12_cpu, spec, device="cpu").run_batched(roots12)
-        for name, x, y in (("visited", a.state.visited, c.state.visited),
-                           ("depths", a.depths, c.depths),
-                           ("stats", a.stats, c.stats)):
-            assert torch.equal(x.cpu(), y), \
-                f"{type(pol).__name__}: GPU and CPU {name} differ"
-        assert bfs.direction_log(a) == bfs.direction_log(c)
+        for pipeline in ("fused_gather", "megakernel", "persistent"):
+            spec = bfs.TraversalSpec(policy=pol, pipeline=pipeline)
+            a = bfs.plan(g12, spec).run_batched(roots12)
+            c = bfs.plan(g12_cpu, spec, device="cpu").run_batched(roots12)
+            for name, x, y in (("visited", a.state.visited,
+                                c.state.visited),
+                               ("depths", a.depths, c.depths),
+                               ("stats", a.stats, c.stats)):
+                assert torch.equal(x.cpu(), y), \
+                    f"{type(pol).__name__} {pipeline}: GPU and CPU " \
+                    f"{name} differ"
+            assert bfs.direction_log(a) == bfs.direction_log(c)
         log(f"parity {type(pol).__name__} @ SCALE 12: GPU == CPU "
-            f"(visited, depths, stats, direction_log)")
+            f"(visited, depths, stats, direction_log) on fused_gather, "
+            f"megakernel and persistent")
 
-    # 7. launch counts of the main-path run
-    log("launch counts (main path): " + ", ".join(
+    # 8. launch counts of the paths' runs
+    log("launch counts (main path and fusion paths): " + ", ".join(
         f"{k}={v}" for k, v in launches.items()))
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
@@ -496,8 +837,7 @@ def main(argv=None) -> int:
     assert not leaked, f"imported the JAX package: {leaked[:5]}"
 
     rows = []
-    for name in ("restoration", "frontier_compact_batched",
-                 "gather_expand_batched"):
+    for name in SOURCES:
         k = kres[name]
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],

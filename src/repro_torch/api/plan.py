@@ -8,10 +8,12 @@
 
 `plan` validates the graph, resolves the spec's ``"auto"`` fields once
 and binds a cached `_Executable`: the tile-padded rows, the degree
-matrix and the per-mode steps, built once per (format, geometry,
-resolved spec).  The format part of the key is the identity of the
-graph's arrays, which the cache entry holds, so two graphs of equal
-geometry never share padded rows.
+matrix and the per-mode steps (or, for ``pipeline="persistent"``, the
+whole-traversal kernel's loop constants), built once per (format,
+geometry, resolved spec).  The key holds the resolved spec, so each
+pipeline and prefetch depth has its own entry.  The format part of the
+key is the identity of the graph's arrays, which the cache entry holds,
+so two graphs of equal geometry never share padded rows.
 
 ``device=`` (default ``"cuda"``) names where the traversal runs; the
 graph is moved there if it lies elsewhere, and without CUDA the default
@@ -68,12 +70,21 @@ def as_format(graph) -> CsrFormat:
 
 class _Executable:
     """The cached unit: steps (with the padded rows) and the degree
-    matrix for one (format, geometry, resolved spec)."""
+    matrix for one (format, geometry, resolved spec).  The persistent
+    pipeline builds no per-layer steps: its loop constants are built
+    here (and kept on the format); only a degrade builds steps, at
+    run time."""
 
     def __init__(self, fmt: CsrFormat, spec: TraversalSpec):
         self.fmt = fmt
         self.spec = spec
-        self.steps = fmt.make_steps(spec)
+        if spec.pipeline == "persistent":
+            _engine.check_prefetch(spec.tile, spec.prefetch_depth,
+                                   fmt.n_blocks(spec.tile))
+            fmt.fused_graph(spec)
+            self.steps = None
+        else:
+            self.steps = fmt.make_steps(spec)
         self.deg_mat = fmt.degree_matrix()
 
     def run(self, roots: torch.Tensor) -> _engine.EngineResult:

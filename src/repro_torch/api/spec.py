@@ -14,6 +14,10 @@ built-in defaults only (no benchmark table is read):
   ``merge``: ``"packed"`` (read only by the distributed path);
 * ``tile``: the format's rule (`CsrFormat.resolve_tile`).
 
+``pipeline`` runs ``"fused_gather"``, ``"megakernel"`` and
+``"persistent"``, at any ``prefetch_depth``; the auto choice stays
+``fused_gather`` at depth 0 (changing it needs measurements).
+
 Values the reference accepts but this port does not run yet raise a
 typed `NotImplementedError` naming the ROADMAP item that brings them;
 nothing degrades silently.
@@ -30,7 +34,7 @@ from repro_torch.core import engine as _engine
 AUTO = "auto"
 
 _ALGORITHMS = ("simd", "nonsimd")
-#: the reference's pipelines; only "fused_gather" is ported so far
+#: the reference's pipelines; all but "materialized" are ported
 PIPELINES = ("fused_gather", "materialized", "megakernel", "persistent")
 _MERGES = ("allreduce", "owner", "packed")
 #: the reference's semiring portfolio values (ROADMAP item 9)
@@ -49,8 +53,6 @@ _POLICY_NAMES = {cls: name for name, cls in POLICIES.items()}
 #: unsupported-but-valid values -> the ROADMAP item that brings them
 _NOT_PORTED = {
     ("pipeline", "materialized"): "6 (materialized pipeline on K7)",
-    ("pipeline", "megakernel"): "7 (megakernel, K5)",
-    ("pipeline", "persistent"): "7 (persistent kernel, K6)",
     ("packed", False): "6 (the dense-mask packed=False arm)",
 }
 
@@ -64,8 +66,8 @@ def _is_policy(obj: Any) -> bool:
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP item {item}); "
-        f"this slice runs pipeline='fused_gather', packed=True, "
-        f"prefetch_depth=0 on CSR")
+        f"the port runs the fused_gather, megakernel and persistent "
+        f"pipelines, packed=True, on CSR")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,10 +153,29 @@ class TraversalSpec:
             item = _NOT_PORTED.get((field, getattr(self, field)))
             if item is not None:
                 raise not_ported(f"{field}={getattr(self, field)!r}", item)
-        if self.prefetch_depth != AUTO and self.prefetch_depth > 0:
-            raise not_ported(f"prefetch_depth={self.prefetch_depth}",
-                             "7 (the K4 DMA pipeline)")
         return self
+
+    def _validate_for(self, fmt) -> None:
+        """The format-dependent checks of the reference's ``validate``
+        (the same messages), plus the persistent kernel's policies."""
+        fmt_label = getattr(fmt, "name", type(fmt).__name__)
+        if self.pipeline == "persistent":
+            allowed = getattr(fmt, "persistent_algorithms", ())
+            if self.algorithm != AUTO and allowed \
+                    and self.algorithm not in allowed:
+                raise ValueError(
+                    f"pipeline='persistent' on the {fmt_label!r} "
+                    f"format honors algorithm in {allowed}, got "
+                    f"{self.algorithm!r}: the in-kernel layer "
+                    f"loop has no plain-jnp scalar arm — use one "
+                    f"of {allowed}, or pipeline='megakernel'")
+            if _is_policy(self.policy) \
+                    and type(self.policy) not in _POLICY_NAMES:
+                raise NotImplementedError(
+                    f"pipeline='persistent' runs the registered policies "
+                    f"{sorted(POLICIES)}; {type(self.policy).__name__} "
+                    f"has no in-kernel encoding in repro_torch — use "
+                    f"pipeline='megakernel'")
 
     # -- auto resolution (exactly once, at plan time) --------------------
     def resolve(self, fmt) -> "TraversalSpec":
@@ -170,6 +191,7 @@ class TraversalSpec:
                       else _engine.ThresholdSimd())
         elif isinstance(policy, str):
             policy = POLICIES[policy]()
+        self._validate_for(fmt)
         resolved = self.replace(
             policy=policy,
             algorithm="simd" if self.algorithm == AUTO else self.algorithm,

@@ -1,23 +1,29 @@
 """The batched BFS traversal engine with pluggable direction policies.
 
-A port of ``repro.core.engine``'s main path: the ``fused_gather``
-pipeline on packed bitmaps with ``prefetch_depth=0``.  Each layer runs
+A port of ``repro.core.engine`` on packed bitmaps and CSR, with the
+reference's three fused pipelines: ``fused_gather`` (any
+``prefetch_depth``), ``megakernel`` and ``persistent``.  Each layer runs
 
     measure workload  ->  decide direction  ->  expand  ->  restore
 
 * **measure** (`Workload`): the Table 1 counters, computed on the
   device from word popcounts and the word-aligned degree matrix —
-  int32 per root, then float32 batch sums, exactly as the reference
-  computes them, so the policies' comparisons decide identically.
+  int32 per root, then the float32 of their exact int64 batch sum (the
+  reference sums float32 per-root values; the two agree wherever the
+  sum is exact, and this one does not depend on a reduction order, so
+  the whole-traversal kernel decides from the same numbers).
 * **decide** (`TopDown`, `ThresholdSimd`, `PaperLiteralLayers`,
   `BeamerHybrid`): small frozen objects deciding from those counters
   with torch ops on the device.
-* **expand**: a SIMD or bottom-up layer is `_make_fused_step`: K2
-  compacts the frontier (or the unvisited set) into a queue, plain
-  torch marks the rows-blocks its adjacency touches and compacts them
-  into a work-list, K3 gathers and expands those blocks with the racy
-  scatter, and K1 restores.  A scalar layer (`_make_scalar_step`) is
-  K2 plus the plain apportionment and `expand_candidates`.
+* **expand**: a SIMD or bottom-up layer is, for ``fused_gather``,
+  `_make_fused_step`: K2 compacts the frontier (or the unvisited set)
+  into a queue, plain torch marks the rows-blocks its adjacency touches
+  and compacts them into a work-list, K3 (K4 at ``prefetch_depth > 0``)
+  gathers and expands those blocks with the racy scatter, and K1
+  restores.  For ``megakernel`` it is `_make_megakernel_step`: K5 does
+  all of that in one launch.  A scalar layer (`_make_scalar_step`) is
+  K2 plus the plain apportionment and `expand_candidates`, in every
+  pipeline.
 * **restore** (§3.3.2): vertices marked by a negative P are repaired
   into ``out`` and ``visited``.
 
@@ -27,8 +33,8 @@ Python loop with exactly **one host sync per layer**: a single
 ``tolist()`` reads the loop condition (is any frontier non-empty) and
 the policy's mode together, and the host then launches the chosen
 step.  Everything else — counters, stats row, depths — stays on the
-device.  Capturing the layer in a CUDA graph, or running fixed
-``max_layers`` iterations with masked no-op layers, is later work.
+device.  ``pipeline="persistent"`` has no host loop: K6 runs the whole
+traversal in one launch (`_traverse_persistent`).
 
 State arrays carry a leading root axis (B, ...).  Bitmap words are
 int32 (see `repro_torch.core.bitmap`).
@@ -43,7 +49,11 @@ import torch
 
 from repro_torch.core import bitmap as bm
 from repro_torch.core.csr import padding_premarked_visited
+from repro_torch.errors import record_degrade
 from repro_torch.kernels import ops
+from repro_torch.kernels import traversal_fused as tf
+from repro_torch.kernels.layer_fused import (FusedCsr, compact_worklist,
+                                             fused_csr)
 from repro_torch.kernels.restoration import restoration_plain
 
 MODE_SCALAR = 0     # plain torch Algorithm 2/3 layer
@@ -87,9 +97,10 @@ class StepAux(NamedTuple):
 class Workload(NamedTuple):
     """Counters a direction policy decides from (§4.1).
 
-    Batch sums are float32 (per-root values are int32-exact; a batch
-    can sum past 2^31).  ``n_roots`` scales Beamer's V/beta to the
-    batch.  ``layer`` is the host's layer index."""
+    Batch sums are float32 of the exact sum (per-root values are
+    int32-exact; a batch can sum past 2^31).  ``n_roots`` scales
+    Beamer's V/beta to the batch.  ``layer`` is the host's layer
+    index."""
     layer: int
     frontier_vertices: torch.Tensor
     frontier_edges: torch.Tensor
@@ -169,7 +180,10 @@ class BeamerHybrid:
         f_edges = w.frontier_edges.to(torch.float32)
         u_edges = w.unvisited_edges.to(torch.float32)
         f_count = w.frontier_vertices.to(torch.float32)
-        switch_down = (~w.bottom_up) & (f_edges > u_edges / self.alpha)
+        # a tensor divisor: a true float32 division on every device (a
+        # Python-scalar divisor may become a reciprocal multiply)
+        alpha = torch.full_like(u_edges, self.alpha)
+        switch_down = (~w.bottom_up) & (f_edges > u_edges / alpha)
         # V/beta scales by the batch width: counters are batch-summed
         switch_up = w.bottom_up & (
             f_count < w.n_vertices * w.n_roots / self.beta)
@@ -182,6 +196,9 @@ class BeamerHybrid:
 # ---------------------------------------------------------------------------
 # Shared per-layer building blocks
 # ---------------------------------------------------------------------------
+
+_DROP_SLOTS = 4096    # dropped marks spread over this many slots
+
 
 def apportion(colstarts, rows, frontier_list, n_vertices: int,
               n_slots: int):
@@ -200,9 +217,14 @@ def apportion(colstarts, rows, frontier_list, n_vertices: int,
     cum = torch.cumsum(deg, dim=1)                      # int64
     total = cum[:, -1] if n_list else cum.new_zeros((n_batch,))
     truncated = (total - n_slots).clamp(min=0).to(torch.int32)
-    markers = torch.zeros((n_batch, n_slots + 1), dtype=torch.int64,
-                          device=rows.device)
-    markers.scatter_add_(1, cum.clamp(max=n_slots),
+    # sentinel entries end at ``total``, past every valid slot: their
+    # markers go to dropped slots, spread as in `_mark_blocks`
+    drop = n_slots + 1 + torch.arange(n_list, device=rows.device) \
+        % _DROP_SLOTS
+    markers = torch.zeros((n_batch, n_slots + 1 + _DROP_SLOTS),
+                          dtype=torch.int64, device=rows.device)
+    markers.scatter_add_(1, torch.where(is_real, cum.clamp(max=n_slots),
+                                        drop),
                          torch.ones_like(cum))
     owner = torch.cumsum(markers[:, :n_slots], dim=1)
     owner_c = owner.clamp(0, n_list - 1)
@@ -269,33 +291,6 @@ def expand_candidates(u, v, valid, frontier, visited, parent,
     parent, out, visited = restore_plain(parent, out[:, :n_words],
                                          visited, n_vertices)
     return out, visited, parent
-
-
-def compact_worklist(active: torch.Tensor, n: int):
-    """Bool mask (B, n) -> (worklist (B, n) int32, n_active (B,) int32).
-
-    Active indices first; every entry past ``n_active`` is clamped to
-    the last active index (all zeros when nothing is active) — the
-    work-list contract of the reference.  Built from a prefix sum and a
-    scatter, with no ``nonzero`` and no host sync."""
-    n_batch = active.shape[0]
-    n_active = active.sum(dim=1).to(torch.int32)
-    rank = torch.cumsum(active.to(torch.int64), dim=1) - 1
-    slot = torch.where(active, rank, n)
-    wl = torch.zeros((n_batch, n + 1), dtype=torch.int32,
-                     device=active.device)
-    wl.scatter_(1, slot, torch.arange(n, dtype=torch.int32,
-                                      device=active.device)
-                .expand(n_batch, -1).contiguous())
-    wl = wl[:, :n]
-    last = torch.gather(
-        wl, 1, (n_active.to(torch.int64) - 1).clamp(0, n - 1)[:, None])
-    pos = torch.arange(n, device=active.device)
-    wl = torch.where(pos < n_active[:, None], wl, last)
-    return wl.contiguous(), n_active
-
-
-_DROP_SLOTS = 4096    # dropped marks spread over this many slots
 
 
 def _mark_blocks(start, end, has, tile: int, n_blocks: int):
@@ -382,12 +377,13 @@ def _make_scalar_step(colstarts, rows, n_vertices: int, v_pad: int,
 
 
 def _make_fused_step(colstarts, rows_t, n_vertices: int, tile: int,
-                     bottom_up: bool):
+                     bottom_up: bool, prefetch_depth: int = 0):
     """One fused_gather layer, both directions: K2 + plain block
     marking plan the active rows-blocks of the frontier's adjacency
     (bottom-up: of the unvisited set's, ``~visited``, exact because
-    padding is premarked), K3 gathers and expands them, K1 restores.
-    ``rows_t`` is the tile-padded rows array."""
+    padding is premarked), K3 (K4 at ``prefetch_depth > 0``) gathers
+    and expands them, K1 restores.  ``rows_t`` is the tile-padded rows
+    array."""
     n_blocks = int(rows_t.shape[0]) // tile
 
     def step(frontier, visited, parent):
@@ -399,7 +395,8 @@ def _make_fused_step(colstarts, rows_t, n_vertices: int, tile: int,
             out_racy, p_racy = ops.gather_expand_batched(
                 wl, na, rows_t, colstarts, frontier, visited,
                 torch.zeros_like(frontier), parent,
-                n_vertices=n_vertices, tile=tile, bottom_up=bottom_up)
+                n_vertices=n_vertices, tile=tile, bottom_up=bottom_up,
+                prefetch_depth=prefetch_depth)
             p_fixed, delta = ops.restore(p_racy, n_vertices=n_vertices)
         aux = StepAux(na.sum(), 0, c.count)
         return out_racy | delta, visited | delta, p_fixed, aux
@@ -407,21 +404,99 @@ def _make_fused_step(colstarts, rows_t, n_vertices: int, tile: int,
     return step
 
 
+def _make_megakernel_step(graph: FusedCsr, bottom_up: bool,
+                          prefetch_depth: int = 0):
+    """One whole layer in ONE launch (K5): plan, gather-expand and
+    restore.  ``out`` comes back repaired, so the visited merge is a
+    plain OR."""
+
+    def step(frontier, visited, parent):
+        with ops.count_launches() as c:
+            out, parent, na = ops.layer_fused_batched(
+                graph, frontier, visited, parent, bottom_up=bottom_up,
+                prefetch_depth=prefetch_depth)
+        aux = StepAux(na.sum(), 0, c.count)
+        return out, visited | out, parent, aux
+
+    return step
+
+
+def check_prefetch(tile: int, prefetch_depth: int, n_blocks: int) -> None:
+    """Refuse a prefetch ring that no CTA can hold (a launch would
+    fail)."""
+    if not ops.gather_stage_fits(tile, prefetch_depth, n_blocks):
+        depth = min(prefetch_depth, n_blocks)
+        raise ValueError(
+            f"prefetch_depth={prefetch_depth} at tile={tile} needs "
+            f"{(depth + 1) * tile * 4} bytes of shared memory per CTA "
+            f"for its rows ring; the card allows "
+            f"{ops.SMEM_OPTIN_BYTES}: use a smaller depth or tile")
+
+
 def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
-                tile):
-    """Per-mode steps of the ``fused_gather`` pipeline, the only one
-    this port has so far (`api.spec` refuses the others)."""
+                tile, pipeline: str = "fused_gather",
+                prefetch_depth: int = 0):
+    """Per-mode steps of a pipeline.  ``megakernel`` (and the per-layer
+    steps of ``persistent``, which runs them only where its kernel
+    degrades) is K5, unless its budget does not fit: then it degrades,
+    observably, to the ``fused_gather`` steps.  Scalar layers are the
+    plain step in every pipeline."""
     rows = rows.contiguous()
     colstarts = colstarts.contiguous()
     rows_t = _pad_rows_to_tile(rows, n_vertices, tile)
+    n_blocks = int(rows_t.shape[0]) // tile
+    check_prefetch(tile, prefetch_depth, n_blocks)
+    fused = pipeline in ("megakernel", "persistent")
+    if fused and not ops.megakernel_fits(tile, prefetch_depth, n_blocks):
+        record_degrade(
+            "smem_fallback",
+            reason=(f"megakernel(tile={tile}, blocks={n_blocks}, "
+                    f"depth={prefetch_depth}) needs "
+                    f"{ops.megakernel_budget(tile, prefetch_depth, n_blocks)}"
+                    f" bytes of shared memory per CTA, over "
+                    f"{ops.SMEM_OPTIN_BYTES}"),
+            fallback="pipeline='fused_gather' unfused steps (3 launches/"
+                     "layer instead of 1)")
+        fused = False
+    if fused:
+        graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
+        simd, bottomup = (_make_megakernel_step(graph, bu, prefetch_depth)
+                          for bu in (False, True))
+    else:
+        simd, bottomup = (_make_fused_step(colstarts, rows_t, n_vertices,
+                                           tile, bu, prefetch_depth)
+                          for bu in (False, True))
     return {
         MODE_SCALAR: _make_scalar_step(colstarts, rows, n_vertices,
                                        v_pad, e_pad, algorithm, tile),
-        MODE_SIMD: _make_fused_step(colstarts, rows_t, n_vertices, tile,
-                                    bottom_up=False),
-        MODE_BOTTOMUP: _make_fused_step(colstarts, rows_t, n_vertices,
-                                        tile, bottom_up=True),
+        MODE_SIMD: simd,
+        MODE_BOTTOMUP: bottomup,
     }
+
+
+def encode_policy(policy, n_vertices: int, n_roots: int,
+                  max_layers: int) -> tf.PolicyCode:
+    """The whole-traversal kernel's numbers for a registered policy:
+    the constants its comparisons use, rounded to float32 as the
+    policy's own float32 comparisons round them."""
+    f32 = lambda x: float(np.float32(x))
+    if isinstance(policy, TopDown):
+        return tf.PolicyCode(tf.TOPDOWN)
+    if isinstance(policy, ThresholdSimd):
+        return tf.PolicyCode(tf.THRESHOLD_SIMD,
+                             threshold=f32(policy.simd_threshold))
+    if isinstance(policy, PaperLiteralLayers):
+        return tf.PolicyCode(tf.PAPER_LAYERS, simd_layers=tuple(
+            int(l) for l in policy.simd_layers if 0 <= l < max_layers))
+    if isinstance(policy, BeamerHybrid):
+        return tf.PolicyCode(
+            tf.BEAMER, alpha=f32(policy.alpha),
+            v_over_beta=f32(n_vertices * n_roots / policy.beta))
+    raise NotImplementedError(
+        f"pipeline='persistent' runs the registered policies (TopDown, "
+        f"ThresholdSimd, PaperLiteralLayers, BeamerHybrid); "
+        f"{type(policy).__name__} has no in-kernel encoding — use "
+        f"pipeline='megakernel'")
 
 
 # ---------------------------------------------------------------------------
@@ -464,12 +539,52 @@ def _init_batched(roots: torch.Tensor, n_vertices: int, v_pad: int):
     return _init_state(roots.to(torch.int32), base, n_vertices)
 
 
+def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
+    """The whole traversal in ONE launch (K6): init the batch state,
+    hand it to the kernel with the policy encoded, repackage its
+    ``(frontier, visited, parent, depths, layers, stats)``."""
+    graph = fmt.fused_graph(spec)
+    frontier, visited, parent = _init_batched(roots, fmt.n_vertices,
+                                              fmt.n_vertices_padded)
+    code = encode_policy(spec.policy, fmt.n_vertices, int(roots.shape[0]),
+                         spec.max_layers)
+    frontier, visited, parent, depths, layers, stats = \
+        ops.traversal_fused_batched(graph, frontier, visited, parent,
+                                    code=code, max_layers=spec.max_layers,
+                                    prefetch_depth=spec.prefetch_depth)
+    return EngineResult(BfsState(frontier, visited, parent, layers[0]),
+                        depths, stats)
+
+
+def _persistent_degrade(fmt, n_roots: int, spec):
+    """Where the whole-traversal kernel's budget does not fit: record
+    the degrade and return the spec of the per-layer fallback."""
+    budget = ops.megakernel_budget(spec.tile, spec.prefetch_depth,
+                                   fmt.n_blocks(spec.tile))
+    record_degrade(
+        "smem_fallback",
+        reason=(f"persistent(v_pad={fmt.n_vertices_padded}, "
+                f"roots={n_roots}, tile={spec.tile}, "
+                f"max_layers={spec.max_layers}, "
+                f"depth={spec.prefetch_depth}) needs {budget} bytes of "
+                f"shared memory per CTA, over {ops.SMEM_OPTIN_BYTES}"),
+        fallback="pipeline='megakernel' per-layer steps (>=1 launch/layer "
+                 "instead of 1/traversal)")
+    return spec.replace(pipeline="megakernel")
+
+
 def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
                    deg_mat=None) -> EngineResult:
     """The engine body over a `formats.CsrFormat` and a *resolved*
     `api.spec.TraversalSpec`; ``roots`` is a (B,) int32 tensor on the
     graph's device.  ``steps``/``deg_mat`` come from the plan cache
-    (built here when absent)."""
+    (built here when absent).  ``pipeline="persistent"`` goes to K6 when
+    its budget fits, else degrades to the megakernel steps."""
+    if spec.pipeline == "persistent":
+        if fmt.persistent_fits(spec):
+            return _traverse_persistent(fmt, roots, spec)
+        spec = _persistent_degrade(fmt, int(roots.shape[0]), spec)
+        steps = None
     policy = spec.policy
     max_layers = spec.max_layers
     n_vertices = fmt.n_vertices
@@ -495,14 +610,13 @@ def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
             # padding is premarked visited, so the word complement IS
             # the real undiscovered set
             u_words = ~visited
-            u_count = row_popcounts(u_words).sum().to(torch.float32)
-            u_edges = bm.masked_degree_sum(u_words, deg_mat) \
-                .to(torch.float32).sum()
+            u_count = _f32_sum(row_popcounts(u_words))
+            u_edges = _f32_sum(bm.masked_degree_sum(u_words, deg_mat))
         else:
             u_count = u_edges = zero
-        w = Workload(layer, f_count_b.to(torch.float32).sum(),
-                     f_edges_b.to(torch.float32).sum(), u_count, u_edges,
-                     n_vertices, bottom_up, n_roots=n_roots)
+        w = Workload(layer, _f32_sum(f_count_b), _f32_sum(f_edges_b),
+                     u_count, u_edges, n_vertices, bottom_up,
+                     n_roots=n_roots)
         mode_t, next_bottom_up = policy.decide(w)
         f_count = f_count_b.sum()
         # the layer's one host sync: loop condition + mode together
@@ -529,6 +643,11 @@ def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
         BfsState(frontier, visited, parent,
                  torch.tensor(layer, dtype=torch.int32, device=dev)),
         depths, stats)
+
+
+def _f32_sum(per_root: torch.Tensor) -> torch.Tensor:
+    """float32 of the exact batch sum of int32 per-root counters."""
+    return per_root.to(torch.int64).sum().to(torch.float32)
 
 
 def layer_stats(result: EngineResult) -> list[LayerStats]:

@@ -2,7 +2,8 @@
 
 A minimal adapter around `core/csr.py` with the contract the engine
 and the plan layer read: geometry, ``degrees``, the CSR tile rule
-(`resolve_tile`) and ``make_steps``.  The format registry, SELL-C-σ
+(`resolve_tile`), ``make_steps`` and the whole-traversal kernel's
+``fused_graph`` / ``persistent_fits``.  The format registry, SELL-C-σ
 and the bitmap layout arrive with the formats slice.
 """
 from __future__ import annotations
@@ -18,6 +19,13 @@ MIN_TILE = 128        # one lane set: small graphs keep several blocks
 
 class CsrFormat:
     name = "csr"
+    # the whole-layer (K5) and whole-traversal (K6) kernels run on the
+    # CSR rows-block schedule; K6's in-kernel layer loop blends the
+    # scalar mode into its racy sweep, so both scalar algorithms' reached
+    # sets are honoured
+    supports_megakernel = True
+    supports_persistent = True
+    persistent_algorithms = ("simd", "nonsimd")
 
     def __init__(self, colstarts: torch.Tensor, rows: torch.Tensor,
                  n_vertices: int, n_edges: int):
@@ -27,6 +35,7 @@ class CsrFormat:
         self._n_edges = int(n_edges)
         self._structure_ok = False
         self._deg_mat = None
+        self._fused: dict = {}
 
     @classmethod
     def from_csr(cls, csr: Csr) -> "CsrFormat":
@@ -98,7 +107,31 @@ class CsrFormat:
         return engine._make_steps(self.colstarts, self.rows,
                                   self._n_vertices, self.n_vertices_padded,
                                   self.n_edges_padded, spec.algorithm,
-                                  spec.tile)
+                                  spec.tile, pipeline=spec.pipeline,
+                                  prefetch_depth=spec.prefetch_depth)
+
+    def n_blocks(self, tile: int) -> int:
+        return -(-self.n_edges_padded // tile)
+
+    def fused_graph(self, spec):
+        """The whole-traversal kernel's loop constants at ``spec.tile``
+        (built once per tile)."""
+        if spec.tile not in self._fused:
+            from repro_torch.core import engine
+            from repro_torch.kernels.layer_fused import fused_csr
+            rows_t = engine._pad_rows_to_tile(self.rows.contiguous(),
+                                              self._n_vertices, spec.tile)
+            self._fused[spec.tile] = fused_csr(
+                self.colstarts.contiguous(), rows_t, self._n_vertices,
+                spec.tile, self.n_vertices_padded)
+        return self._fused[spec.tile]
+
+    def persistent_fits(self, spec) -> bool:
+        """Whether K6's per-CTA budget fits (batch-independent: its
+        batch state lives in device memory)."""
+        from repro_torch.kernels import ops
+        return ops.persistent_fits(spec.tile, spec.prefetch_depth,
+                                   self.n_blocks(spec.tile))
 
     def __repr__(self) -> str:
         return (f"CsrFormat(n_vertices={self._n_vertices}, "

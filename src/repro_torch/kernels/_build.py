@@ -26,19 +26,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu")
+SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
+           "layer_fused.cu", "traversal_fused.cu")
+HEADERS = ("bfs_common.cuh", "fused_phases.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 
 #: C signatures: name -> argument types (every function returns int)
 SIGNATURES = {
     "repro_restoration": (_P, _P, _P, _LL, _I, _P),
     "repro_tile_popcounts": (_P, _P, _I, _I, _I, _P),
     "repro_rank_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_gather_expand": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P),
+    "repro_gather_expand": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "repro_layer_fused_grid": (_I, _I, _I, _P),
+    "repro_layer_fused": (_P,) * 12 + (_I,) * 10 + (_P,),
+    "repro_traversal_fused_grid": (_I, _I, _I, _P),
+    "repro_traversal_fused": (_P,) * 21 + (_I,) * 10 + (_F,) * 3
+    + (_I, _P),
 }
 
 _LIB = None
@@ -61,7 +68,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

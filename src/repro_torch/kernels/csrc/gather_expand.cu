@@ -1,9 +1,10 @@
-// K3: fused work-listed CSR gather + racy expand for Hopper.
+// K3 and K4: fused work-listed CSR gather + racy expand for Hopper.
 //
 // Replaces: src/repro/kernels/gather_expand.py, `gather_expand_batched`
-// with prefetch_depth = 0 (Pallas body `_gather_batched_kernel` ->
-// `_gather_tile` -> `_owner_search` + frontier_expand.`_expand_tile`)
-// and, at B = 1, `gather_expand` (`_gather_kernel`).
+// (Pallas bodies `_gather_batched_kernel` at prefetch_depth = 0 — K3 —
+// and `_gather_dma_batched_kernel` + `_dma_pipeline` at
+// prefetch_depth > 0 — K4) and, at B = 1, `gather_expand`
+// (`_gather_kernel`, `_gather_dma_kernel`).
 //
 // What it computes, per root b and each of its first n_active[b]
 // work-list entries blk = wl[b, t]: for every edge slot
@@ -39,64 +40,48 @@
 // is (CTAs, B) with CTAs striding over the work-list, and n_active is
 // read on the device, so no host sync is needed and a root with an
 // empty work-list costs one load.
+//
+// K4 (depth > 0) is the same body fed from shared memory: each CTA
+// keeps the rows of its next `depth` blocks in flight with cp.async
+// into its own (depth + 1)-stage ring (`bfs::sweep`), the TPU kernel's
+// make_async_copy pipeline.  Only entries below n_active are copied:
+// the reference's clamped work-list tail, which it copies and skips,
+// is never visited.  A ring above 48 KB needs the opt-in attribute,
+// set here before the launch.
 #include <cuda_runtime.h>
+
+#include "bfs_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// Largest u in [lo, hi] with cs[u] <= e, given cs[lo] <= e.
-__device__ __forceinline__ int owner_in(const int* __restrict__ cs, int lo,
-                                        int hi, int e) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo + 1) >> 1);
-    if (cs[mid] <= e) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-__global__ void gather_expand_kernel(
+__global__ void __launch_bounds__(bfs::kThreads) gather_expand_kernel(
     const int* __restrict__ wl, const int* __restrict__ na,
     const int* __restrict__ rows, const int* __restrict__ cs,
     const unsigned* __restrict__ frontier,
     const unsigned* __restrict__ visited, unsigned* out, int* p,
     int n_blocks, int tile, int n_cs, int n_words, int v_pad,
-    int n_vertices, int bottom_up) {
-  const int b = blockIdx.y;
-  const int n_act = na[b];
-  const int* wl_b = wl + (long long)b * n_blocks;
-  const unsigned* fr = frontier + (long long)b * n_words;
-  const unsigned* vis = visited + (long long)b * n_words;
-  unsigned* ob = out + (long long)b * n_words;
-  int* pb = p + (long long)b * v_pad;
+    int n_vertices, int bottom_up, int depth) {
+  extern __shared__ __align__(16) int stage[];
   __shared__ int s_lo, s_hi;
-
-  for (int t = blockIdx.x; t < n_act; t += gridDim.x) {
-    const int e0 = wl_b[t] * tile;
-    if (threadIdx.x == 0) {
-      const int lo = owner_in(cs, 0, n_cs - 1, e0);
-      s_lo = lo;
-      s_hi = owner_in(cs, lo, n_cs - 1, e0 + tile - 1);
-    }
-    __syncthreads();
-    const int lo = s_lo, hi = s_hi;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      const int e = e0 + i;
-      const int u = owner_in(cs, lo, hi, e);
-      const int v = rows[e];
-      if (u >= n_vertices || v >= n_vertices) continue;  // sentinel tail
-      const int gate = bottom_up ? v : u;
-      const int cand = bottom_up ? u : v;
-      if (!((fr[gate >> 5] >> (gate & 31)) & 1u)) continue;
-      const int w = cand >> 5;
-      const unsigned bit = 1u << (cand & 31);
-      const unsigned ow = ob[w];                     // racy read
-      if ((vis[w] | ow) & bit) continue;
-      pb[cand] = gate - n_vertices;                   // negative mark
-      ob[w] = ow | bit;                               // racy write
-    }
-    __syncthreads();           // s_lo / s_hi are rewritten next block
-  }
+  const int b = blockIdx.y;
+  const unsigned* fr = frontier + static_cast<long long>(b) * n_words;
+  const unsigned* vis = visited + static_cast<long long>(b) * n_words;
+  unsigned* ob = out + static_cast<long long>(b) * n_words;
+  int* pb = p + static_cast<long long>(b) * v_pad;
+  const bfs::WorkItems items{wl, na, n_blocks, b + 1};
+  bfs::sweep(items, b, rows, tile, depth, stage,
+             [&](int, int blk, const int* rows_blk) {
+               const int e0 = blk * tile;
+               if (threadIdx.x == 0) {
+                 const int lo = bfs::owner_in(cs, 0, n_cs - 1, e0);
+                 s_lo = lo;
+                 s_hi = bfs::owner_in(cs, lo, n_cs - 1, e0 + tile - 1);
+               }
+               __syncthreads();
+               bfs::expand_block<false>(rows_blk, cs, e0, tile, s_lo, s_hi,
+                                        fr, vis, ob, pb, n_vertices,
+                                        bottom_up != 0, false);
+             });
 }
 
 }  // namespace
@@ -104,17 +89,30 @@ __global__ void gather_expand_kernel(
 // wl: (B, n_blocks) int32; na: (B,) int32; rows: (n_blocks * tile,)
 // int32; cs: (n_cs,) int32; frontier, visited, out: (B, n_words)
 // 32-bit words; p: (B, v_pad) int32.  out and p are updated in place.
+// depth = 0 is K3; depth > 0 is K4 with (depth + 1) * tile * 4 bytes
+// of dynamic shared memory per CTA.
 extern "C" int repro_gather_expand(
     const void* wl, const void* na, const void* rows, const void* cs,
     const void* frontier, const void* visited, void* out, void* p,
     int n_batch, int n_blocks, int tile, int n_cs, int n_words, int v_pad,
-    int n_vertices, int bottom_up, int grid_x, void* stream) {
+    int n_vertices, int bottom_up, int depth, int grid_x, void* stream) {
   if (n_batch == 0 || n_blocks == 0 || grid_x <= 0) return 0;
+  const size_t smem =
+      depth > 0 ? static_cast<size_t>(depth + 1) * tile * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gather_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
   dim3 grid(grid_x, n_batch);
-  gather_expand_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)wl, (const int*)na, (const int*)rows, (const int*)cs,
-      (const unsigned*)frontier, (const unsigned*)visited, (unsigned*)out,
-      (int*)p, n_blocks, tile, n_cs, n_words, v_pad, n_vertices,
-      bottom_up);
-  return (int)cudaGetLastError();
+  gather_expand_kernel<<<grid, bfs::kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(wl), static_cast<const int*>(na),
+      static_cast<const int*>(rows), static_cast<const int*>(cs),
+      static_cast<const unsigned*>(frontier),
+      static_cast<const unsigned*>(visited), static_cast<unsigned*>(out),
+      static_cast<int*>(p), n_blocks, tile, n_cs, n_words, v_pad,
+      n_vertices, bottom_up, depth);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""K3 — the fused work-listed CSR gather with the racy expand: CUDA
-kernel and its plain torch version.
+"""K3 and K4 — the fused work-listed CSR gather with the racy expand:
+CUDA kernel and its plain torch version.
 
 For each root b and each of its first ``n_active[b]`` work-list entries
 (a ``tile``-sized block of the tile-padded ``rows``), every edge finds
@@ -14,7 +14,13 @@ The plain version processes all of a root's active edges at once
 the kernel's; restoration makes ``out``, ``visited`` and the set of
 marked vertices identical in every arm.  The CUDA kernel
 (``csrc/gather_expand.cu``) replaces ``repro.kernels.gather_expand``'s
-Pallas kernels.
+Pallas kernels: at ``prefetch_depth=0`` (K3) it reads each block's rows
+from device memory, at ``prefetch_depth > 0`` (K4) each CTA keeps that
+many blocks' rows in flight into a shared-memory ring.  K4 computes
+K3's function, so K3's plain version is K4's.
+
+``scalar=True`` (plain version only) tests the pre-layer ``visited``
+alone, as the whole-traversal kernel's scalar-mode layers do.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.core.bitmap import WORD_MASK, WORD_SHIFT
 
 CHUNK_EDGES = 1 << 24      # plain version: edges per vectorized pass
 CTAS_PER_SM = 4            # CUDA grid: CTAs per SM striding the lists
+SMEM_OPTIN_BYTES = 232_448  # H100: dynamic shared memory a CTA can opt into
 
 
 def _owner_search(colstarts: torch.Tensor, e_idx: torch.Tensor,
@@ -46,7 +53,7 @@ def _owner_search(colstarts: torch.Tensor, e_idx: torch.Tensor,
 
 
 def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
-                  p) -> None:
+                  p, scalar: bool = False) -> None:
     """The `_expand_tile` body on one root's 1-D views, in place."""
     n_words = out.shape[0]
     word = cand >> WORD_SHIFT
@@ -54,7 +61,8 @@ def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
         << (cand & WORD_MASK).to(torch.int32)
     w_clip = word.clamp(0, n_words - 1)
     out_words = out[w_clip]
-    undiscovered = ((vis[w_clip] | out_words) & bits) == 0
+    seen = vis[w_clip] if scalar else vis[w_clip] | out_words
+    undiscovered = (seen & bits) == 0
     gw = (gate >> WORD_SHIFT).clamp(0, n_words - 1)
     gb = (gate & WORD_MASK).to(torch.int32)
     in_front = ((frontier[gw] >> gb) & 1) != 0
@@ -65,7 +73,7 @@ def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
 
 def gather_expand_plain(wl, na, rows, colstarts, frontier, visited, out,
                         p, *, n_vertices: int, tile: int,
-                        bottom_up: bool = False):
+                        bottom_up: bool = False, scalar: bool = False):
     """Plain torch K3 over (B, ...) arrays; updates ``out``/``p`` in
     place and returns them."""
     n_cs = colstarts.shape[0]
@@ -80,14 +88,21 @@ def gather_expand_plain(wl, na, rows, colstarts, frontier, visited, out,
             valid = (u < n_vertices) & (v < n_vertices)
             gate, cand = (v, u) if bottom_up else (u, v)
             _expand_edges(n_vertices, gate, cand, valid, frontier[b],
-                          visited[b], out[b], p[b])
+                          visited[b], out[b], p[b], scalar)
     return out, p
+
+
+def stage_bytes(tile: int, depth: int) -> int:
+    """Shared memory of one CTA's rows ring at ``depth`` (0: none)."""
+    return (depth + 1) * tile * 4 if depth > 0 else 0
 
 
 def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
                        p, *, n_vertices: int, tile: int,
-                       bottom_up: bool = False):
-    """Launch the CUDA kernel; ``out``/``p`` are updated in place."""
+                       bottom_up: bool = False, prefetch_depth: int = 0):
+    """Launch the CUDA kernel (K3, or K4 at ``prefetch_depth > 0``,
+    clamped to the block count as the reference clamps it); ``out``/``p``
+    are updated in place."""
     from repro_torch.kernels import _build
     n_batch, n_blocks = wl.shape
     n_words = visited.shape[1]
@@ -112,6 +127,12 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
         if tuple(t.shape) != shape:
             raise ValueError(f"gather_expand: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
+    depth = min(max(int(prefetch_depth), 0), n_blocks)
+    if stage_bytes(tile, depth) > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"gather_expand: prefetch_depth={depth} at tile={tile} needs "
+            f"{stage_bytes(tile, depth)} bytes of shared memory per CTA; "
+            f"the card allows {SMEM_OPTIN_BYTES}")
     sms = torch.cuda.get_device_properties(rows.device) \
         .multi_processor_count
     grid_x = max(1, min(n_blocks, CTAS_PER_SM * sms))
@@ -121,6 +142,6 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
         colstarts.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
         out.data_ptr(), p.data_ptr(), n_batch, n_blocks, int(tile),
         colstarts.shape[0], n_words, v_pad, int(n_vertices),
-        int(bool(bottom_up)), grid_x, _build.stream_of(rows)),
+        int(bool(bottom_up)), depth, grid_x, _build.stream_of(rows)),
         "gather_expand")
     return out, p

@@ -1,4 +1,4 @@
-"""Public wrappers around the main-path kernels (K1, K2, K3).
+"""Public wrappers around the kernels (K1-K6).
 
 Each wrapper picks its arm from the device of the tensors it is given:
 a CPU tensor runs the kernel's plain torch version, a CUDA tensor
@@ -16,9 +16,17 @@ Launch accounting, two counters:
   CUDA kernel, and nothing else; `chip_smoke.py` reads it to show that
   the main path went through the kernels.
 
-The reference's VMEM budgets (``ops.VMEM_BYTES``, ``compact_fits``,
-``megakernel_fits``) describe a TPU core's scratchpad and have no
-counterpart on this path.
+Budgets.  The reference's VMEM budgets describe a TPU core's
+scratchpad.  On this card the fused kernels keep their state in device
+memory; what is scarce is a CTA's shared memory (the rows ring of the
+prefetch pipeline, ``(depth + 1) * tile * 4`` bytes, against the
+232,448-byte opt-in limit) and, for the cooperative launches of K5 and
+K6, co-residency: every CTA of the grid must be resident at once.  The
+grid is sized from the occupancy API at that shared memory, so a
+budget that fits always yields a co-resident grid.  `megakernel_fits`
+and `persistent_fits` test the shared memory; the engine degrades
+observably where they fail, as the reference does.  The budgets are
+pure arithmetic, so the CPU path takes the same decisions.
 """
 from __future__ import annotations
 
@@ -26,13 +34,19 @@ import torch
 
 from repro_torch.kernels import compact as ck
 from repro_torch.kernels import gather_expand as ge
+from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import restoration as rest
+from repro_torch.kernels import traversal_fused as tf
 
 _LAUNCH_COUNT = [0]
 
 #: CUDA kernel launches per wrapper (see module docstring)
 KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
-                   "gather_expand_batched": 0}
+                   "gather_expand_batched": 0, "gather_expand_prefetch": 0,
+                   "layer_fused_batched": 0, "traversal_fused_batched": 0}
+
+#: dynamic shared memory one CTA can opt into on the H100
+SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
 
 
 def reset_kernel_launches() -> None:
@@ -101,27 +115,31 @@ def frontier_compact(words: torch.Tensor, *, size: int, fill: int):
 
 def gather_expand_batched(worklist, n_active, rows, colstarts, frontier,
                           visited, out_init, p_init, *, n_vertices: int,
-                          tile: int, bottom_up: bool = False):
-    """K3 over (B, ...) state: ``worklist`` (B, n_blocks), ``n_active``
-    (B,), ``rows`` tile-padded (n_blocks * tile,), ``colstarts``
-    (V+1,), bitmaps (B, W), P (B, V_pad).  Updates ``out_init`` and
-    ``p_init`` in place and returns them as (out, parent) — restoration
-    NOT applied."""
+                          tile: int, bottom_up: bool = False,
+                          prefetch_depth: int = 0):
+    """K3 (K4 at ``prefetch_depth > 0``) over (B, ...) state:
+    ``worklist`` (B, n_blocks), ``n_active`` (B,), ``rows`` tile-padded
+    (n_blocks * tile,), ``colstarts`` (V+1,), bitmaps (B, W), P
+    (B, V_pad).  Updates ``out_init`` and ``p_init`` in place and
+    returns them as (out, parent) — restoration NOT applied."""
     _charge_launch()
     if _arm(rows, "gather_expand_batched"):
-        KERNEL_LAUNCHES["gather_expand_batched"] += 1
-        fn = ge.gather_expand_cuda
-    else:
-        fn = ge.gather_expand_plain
-    return fn(worklist, n_active, rows, colstarts, frontier, visited,
-              out_init, p_init, n_vertices=n_vertices, tile=tile,
-              bottom_up=bottom_up)
+        name = ("gather_expand_prefetch" if prefetch_depth > 0
+                else "gather_expand_batched")
+        KERNEL_LAUNCHES[name] += 1
+        return ge.gather_expand_cuda(
+            worklist, n_active, rows, colstarts, frontier, visited,
+            out_init, p_init, n_vertices=n_vertices, tile=tile,
+            bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+    return ge.gather_expand_plain(
+        worklist, n_active, rows, colstarts, frontier, visited, out_init,
+        p_init, n_vertices=n_vertices, tile=tile, bottom_up=bottom_up)
 
 
 def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
                   out_init, p_init, *, n_vertices: int, tile: int,
-                  bottom_up: bool = False):
-    """K3 for one root: the batched call at B = 1.  ``out_init`` and
+                  bottom_up: bool = False, prefetch_depth: int = 0):
+    """K3/K4 for one root: the batched call at B = 1.  ``out_init`` and
     ``p_init`` ((W,), (V_pad,)) are updated in place."""
     na = torch.as_tensor(n_active, dtype=torch.int32,
                          device=rows.device).reshape(1)
@@ -129,5 +147,78 @@ def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
         worklist[None].contiguous(), na, rows, colstarts,
         frontier[None].contiguous(), visited[None].contiguous(),
         out_init[None], p_init[None], n_vertices=n_vertices, tile=tile,
-        bottom_up=bottom_up)
+        bottom_up=bottom_up, prefetch_depth=prefetch_depth)
     return out_init, p_init
+
+
+def layer_fused_batched(graph: lf.FusedCsr, frontier, visited, parent, *,
+                        bottom_up: bool = False, prefetch_depth: int = 0):
+    """K5: one whole layer of (B, W) bitmaps and (B, V_pad) P — plan,
+    gather-expand, restore.  Returns (out, parent, n_active (B,)); P is
+    restored in place, ``out`` already holds the repair."""
+    _charge_launch()
+    if _arm(parent, "layer_fused_batched"):
+        KERNEL_LAUNCHES["layer_fused_batched"] += 1
+        return lf.layer_fused_cuda(graph, frontier, visited, parent,
+                                   bottom_up=bottom_up,
+                                   prefetch_depth=prefetch_depth)
+    return lf.layer_fused_plain(graph, frontier, visited, parent,
+                                bottom_up=bottom_up)
+
+
+def layer_fused(graph: lf.FusedCsr, frontier, visited, parent, *,
+                bottom_up: bool = False, prefetch_depth: int = 0):
+    """K5 for one root ((W,), (V_pad,)): the batched call at B = 1.
+    Returns (out, parent, n_active (1,))."""
+    out, p, na = layer_fused_batched(
+        graph, frontier[None].contiguous(), visited[None].contiguous(),
+        parent[None], bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+    return out[0], p[0], na
+
+
+def traversal_fused_batched(graph: lf.FusedCsr, frontier, visited, parent,
+                            *, code: tf.PolicyCode, max_layers: int,
+                            prefetch_depth: int = 0):
+    """K6: the whole traversal of a root batch from its initial state.
+    Returns (frontier, visited, parent, depths, layers, stats)."""
+    _charge_launch()
+    if _arm(parent, "traversal_fused_batched"):
+        KERNEL_LAUNCHES["traversal_fused_batched"] += 1
+        return tf.traversal_fused_cuda(graph, frontier, visited, parent,
+                                       code=code, max_layers=max_layers,
+                                       prefetch_depth=prefetch_depth)
+    return tf.traversal_fused_plain(graph, frontier, visited, parent,
+                                    code=code, max_layers=max_layers)
+
+
+def _depth(prefetch_depth: int, n_blocks: int) -> int:
+    """The depth the kernels run: clamped to the block count."""
+    return min(max(int(prefetch_depth), 0), max(int(n_blocks), 1))
+
+
+def gather_stage_fits(tile: int, prefetch_depth: int,
+                      n_blocks: int) -> bool:
+    """True when K4's rows ring fits a CTA's shared memory."""
+    return ge.stage_bytes(tile, _depth(prefetch_depth, n_blocks)) \
+        <= SMEM_OPTIN_BYTES
+
+
+def megakernel_budget(tile: int, prefetch_depth: int,
+                      n_blocks: int) -> int:
+    """Shared memory per CTA of the whole-layer kernel (K5)."""
+    return lf.smem_budget(tile, _depth(prefetch_depth, n_blocks))
+
+
+def megakernel_fits(tile: int, prefetch_depth: int = 0,
+                    n_blocks: int = 1) -> bool:
+    return megakernel_budget(tile, prefetch_depth, n_blocks) \
+        <= SMEM_OPTIN_BYTES
+
+
+def persistent_fits(tile: int, prefetch_depth: int = 0,
+                    n_blocks: int = 1) -> bool:
+    """The whole-traversal kernel (K6) runs K5's phases in CTAs of the
+    same shape, so its budget is K5's; its batch state, counters
+    ((max_layers + 1) * B * 4 int64) and stats live in device memory,
+    so neither the batch nor the layer cap enters."""
+    return megakernel_fits(tile, prefetch_depth, n_blocks)

@@ -1,0 +1,160 @@
+"""K6 — a whole multi-root traversal per launch: CUDA kernel and its
+plain torch version.
+
+The engine's layer loop — measure, decide, sweep, restore, stats — for
+a root batch, from its initial (frontier, visited, P) to its end.
+Returns (frontier, visited, P, depths (B,), layers (1,), stats
+(max_layers, 8)), the engine's whole-traversal contract:
+
+* the launches column is 1 on layer 0 and 0 after (one launch per
+  traversal); the tiles column is the batch's n_active sum in every
+  mode; the truncated column is 0;
+* a scalar-mode layer tests the pre-layer ``visited`` only (the
+  reference's ``_gather_tile_dyn``); SIMD and bottom-up layers test
+  ``visited | out``.
+
+The kernel cannot call a policy object, so the engine hands it a
+`PolicyCode`: the policy's kind and parameters as numbers.  The batch
+sums the policies compare are float32 of the exact int64 sums, as in
+the engine, so both decide alike.  The CUDA kernel
+(``csrc/traversal_fused.cu``) replaces
+``repro.kernels.traversal_fused.traversal_fused_batched``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitmap as bm
+from repro_torch.kernels import layer_fused as lf
+
+# engine modes and stats columns, restated: this module sits below the
+# engine in the import graph (tests pin them against the engine's)
+MODE_SCALAR, MODE_SIMD, MODE_BOTTOMUP = 0, 1, 2
+N_STATS = 8
+
+# policy kinds of `PolicyCode`
+TOPDOWN, THRESHOLD_SIMD, PAPER_LAYERS, BEAMER = range(4)
+
+
+class PolicyCode(NamedTuple):
+    """A direction policy as the kernel's parameters."""
+    kind: int
+    alpha: float = 0.0          # BeamerHybrid
+    v_over_beta: float = 0.0    # BeamerHybrid: float32(V * B / beta)
+    threshold: float = 0.0      # ThresholdSimd: float32(simd_threshold)
+    simd_layers: tuple = ()     # PaperLiteralLayers
+
+    @property
+    def needs_unvisited(self) -> bool:
+        return self.kind == BEAMER
+
+
+def layer_counters(words: torch.Tensor, deg: torch.Tensor):
+    """Per-root (count, degree sum) of a (B, W) bitmap, int64; ``deg``
+    is the (V_pad,) padded degree array."""
+    count = bm.popcount32(words).sum(dim=1)
+    edges = (bm.unpack_bool(words).to(torch.int64) * deg).sum(dim=1)
+    return count, edges
+
+
+def decide(code: PolicyCode, layer: int, f_count: int, f_edges: int,
+           u_count: int, u_edges: int, bottom_up: bool):
+    """The kernel's decide on exact batch sums: (mode, bottom_up)."""
+    f32 = np.float32
+    fc, fe, uc, ue = f32(f_count), f32(f_edges), f32(u_count), f32(u_edges)
+    if code.kind == THRESHOLD_SIMD:
+        return (MODE_SIMD if fe >= f32(code.threshold) else MODE_SCALAR,
+                False)
+    if code.kind == PAPER_LAYERS:
+        return (MODE_SIMD if layer in code.simd_layers else MODE_SCALAR,
+                False)
+    if code.kind == BEAMER:
+        down = not bottom_up and bool(fe > ue / f32(code.alpha))
+        up = bottom_up and bool(fc < f32(code.v_over_beta))
+        bottom_up = down or (not up and bottom_up)
+        return (MODE_BOTTOMUP if bottom_up and uc > 0 else MODE_SIMD,
+                bottom_up)
+    return MODE_SCALAR, False
+
+
+def traversal_fused_plain(g: lf.FusedCsr, frontier, visited, parent, *,
+                          code: PolicyCode, max_layers: int):
+    """Plain torch K6: the layer loop on the host over `layer_fused_plain`
+    sweeps."""
+    frontier, visited, parent = (frontier.clone(), visited.clone(),
+                                 parent.clone())
+    n_batch = frontier.shape[0]
+    dev = frontier.device
+    stats = torch.zeros((max_layers, N_STATS), dtype=torch.int32,
+                        device=dev)
+    depths = torch.zeros((n_batch,), dtype=torch.int32, device=dev)
+    bottom_up = False
+    layer = 0
+    for layer in range(max_layers + 1):
+        f_count, f_edges = layer_counters(frontier, g.deg)
+        if layer == max_layers or int(f_count.sum()) == 0:
+            break
+        if code.needs_unvisited:
+            u_count, u_edges = layer_counters(~visited, g.deg)
+        else:
+            u_count = u_edges = torch.zeros_like(f_count)
+        mode, bottom_up = decide(code, layer, int(f_count.sum()),
+                                 int(f_edges.sum()), int(u_count.sum()),
+                                 int(u_edges.sum()), bottom_up)
+        out, parent, na = lf.layer_fused_plain(
+            g, frontier, visited, parent, bottom_up=mode == MODE_BOTTOMUP,
+            scalar=mode == MODE_SCALAR)
+        visited = visited | out
+        frontier = out
+        stats[layer] = torch.tensor(
+            [int(f_count.sum()), int(f_edges.sum()),
+             int(bm.popcount32(out).sum()), mode, 1, int(na.sum()), 0,
+             int(layer == 0)], dtype=torch.int32)
+        depths += (f_count > 0).to(torch.int32)
+    layers = torch.tensor([layer], dtype=torch.int32, device=dev)
+    return frontier, visited, parent, depths, layers, stats
+
+
+def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
+                         code: PolicyCode, max_layers: int,
+                         prefetch_depth: int = 0):
+    """Launch K6 (one cooperative launch); the inputs are not changed."""
+    from repro_torch.kernels import _build
+    n_batch = int(frontier.shape[0])
+    lf.check_args(g, "traversal_fused", frontier, visited, parent)
+    depth = min(max(int(prefetch_depth), 0), g.n_blocks)
+    lib = _build.load()
+    grid = lf.cooperative_grid(lib.repro_traversal_fused_grid, depth,
+                               g.tile)
+    dev = g.rows.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f_out, v_out, p_out = (torch.empty_like(frontier),
+                           torch.empty_like(visited),
+                           torch.empty_like(parent))
+    out = torch.empty_like(frontier)
+    wl = torch.empty((n_batch, g.n_blocks), **i32)
+    cnt = torch.empty((n_batch, grid), **i32)
+    na = torch.empty((n_batch,), **i32)
+    acc = torch.empty(((max_layers + 1) * n_batch * 4,),
+                      dtype=torch.int64, device=dev)
+    depths = torch.empty((n_batch,), **i32)
+    layers = torch.empty((1,), **i32)
+    stats = torch.empty((max_layers, N_STATS), **i32)
+    simd_layer = torch.tensor(
+        [int(l in code.simd_layers) for l in range(max_layers)], **i32)
+    _build.check(lib.repro_traversal_fused(
+        g.rows.data_ptr(), g.colstarts.data_ptr(), g.blk_lo.data_ptr(),
+        g.blk_hi.data_ptr(), g.nz.data_ptr(), g.deg.data_ptr(),
+        frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),
+        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
+        out.data_ptr(), wl.data_ptr(), cnt.data_ptr(), na.data_ptr(),
+        acc.data_ptr(), depths.data_ptr(), layers.data_ptr(),
+        stats.data_ptr(), simd_layer.data_ptr(), n_batch, g.n_blocks,
+        g.tile, int(g.colstarts.shape[0]), int(g.nz.shape[0]),
+        int(g.deg.shape[0]), g.n_vertices, depth, int(max_layers),
+        code.kind, code.alpha, code.v_over_beta, code.threshold, grid,
+        _build.stream_of(parent)), "traversal_fused")
+    return f_out, v_out, p_out, depths, layers, stats

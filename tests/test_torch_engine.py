@@ -42,14 +42,19 @@ def _random_words(seed, n_batch, n_vertices, density):
 # Building blocks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_slots", [None, 300], ids=["full", "truncated"])
-def test_apportion_matches_reference(rmat8, n_slots):
+@pytest.mark.parametrize("n_slots,max_real", [(None, 60), (300, 60),
+                                              (None, 3)],
+                         ids=["full", "truncated", "sentinels"])
+def test_apportion_matches_reference(rmat8, n_slots, max_real):
+    """Bitwise, including the invalid slots; "sentinels" is a queue of
+    at most 2 real entries in 64 (the markers of sentinel entries go to
+    spread dropped slots)."""
     g, gt = rmat8
     n = g.n_vertices
     rng = np.random.default_rng(1)
     lists = np.full((3, 64), n, np.int32)
     for b in range(3):
-        k = rng.integers(1, 60)
+        k = rng.integers(1, max_real)
         lists[b, :k] = np.sort(rng.choice(n, k, replace=False))
     n_slots = n_slots or g.n_edges_padded
     ref = jax.vmap(lambda l: ref_engine.apportion(
