@@ -27,10 +27,24 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    degrade, and by the profiler one K5 launch per layer and one K6
    launch per traversal; K6 against its plain version on the batch's
    initial state;
-6. the four direction policies at SCALE 16, batch 8, on every pipeline;
-7. GPU vs the port's CPU path at SCALE 12: visited, depths, the stats
-   buffer and the direction log must be identical;
-8. the kernels' launch counts from their paths' runs (all > 0).
+5b. SELL-C-σ at the same size: the autotuner must pick ``sell`` for the
+   graph; ``formats.build(g, "auto")`` builds the layout on the card
+   (slabs, fill, bytes, build seconds and peak memory printed); the
+   SELL paths — ``fused_gather`` at depth 0 and 2 (K8 + K1),
+   ``megakernel`` (K9) and ``persistent`` (K10) — each timed over 3
+   runs, trees valid, visited, frontier, depths, layers, stats columns
+   0-4 and 6 and the direction log equal to the CSR main path's, the
+   launches column as contracted, no degrade, one K9 launch per layer
+   and one K10 launch per traversal by the profiler; K8 (depths 0, 1,
+   2, 4), K9 and K13 against their plain versions on the largest
+   captured SELL layer, K10 on the batch's initial state;
+6. the four direction policies at SCALE 16, batch 8, on every pipeline
+   of CSR and of SELL;
+7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
+   layout built on the card equals the CPU build bitwise): visited,
+   depths, the stats buffer and the direction log must be identical;
+8. the kernels' launch counts from their paths' runs (all > 0; K13 runs
+   every host-loop path's termination test).
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -58,6 +72,12 @@ REPLACES = {
     "gather_expand_prefetch": "src/repro/kernels/gather_expand.py:565",
     "layer_fused_batched": "src/repro/kernels/layer_fused.py:308",
     "traversal_fused_batched": "src/repro/kernels/traversal_fused.py:457",
+    "sell_expand_batched": "src/repro/kernels/sell_expand.py:402",
+    "sell_expand_prefetch": "src/repro/kernels/sell_expand.py:402",
+    "sell_layer_fused_batched": "src/repro/kernels/sell_expand.py:647",
+    "sell_traversal_fused_batched":
+        "src/repro/kernels/traversal_fused.py:519",
+    "popcount": "src/repro/kernels/bitmap_kernels.py:39",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -67,6 +87,11 @@ SOURCES = {
     "gather_expand_prefetch": CSRC + "gather_expand.cu",
     "layer_fused_batched": CSRC + "layer_fused.cu",
     "traversal_fused_batched": CSRC + "traversal_fused.cu",
+    "sell_expand_batched": CSRC + "sell_expand.cu",
+    "sell_expand_prefetch": CSRC + "sell_expand.cu",
+    "sell_layer_fused_batched": CSRC + "sell_layer_fused.cu",
+    "sell_traversal_fused_batched": CSRC + "sell_traversal_fused.cu",
+    "popcount": CSRC + "popcount.cu",
 }
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
@@ -77,7 +102,20 @@ PATHS = {
                       "layer_fused_batched"),
     "persistent": (dict(pipeline="persistent"), "traversal_fused_batched"),
 }
+#: the SELL paths of phase 5b: (TraversalSpec fields, the kernels each
+#: must launch, its launches column per layer)
+SELL_PATHS = {
+    "sell_fused_gather": (dict(), ("sell_expand_batched", "restoration"),
+                          2),
+    "sell_fused_gather_d2": (dict(prefetch_depth=2),
+                             ("sell_expand_prefetch",), 2),
+    "sell_megakernel": (dict(pipeline="megakernel"),
+                        ("sell_layer_fused_batched",), 1),
+    "sell_persistent": (dict(pipeline="persistent"),
+                        ("sell_traversal_fused_batched",), 0),
+}
 PREFETCH_DEPTHS = (1, 2, 4)
+SELL_DEPTHS = (0, 1, 2, 4)
 
 
 def log(msg: str) -> None:
@@ -511,6 +549,295 @@ def phase_persistent_kernel(ct, roots, layers, reps: int):
     return res
 
 
+class SellCapture:
+    """Records the K8 inputs of the SELL layer with the most active
+    groups, and every K9 layer's inputs, while traversals run (the
+    wrappers are wrapped, not changed)."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.best = None
+        self.layers = []
+
+    def __enter__(self):
+        ops = self.ops
+        self._orig = (ops.sell_batched, ops.sell_layer_fused_batched)
+        orig_sell, orig_layer = self._orig
+
+        def sell(graph, frontier, visited, out, p, *, worklist, n_active,
+                 **kw):
+            groups = int(n_active.sum())
+            if self.best is None or groups > self.best["groups"]:
+                self.best = dict(
+                    groups=groups, graph=graph, wl=worklist.clone(),
+                    na=n_active.clone(), frontier=frontier.clone(),
+                    visited=visited.clone(), out=out.clone(), p=p.clone(),
+                    bottom_up=kw["bottom_up"])
+            return orig_sell(graph, frontier, visited, out, p,
+                             worklist=worklist, n_active=n_active, **kw)
+
+        def layer(graph, frontier, visited, parent, **kw):
+            f, v = frontier.clone(), visited.clone()
+            out, p, na = orig_layer(graph, frontier, visited, parent, **kw)
+            from repro_torch.core.engine import row_popcounts
+            self.layers.append((graph, f, v, kw["bottom_up"],
+                                int(row_popcounts(out).sum())))
+            return out, p, na
+
+        ops.sell_batched = sell
+        ops.sell_layer_fused_batched = layer
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.sell_batched, self.ops.sell_layer_fused_batched = \
+            self._orig
+        return False
+
+
+def sell_groups(graph, wl, na) -> int:
+    """Slab groups in the union of the roots' work-lists."""
+    import torch
+    used = torch.zeros((graph.n_steps,), dtype=torch.bool, device=wl.device)
+    for b in range(wl.shape[0]):
+        used[wl[b, :int(na[b])].long()] = True
+    return int(used.sum())
+
+
+def sell_k8_bytes(cap, n_marked: int) -> int:
+    """Bytes K8 must move for a captured layer, each input read once:
+    cols and slab_rows of the union of active groups, wl/na, frontier +
+    visited + out read, out written, one P word per marked vertex."""
+    from repro_torch.kernels.sell_expand import SLAB_INTS
+    graph = cap["graph"]
+    n_batch, n_words = cap["frontier"].shape
+    return (4 * graph.spp * SLAB_INTS * sell_groups(graph, cap["wl"],
+                                                    cap["na"])
+            + 4 * (n_batch + int(cap["na"].sum()))
+            + 4 * 4 * n_batch * n_words + 4 * n_marked)
+
+
+def sell_layer_bytes(graph, frontier, visited, bottom_up: bool,
+                     n_marked: int) -> int:
+    """Bytes one SELL layer (K9) must move, each input read once: every
+    slab's row ids (the plan), the planning and sweep bitmaps, the cols
+    of the union of active groups, P read once for restoration, one P
+    word per discovery, ``out`` and the counts written."""
+    from repro_torch.kernels.sell_expand import (SLICE_C, W_QUANT,
+                                                 plan_slabs_plain)
+    wl, na = plan_slabs_plain(graph, ~visited if bottom_up else frontier)
+    n_batch, n_words = frontier.shape
+    v_pad = int(graph.deg.shape[0])
+    return (4 * int(graph.slab_rows.numel())
+            + 4 * graph.spp * W_QUANT * SLICE_C * sell_groups(graph, wl, na)
+            + 8 * n_batch * n_words + 4 * n_batch * v_pad + 4 * n_marked
+            + 4 * n_batch * n_words + 4 * n_batch)
+
+
+def sell_check_marks(cap, p_racy, g):
+    """`check_marks` for a SELL layer: the SELL adjacency is the CSR
+    adjacency, so the marks are checked against the main path's CSR."""
+    check_marks(dict(kw=dict(n_vertices=g.n_vertices), rows=g.rows,
+                     colstarts=g.colstarts), p_racy, cap["frontier"])
+
+
+def phase_sell_kernels(cap, g, reps: int):
+    """K8 (depths 0, 1, 2, 4) and K9 on the captured SELL layer, K13 on
+    its frontier words, each against its plain version on the card."""
+    import torch
+    from repro_torch.kernels import bitmap_kernels as bk
+    from repro_torch.kernels import restoration as rest
+    from repro_torch.kernels import sell_expand as se
+    graph, n = cap["graph"], g.n_vertices
+    bu = cap["bottom_up"]
+    res = {}
+
+    out_p, p_p = cap["out"].clone(), cap["p"].clone()
+    se.sell_expand_plain(graph, cap["wl"], cap["na"], cap["frontier"],
+                         cap["visited"], out_p, p_p, bottom_up=bu)
+    _, delta_p = rest.restoration_plain(p_p, n)
+    out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
+
+    def reset():
+        out_buf.copy_(cap["out"])
+        p_buf.copy_(cap["p"])
+
+    def k8(fn, **kw):
+        return lambda: fn(graph, cap["wl"], cap["na"], cap["frontier"],
+                          cap["visited"], out_buf, p_buf, bottom_up=bu, **kw)
+
+    per_depth = {}
+    n_marked = int((p_p < 0).sum())
+    for depth in SELL_DEPTHS:
+        reset()
+        k8(se.sell_expand_cuda, prefetch_depth=depth)()
+        torch.cuda.synchronize()
+        _, delta_k = rest.restoration_plain(p_buf, n)
+        err = int(((p_buf < 0) != (p_p < 0)).sum())
+        for name, a, b in (("out|delta", out_buf | delta_k, out_p | delta_p),
+                           ("visited|delta", cap["visited"] | delta_k,
+                            cap["visited"] | delta_p)):
+            err = max(err, int((a != b).sum()))
+        assert err == 0, f"K8 at depth {depth} disagrees with its plain"
+        sell_check_marks(cap, p_buf, g)
+        per_depth[depth] = cuda_ms(k8(se.sell_expand_cuda,
+                                      prefetch_depth=depth), reps,
+                                   setup=reset)
+        log(json.dumps({"kernel": "sell_expand", "prefetch_depth": depth,
+                        "ms": per_depth[depth], "max_abs_err": err}))
+    bytes_k8 = sell_k8_bytes(cap, n_marked)
+    plain_ms = cuda_ms(k8(se.sell_expand_plain), max(3, reps // 4),
+                       setup=reset)
+    res["sell_expand_batched"] = dict(
+        max_abs_err=0, ms=per_depth[0], plain_ms=plain_ms, bytes=bytes_k8,
+        groups=cap["groups"], marked=n_marked, bottom_up=bu)
+    res["sell_expand_prefetch"] = dict(
+        max_abs_err=0, ms=per_depth[2], plain_ms=plain_ms, bytes=bytes_k8,
+        per_depth=per_depth)
+
+    # K9 on the same state
+    p9 = cap["p"].clone()
+    run9 = lambda: se.sell_layer_fused_cuda(graph, cap["frontier"],
+                                            cap["visited"], p9, bottom_up=bu)
+    out_k, p_k, na_k = run9()
+    p9_plain = cap["p"].clone()
+    out_q, p_q, na_q = se.sell_layer_fused_plain(
+        graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu)
+    torch.cuda.synchronize()
+    marked_k, marked_q = p_k != cap["p"], p_q != cap["p"]
+    err = max(int((na_k != na_q).sum()), int((na_k != cap["na"]).sum()),
+              int((out_k != out_q).sum()), int((marked_k != marked_q).sum()))
+    assert err == 0, "sell_layer_fused disagrees with its plain version"
+    sell_check_marks(cap, torch.where(marked_k, p_k - n, cap["p"]), g)
+    bytes_k9 = sell_layer_bytes(graph, cap["frontier"], cap["visited"], bu,
+                                int(marked_k.sum()))
+    res["sell_layer_fused_batched"] = dict(
+        max_abs_err=err, bytes=bytes_k9,
+        ms=cuda_ms(run9, reps, setup=lambda: p9.copy_(cap["p"])),
+        plain_ms=cuda_ms(lambda: se.sell_layer_fused_plain(
+            graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu),
+            3, setup=lambda: p9_plain.copy_(cap["p"])))
+
+    # K13 on the layer's frontier words
+    words = cap["frontier"]
+    got, want = bk.popcount_cuda(words), bk.popcount_plain(words)
+    err = abs(int(got) - int(want))
+    assert err == 0, f"popcount disagrees: {int(got)} vs {int(want)}"
+    res["popcount"] = dict(
+        max_abs_err=err, bytes=4 * words.numel() + 4,
+        ms=cuda_ms(lambda: bk.popcount_cuda(words), reps),
+        plain_ms=cuda_ms(lambda: bk.popcount_plain(words), reps))
+    for name, r in res.items():
+        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(json.dumps({"kernel": name, "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bytes": r["bytes"],
+                        "bound_ms": r["bound_ms"],
+                        "max_abs_err": r["max_abs_err"]}))
+    log(f"K8 layer: {cap['groups']} active slab groups (all roots), "
+        f"{n_marked} marked, bottom_up={bu}")
+    return res
+
+
+def phase_sell_traversal_kernel(ct, roots, layers, reps: int):
+    """K10 against its plain version on the batch's initial state; bytes
+    = the per-layer K9 bytes of the same traversal (``layers`` from a
+    `SellCapture` of a megakernel run) plus one read of the degrees."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import traversal_fused as tf
+    fmt, spec = ct.fmt, ct.resolved
+    graph = fmt.sell_graph(spec.tile)
+    r = torch.as_tensor(roots, dtype=torch.int32, device=fmt.device)
+    state = engine._init_batched(r, fmt.n_vertices, fmt.n_vertices_padded)
+    code = engine.encode_policy(spec.policy, fmt.n_vertices, len(roots),
+                                spec.max_layers)
+    kw = dict(code=code, max_layers=spec.max_layers)
+    got = tf.sell_traversal_fused_cuda(graph, *state, **kw)
+    want = tf.sell_traversal_fused_plain(graph, *state, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for i, name in ((0, "frontier"), (1, "visited"), (3, "depths"),
+                    (4, "layers"), (5, "stats")):
+        err = max(err, int((got[i] != want[i]).sum()))
+        assert torch.equal(got[i], want[i]), \
+            f"sell_traversal_fused: {name} disagrees with its plain version"
+    bytes_ = sum(sell_layer_bytes(gr, f, v, bu, m)
+                 for gr, f, v, bu, m in layers) + 4 * int(graph.deg.shape[0])
+    res = dict(max_abs_err=err, bytes=bytes_,
+               bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+               ms=cuda_ms(lambda: tf.sell_traversal_fused_cuda(
+                   graph, *state, **kw), reps),
+               plain_ms=cuda_ms(lambda: tf.sell_traversal_fused_plain(
+                   graph, *state, **kw), 1))
+    log(json.dumps({"kernel": "sell_traversal_fused_batched",
+                    "ms": res["ms"], "plain_ms": res["plain_ms"],
+                    "bytes": bytes_, "bound_ms": res["bound_ms"],
+                    "max_abs_err": err, "layers": int(got[4][0])}))
+    return res
+
+
+def phase_sell(g, roots, base, oracle, edges: int, reps: int):
+    """Phase 5b: the SELL-C-σ layout of the main path's graph, built on
+    the card by the autotuner's choice, on its four paths and kernels.
+    Returns ({kernel: results}, {kernel: launches})."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import formats
+    from repro_torch.formats import autotune
+    from repro_torch.kernels import ops
+    choice = autotune.choose(g)
+    log(f"autotune: {choice.format} ({choice.reason})")
+    assert choice.format == "sell", choice
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fmt = formats.build(g, "auto")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    assert isinstance(fmt, formats.SellFormat), type(fmt)
+    log(f"sell layout: {fmt.n_slabs} slabs, sigma {fmt.sigma}, fill "
+        f"{fmt.fill_ratio:.6f}, {fmt.footprint().summary()}; built on the "
+        f"card in {build_s:.6f} s, peak device memory during the build "
+        f"{peak / 2**30:.3f} GiB")
+    kres, launches = {}, {}
+    for name, (fields, kernels, per_layer) in SELL_PATHS.items():
+        ct, launched, _ = run_path(fmt, g, roots, name, fields, kernels,
+                                   per_layer, base, oracle, edges,
+                                   (0, 1, 2, 3, 4, 6))
+        for k in kernels:
+            launches.setdefault(k, launched[k])
+        if name == "sell_fused_gather":           # an untimed capture run
+            with SellCapture(ops) as cap:
+                ct.run_batched(roots)
+        if name == "sell_megakernel":
+            kernels_seen = profile_run(ct, roots, name, top=8)
+            n_layers = int(base.state.layer)
+            got = launches_of(kernels_seen, "sell_layer_fused_kernel")
+            assert got == n_layers, \
+                f"K9 must be one CUDA launch per layer, saw {got}"
+            log(f"sell_megakernel: {n_layers} K9 launches for {n_layers} "
+                f"layers")
+            with SellCapture(ops) as mega_cap:
+                ct.run_batched(roots)
+        if name == "sell_persistent":
+            kernels_seen = profile_run(ct, roots, name, top=8)
+            assert launches_of(kernels_seen,
+                               "sell_traversal_fused_kernel") == 1, \
+                "K10 must be one CUDA launch per traversal"
+            log(f"sell_persistent: 1 K10 launch per traversal; "
+                f"{sum(kernels_seen.values()) - 1} other device events "
+                f"(initial state)")
+            kres["sell_traversal_fused_batched"] = \
+                phase_sell_traversal_kernel(ct, roots, mega_cap.layers, 5)
+        del ct
+    kres.update(phase_sell_kernels(cap.best, g, reps))
+    del cap, mega_cap, fmt
+    bfs.clear_plan_cache()
+    torch.cuda.empty_cache()
+    return kres, launches
+
+
 def profile_run(ct, roots, label: str = "main path", top: int = 15):
     """Trace one run: device time by kernel name and the device's idle
     share of the run's wall time.  Returns {kernel name: launches}."""
@@ -569,15 +896,27 @@ def trees_ok(g, res, roots, oracle):
     return parents
 
 
-def run_path(g, roots, name: str, base, oracle, edges: int):
-    """Phase 5: one fusion path at the main path's size, counted, timed
-    over 3 runs and held to the main path's result."""
+def launch_column(per_layer: int, n_layers: int) -> list:
+    """The stats launches column of a path: ``per_layer`` wrapper calls
+    per layer, or 0 for one launch per traversal (charged to layer 0)."""
+    if per_layer == 0:
+        return [1] + [0] * (n_layers - 1)
+    return [per_layer] * n_layers
+
+
+def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
+             base, oracle, edges: int, stat_cols):
+    """Phases 5 and 5b: one path of ``graph`` (the main path's CSR ``g``
+    or a SELL layout of it) at the main path's size, counted, timed over
+    3 runs and held to the main path's result: visited, frontier,
+    depths, layers, the stats columns ``stat_cols`` and the direction
+    log; the launches column per `launch_column`; no degrade; each of
+    ``kernels`` launched."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import errors
     from repro_torch.kernels import ops
-    fields, kernel = PATHS[name]
-    ct = bfs.plan(g, bfs.TraversalSpec(**fields))
+    ct = bfs.plan(graph, bfs.TraversalSpec(**fields))
     assert isinstance(ct.resolved.policy, bfs.BeamerHybrid), ct.resolved
     ct.run_batched(roots)                           # warm-up
     torch.cuda.synchronize()
@@ -592,28 +931,30 @@ def run_path(g, roots, name: str, base, oracle, edges: int):
         if len(times) == 1:
             launches = dict(ops.KERNEL_LAUNCHES)
     assert not errors.DEGRADES, f"{name}: degraded: {errors.DEGRADES}"
-    assert launches[kernel] > 0, f"{name}: {kernel} was never launched"
+    for kernel in kernels:
+        assert launches[kernel] > 0, f"{name}: {kernel} was never launched"
     n_layers = int(base.state.layer)
     modes = base.stats[:n_layers, 3]
     assert bool((modes != 0).all()), "BeamerHybrid ran a scalar layer"
+    cols = list(stat_cols)
     for what, a, b in (("visited", res.state.visited, base.state.visited),
                        ("frontier", res.state.frontier, base.state.frontier),
                        ("depths", res.depths, base.depths),
-                       ("stats columns 0-6", res.stats[:, :7],
-                        base.stats[:, :7])):
-        assert torch.equal(a, b), f"{name}: {what} differ from fused_gather"
+                       (f"stats columns {cols}", res.stats[:, cols],
+                        base.stats[:, cols])):
+        assert torch.equal(a, b), f"{name}: {what} differ from the main path"
     assert int(res.state.layer) == n_layers
     assert bfs.direction_log(res) == bfs.direction_log(base)
     col = res.stats[:n_layers, 7].tolist()
-    want = {"persistent": [1] + [0] * (n_layers - 1),
-            "fused_gather_d2": [3] * n_layers}.get(name, [1] * n_layers)
+    want = launch_column(per_layer, n_layers)
     assert col == want, f"{name}: launches column {col}, expected {want}"
     trees_ok(g, res, roots, oracle)
     log(f"path {name}: {len(roots)} roots, {n_layers} layers, "
         f"{edges} traversed edges, runs {[round(t, 6) for t in times]} s "
-        f"-> {edges / times[0]:.6e} TEPS (first run); {kernel} launches "
-        f"{launches[kernel]}; trees valid, visited/depths/stats/direction "
-        f"log equal fused_gather; no degrade")
+        f"-> {edges / times[0]:.6e} TEPS (first run); launches "
+        f"{ {k: launches[k] for k in kernels} }; trees valid, "
+        f"visited/depths/stats {cols}/direction log equal the main path; "
+        f"no degrade")
     return ct, launches, times
 
 
@@ -737,10 +1078,14 @@ def main(argv=None) -> int:
 
     # 5. the fusion paths at the main path's size
     path_launches = {}
+    csr_per_layer = {"fused_gather_d2": 3, "persistent": 0}
     for name in PATHS:
-        ct_path, launched, _ = run_path(g, roots, name, res,
-                                        oracle_depths.__getitem__, edges)
-        path_launches[PATHS[name][1]] = launched[PATHS[name][1]]
+        fields, kernel = PATHS[name]
+        ct_path, launched, _ = run_path(
+            g, g, roots, name, fields, (kernel,),
+            csr_per_layer.get(name, 1), res, oracle_depths.__getitem__,
+            edges, range(7))
+        path_launches[kernel] = launched[kernel]
         if name == "megakernel":
             kernels = profile_run(ct_path, roots, "megakernel", top=8)
             n_layers = int(res.state.layer)
@@ -761,12 +1106,24 @@ def main(argv=None) -> int:
         del ct_path
     del fused_layers
     launches.update(path_launches)
+
+    # 5b. SELL-C-σ at the main path's size
+    sell_kres, sell_launches = phase_sell(g, roots, res,
+                                          oracle_depths.__getitem__, edges,
+                                          args.reps)
+    kres.update(sell_kres)
+    for name, n in sell_launches.items():
+        if not launches.get(name):
+            launches[name] = n
     del ct, res, parents, g, oracle_depths
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
 
-    # 6. four policies at SCALE 16, every pipeline
+    # 6. four policies at SCALE 16, every pipeline of CSR and SELL
+    from repro_torch import formats
     g16 = make_graph(16, args.seed, "cuda")
+    sell16 = formats.build(g16, "auto")
+    assert isinstance(sell16, formats.SellFormat), type(sell16)
     roots16 = pick_roots(g16, BATCH, args.seed + 1)
     rows_np = g16.rows.cpu().numpy()
     cs_np = g16.colstarts.cpu().numpy()
@@ -784,8 +1141,10 @@ def main(argv=None) -> int:
             .run_batched(roots16)
         trees_ok(g16, base16, roots16, serial)
         errors.DEGRADES.clear()
-        for fields, _ in PATHS.values():
-            res = bfs.plan(g16, bfs.TraversalSpec(policy=pol, **fields)) \
+        runs = [(g16, fields) for fields, _ in PATHS.values()]
+        runs += [(sell16, fields) for fields, _, _ in SELL_PATHS.values()]
+        for graph, fields in runs:
+            res = bfs.plan(graph, bfs.TraversalSpec(policy=pol, **fields)) \
                 .run_batched(roots16)
             trees_ok(g16, res, roots16, serial)
             for what, a, b in (
@@ -794,13 +1153,14 @@ def main(argv=None) -> int:
                     ("stats columns 0-4", res.stats[:, :5],
                      base16.stats[:, :5])):
                 assert torch.equal(a, b), \
-                    f"{type(pol).__name__} {fields}: {what} differ"
+                    f"{type(pol).__name__} {type(graph).__name__} " \
+                    f"{fields}: {what} differ"
             assert bfs.direction_log(res) == bfs.direction_log(base16)
         assert not errors.DEGRADES, errors.DEGRADES
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
-            f"depths equal bfs_serial, every pipeline equals fused_gather; "
-            f"{bfs.direction_log(base16)}")
-    del g16
+            f"depths equal bfs_serial, every CSR and SELL pipeline equals "
+            f"fused_gather; {bfs.direction_log(base16)}")
+    del g16, sell16
     bfs.clear_plan_cache()
 
     # 7. GPU vs the port's CPU path at SCALE 12
@@ -808,26 +1168,36 @@ def main(argv=None) -> int:
     roots12 = pick_roots(g12, BATCH, args.seed + 2)
     g12_cpu = type(g12)(g12.rows.cpu(), g12.colstarts.cpu(),
                         g12.n_vertices, g12.n_edges)
+    sell12 = formats.SellFormat.from_csr(g12)
+    sell12_cpu = formats.SellFormat.from_csr(g12_cpu)
+    for name in ("cols", "slab_rows", "deg"):
+        assert torch.equal(getattr(sell12, name).cpu(),
+                           getattr(sell12_cpu, name)), \
+            f"the SELL layout built on the card differs in {name}"
+    log(f"sell layout @ SCALE 12: the card's build equals the CPU build "
+        f"({sell12.n_slabs} slabs)")
     for pol in (bfs.TopDown(), bfs.ThresholdSimd(2048),
                 bfs.PaperLiteralLayers(), bfs.BeamerHybrid()):
-        for pipeline in ("fused_gather", "megakernel", "persistent"):
-            spec = bfs.TraversalSpec(policy=pol, pipeline=pipeline)
-            a = bfs.plan(g12, spec).run_batched(roots12)
-            c = bfs.plan(g12_cpu, spec, device="cpu").run_batched(roots12)
-            for name, x, y in (("visited", a.state.visited,
-                                c.state.visited),
-                               ("depths", a.depths, c.depths),
-                               ("stats", a.stats, c.stats)):
-                assert torch.equal(x.cpu(), y), \
-                    f"{type(pol).__name__} {pipeline}: GPU and CPU " \
-                    f"{name} differ"
-            assert bfs.direction_log(a) == bfs.direction_log(c)
+        for layout, (gg, gc) in (("csr", (g12, g12_cpu)),
+                                 ("sell", (sell12, sell12_cpu))):
+            for pipeline in ("fused_gather", "megakernel", "persistent"):
+                spec = bfs.TraversalSpec(policy=pol, pipeline=pipeline)
+                a = bfs.plan(gg, spec).run_batched(roots12)
+                c = bfs.plan(gc, spec, device="cpu").run_batched(roots12)
+                for name, x, y in (("visited", a.state.visited,
+                                    c.state.visited),
+                                   ("depths", a.depths, c.depths),
+                                   ("stats", a.stats, c.stats)):
+                    assert torch.equal(x.cpu(), y), \
+                        f"{type(pol).__name__} {layout} {pipeline}: GPU " \
+                        f"and CPU {name} differ"
+                assert bfs.direction_log(a) == bfs.direction_log(c)
         log(f"parity {type(pol).__name__} @ SCALE 12: GPU == CPU "
             f"(visited, depths, stats, direction_log) on fused_gather, "
-            f"megakernel and persistent")
+            f"megakernel and persistent, for CSR and SELL")
 
     # 8. launch counts of the paths' runs
-    log("launch counts (main path and fusion paths): " + ", ".join(
+    log("launch counts (main path, fusion and SELL paths): " + ", ".join(
         f"{k}={v}" for k, v in launches.items()))
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"

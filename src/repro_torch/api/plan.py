@@ -6,14 +6,17 @@
     res = ct.run_batched([3, 7, 11])    # leading root axis
     ct.resolved                         # the fully-concrete spec
 
-`plan` validates the graph, resolves the spec's ``"auto"`` fields once
-and binds a cached `_Executable`: the tile-padded rows, the degree
-matrix and the per-mode steps (or, for ``pipeline="persistent"``, the
-whole-traversal kernel's loop constants), built once per (format,
-geometry, resolved spec).  The key holds the resolved spec, so each
-pipeline and prefetch depth has its own entry.  The format part of the
-key is the identity of the graph's arrays, which the cache entry holds,
-so two graphs of equal geometry never share padded rows.
+The graph is a `Csr` or any built `formats.GraphFormat` (CSR, SELL-C-σ,
+bitmap): ``plan(formats.build(csr, "auto"), spec)`` runs the layout the
+autotuner picks.  `plan` validates the graph, resolves the spec's
+``"auto"`` fields once and binds a cached `_Executable`: the format's
+padded arrays, the degree matrix and the per-mode steps (or, for
+``pipeline="persistent"``, the whole-traversal kernel's loop
+constants), built once per (format, geometry, resolved spec).  The key
+holds the resolved spec, so each pipeline and prefetch depth has its
+own entry.  The format part of the key is the identity of the format's
+arrays, which the cache entry holds, so two graphs of equal geometry
+never share padded arrays.
 
 ``device=`` (default ``"cuda"``) names where the traversal runs; the
 graph is moved there if it lies elsewhere, and without CUDA the default
@@ -29,6 +32,7 @@ from repro_torch.core import engine as _engine
 from repro_torch.core.csr import Csr, check_structure
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.errors import GraphValidationError
+from repro_torch.formats.base import GraphFormat
 from repro_torch.formats.csr_format import CsrFormat
 
 
@@ -56,32 +60,30 @@ def check_roots(roots, n_vertices: int) -> None:
             f"would return a wrong tree, not an error)")
 
 
-def as_format(graph) -> CsrFormat:
-    """View a `Csr` (or an already-built `CsrFormat`) as the engine's
-    format."""
-    if isinstance(graph, CsrFormat):
+def as_format(graph) -> GraphFormat:
+    """View a `Csr` as a `CsrFormat`; a built `GraphFormat` is taken as
+    it is."""
+    if isinstance(graph, GraphFormat):
         return graph
     if isinstance(graph, Csr):
         return CsrFormat.from_csr(graph)
     raise TypeError(
         f"cannot plan a traversal over {type(graph).__name__}; expected "
-        f"a Csr or CsrFormat (other layouts: ROADMAP item 8)")
+        f"a Csr or a repro_torch.formats GraphFormat")
 
 
 class _Executable:
-    """The cached unit: steps (with the padded rows) and the degree
+    """The cached unit: steps (with the padded arrays) and the degree
     matrix for one (format, geometry, resolved spec).  The persistent
     pipeline builds no per-layer steps: its loop constants are built
     here (and kept on the format); only a degrade builds steps, at
     run time."""
 
-    def __init__(self, fmt: CsrFormat, spec: TraversalSpec):
+    def __init__(self, fmt: GraphFormat, spec: TraversalSpec):
         self.fmt = fmt
         self.spec = spec
         if spec.pipeline == "persistent":
-            _engine.check_prefetch(spec.tile, spec.prefetch_depth,
-                                   fmt.n_blocks(spec.tile))
-            fmt.fused_graph(spec)
+            fmt.persistent_graph(spec)
             self.steps = None
         else:
             self.steps = fmt.make_steps(spec)
@@ -97,15 +99,16 @@ _CACHE: dict[tuple, _Executable] = {}
 _STATS = {"hits": 0, "misses": 0}
 
 
-def _key(fmt: CsrFormat, spec: TraversalSpec) -> tuple:
+def _key(fmt: GraphFormat, spec: TraversalSpec) -> tuple:
+    tensors = fmt.tensors()
     geometry = (type(fmt).__name__, fmt.n_vertices, fmt.n_edges,
-                tuple(fmt.rows.shape), str(fmt.device))
-    arrays = (id(fmt.rows), id(fmt.colstarts))
+                tuple(tuple(t.shape) for t in tensors), str(fmt.device))
+    arrays = tuple(id(t) for t in tensors)
     # ``merge`` is read only by the distributed path
     return geometry + arrays + (spec.replace(merge="auto"),)
 
 
-def _executable(fmt: CsrFormat, spec: TraversalSpec) -> _Executable:
+def _executable(fmt: GraphFormat, spec: TraversalSpec) -> _Executable:
     key = _key(fmt, spec)
     ex = _CACHE.get(key)
     if ex is None:
@@ -132,7 +135,7 @@ class CompiledTraversal:
     executable (shared, by identity, across plans of the same graph
     arrays and spec)."""
 
-    def __init__(self, fmt: CsrFormat, resolved: TraversalSpec,
+    def __init__(self, fmt: GraphFormat, resolved: TraversalSpec,
                  executable: _Executable, *, batch: int | None = None):
         self.fmt = fmt
         self.resolved = resolved
@@ -202,7 +205,7 @@ def plan(graph, spec: TraversalSpec | None = None, *,
     executable on ``device``.
 
     Args:
-      graph: a `Csr` or `CsrFormat`.
+      graph: a `Csr` or a built `formats.GraphFormat`.
       spec: a `TraversalSpec` (default: all ``"auto"``).
       batch: optional fixed batch width (`run_batched` pads up to it).
       device: where the traversal runs (default ``"cuda"``; raises

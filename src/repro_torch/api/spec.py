@@ -12,11 +12,14 @@ built-in defaults only (no benchmark table is read):
 * ``algorithm``: ``"simd"``; ``pipeline``: ``"fused_gather"``;
   ``packed``: True; ``prefetch_depth``: 0; ``max_layers``: 64;
   ``merge``: ``"packed"`` (read only by the distributed path);
-* ``tile``: the format's rule (`CsrFormat.resolve_tile`).
+* ``tile``: the format's rule (``fmt.resolve_tile``: rows slots per
+  block on CSR, slabs per group on SELL).
 
 ``pipeline`` runs ``"fused_gather"``, ``"megakernel"`` and
-``"persistent"``, at any ``prefetch_depth``; the auto choice stays
-``fused_gather`` at depth 0 (changing it needs measurements).
+``"persistent"``, at any ``prefetch_depth``, where the format supports
+them (its ``supports_*`` flags; the reference's messages); the auto
+choice stays ``fused_gather`` at depth 0 (changing it needs
+measurements).
 
 Values the reference accepts but this port does not run yet raise a
 typed `NotImplementedError` naming the ROADMAP item that brings them;
@@ -67,7 +70,7 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP item {item}); "
         f"the port runs the fused_gather, megakernel and persistent "
-        f"pipelines, packed=True, on CSR")
+        f"pipelines, packed=True, on the csr, sell and bitmap formats")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,9 +160,37 @@ class TraversalSpec:
 
     def _validate_for(self, fmt) -> None:
         """The format-dependent checks of the reference's ``validate``
-        (the same messages), plus the persistent kernel's policies."""
+        (the same messages, read from the format's capability flags),
+        plus the persistent kernel's policies."""
         fmt_label = getattr(fmt, "name", type(fmt).__name__)
+        depth = self.prefetch_depth
+        if isinstance(depth, int) and depth > 0 \
+                and not getattr(fmt, "supports_prefetch", True):
+            raise ValueError(
+                f"prefetch_depth={depth} is invalid for the "
+                f"{fmt_label!r} "
+                f"format: it streams no edge tiles to prefetch "
+                f"(supports_prefetch=False) — use prefetch_depth=0 "
+                f"(or 'auto'), or pick a streamed layout like "
+                f"'csr'/'sell'")
+        if self.pipeline == "megakernel" \
+                and not getattr(fmt, "supports_megakernel", True):
+            raise ValueError(
+                f"pipeline='megakernel' is invalid for the "
+                f"{fmt_label!r} format: it has no whole-layer "
+                f"fused kernel (supports_megakernel=False) — use "
+                f"pipeline='fused_gather' (or 'auto'), or pick a "
+                f"layout with a megakernel like 'csr'")
         if self.pipeline == "persistent":
+            if not getattr(fmt, "supports_persistent", False):
+                raise ValueError(
+                    f"pipeline='persistent' is invalid for the "
+                    f"{fmt_label!r} format: it has no "
+                    f"whole-traversal fused kernel "
+                    f"(supports_persistent=False) — use "
+                    f"pipeline='megakernel'/'fused_gather' (or "
+                    f"'auto'), or pick a layout with a persistent "
+                    f"kernel like 'csr'/'sell'")
             allowed = getattr(fmt, "persistent_algorithms", ())
             if self.algorithm != AUTO and allowed \
                     and self.algorithm not in allowed:
@@ -179,8 +210,9 @@ class TraversalSpec:
 
     # -- auto resolution (exactly once, at plan time) --------------------
     def resolve(self, fmt) -> "TraversalSpec":
-        """Resolve every ``"auto"`` against a `CsrFormat` from built-in
-        defaults; the result `is_resolved` and has been validated."""
+        """Resolve every ``"auto"`` against a `formats.GraphFormat` from
+        built-in defaults; the result `is_resolved` and has been
+        validated against the format."""
         self.validate()
         policy = self.policy
         if policy == AUTO:

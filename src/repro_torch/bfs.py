@@ -8,6 +8,10 @@
     ct.resolved                       # the concrete spec that ran
     ct.stats(res)                     # Table 1 per-layer counters
 
+    from repro_torch import formats
+    fmt = formats.build(csr, "auto")  # the autotuner's layout (SELL on R-MAT)
+    bfs.plan(fmt, spec).run_batched([3, 7, 11])
+
 The same contracts as ``repro.bfs`` for the main path.  ``__all__`` is
 its subset so far: the legacy ``traverse`` shim, ``SpanTracer``,
 ``TraceRun`` and ``trace_run`` arrive with later slices (ROADMAP items

@@ -1,6 +1,7 @@
 """The batched BFS traversal engine with pluggable direction policies.
 
-A port of ``repro.core.engine`` on packed bitmaps and CSR, with the
+A port of ``repro.core.engine`` on packed bitmaps, generic over the
+graph's `formats.GraphFormat` (CSR, SELL-C-σ, bitmap), with the
 reference's three fused pipelines: ``fused_gather`` (any
 ``prefetch_depth``), ``megakernel`` and ``persistent``.  Each layer runs
 
@@ -15,7 +16,8 @@ reference's three fused pipelines: ``fused_gather`` (any
 * **decide** (`TopDown`, `ThresholdSimd`, `PaperLiteralLayers`,
   `BeamerHybrid`): small frozen objects deciding from those counters
   with torch ops on the device.
-* **expand**: a SIMD or bottom-up layer is, for ``fused_gather``,
+* **expand**: the format's step (``fmt.make_steps``).  On CSR a SIMD
+  or bottom-up layer is, for ``fused_gather``,
   `_make_fused_step`: K2 compacts the frontier (or the unvisited set)
   into a queue, plain torch marks the rows-blocks its adjacency touches
   and compacts them into a work-list, K3 (K4 at ``prefetch_depth > 0``)
@@ -23,18 +25,20 @@ reference's three fused pipelines: ``fused_gather`` (any
   restores.  For ``megakernel`` it is `_make_megakernel_step`: K5 does
   all of that in one launch.  A scalar layer (`_make_scalar_step`) is
   K2 plus the plain apportionment and `expand_candidates`, in every
-  pipeline.
+  pipeline.  SELL's steps are in `formats.sell`: K8 + K1, or K9.
 * **restore** (§3.3.2): vertices marked by a negative P are repaired
   into ``out`` and ``visited``.
 
 **The layer loop.**  The reference runs the whole search as one
 ``lax.while_loop`` with no host synchronization.  Here the loop is a
 Python loop with exactly **one host sync per layer**: a single
-``tolist()`` reads the loop condition (is any frontier non-empty) and
-the policy's mode together, and the host then launches the chosen
-step.  Everything else — counters, stats row, depths — stays on the
-device.  ``pipeline="persistent"`` has no host loop: K6 runs the whole
-traversal in one launch (`_traverse_persistent`).
+``tolist()`` reads the loop condition (is any frontier non-empty: the
+popcount kernel K13 over the batch's frontier words) and the policy's
+mode together, and the host then launches the chosen step.  Everything
+else — counters, stats row, depths — stays on the device.
+``pipeline="persistent"`` has no host loop: the format's
+whole-traversal kernel (K6 on CSR, K10 on SELL) runs the traversal in
+one launch (`_traverse_persistent`).
 
 State arrays carry a leading root axis (B, ...).  Bitmap words are
 int32 (see `repro_torch.core.bitmap`).
@@ -540,18 +544,14 @@ def _init_batched(roots: torch.Tensor, n_vertices: int, v_pad: int):
 
 
 def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
-    """The whole traversal in ONE launch (K6): init the batch state,
-    hand it to the kernel with the policy encoded, repackage its
-    ``(frontier, visited, parent, depths, layers, stats)``."""
-    graph = fmt.fused_graph(spec)
+    """The whole traversal in ONE launch (K6 on CSR, K10 on SELL): init
+    the batch state, hand it to the format's whole-traversal kernel and
+    repackage its ``(frontier, visited, parent, depths, layers,
+    stats)``."""
     frontier, visited, parent = _init_batched(roots, fmt.n_vertices,
                                               fmt.n_vertices_padded)
-    code = encode_policy(spec.policy, fmt.n_vertices, int(roots.shape[0]),
-                         spec.max_layers)
     frontier, visited, parent, depths, layers, stats = \
-        ops.traversal_fused_batched(graph, frontier, visited, parent,
-                                    code=code, max_layers=spec.max_layers,
-                                    prefetch_depth=spec.prefetch_depth)
+        fmt.persistent_run(frontier, visited, parent, spec)
     return EngineResult(BfsState(frontier, visited, parent, layers[0]),
                         depths, stats)
 
@@ -559,15 +559,14 @@ def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
 def _persistent_degrade(fmt, n_roots: int, spec):
     """Where the whole-traversal kernel's budget does not fit: record
     the degrade and return the spec of the per-layer fallback."""
-    budget = ops.megakernel_budget(spec.tile, spec.prefetch_depth,
-                                   fmt.n_blocks(spec.tile))
     record_degrade(
         "smem_fallback",
-        reason=(f"persistent(v_pad={fmt.n_vertices_padded}, "
-                f"roots={n_roots}, tile={spec.tile}, "
-                f"max_layers={spec.max_layers}, "
-                f"depth={spec.prefetch_depth}) needs {budget} bytes of "
-                f"shared memory per CTA, over {ops.SMEM_OPTIN_BYTES}"),
+        reason=(f"persistent(format={fmt.name}, "
+                f"v_pad={fmt.n_vertices_padded}, roots={n_roots}, "
+                f"tile={spec.tile}, max_layers={spec.max_layers}, "
+                f"depth={spec.prefetch_depth}) needs "
+                f"{fmt.persistent_budget(spec)} bytes of shared memory "
+                f"per CTA, over {ops.SMEM_OPTIN_BYTES}"),
         fallback="pipeline='megakernel' per-layer steps (>=1 launch/layer "
                  "instead of 1/traversal)")
     return spec.replace(pipeline="megakernel")
@@ -575,13 +574,14 @@ def _persistent_degrade(fmt, n_roots: int, spec):
 
 def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
                    deg_mat=None) -> EngineResult:
-    """The engine body over a `formats.CsrFormat` and a *resolved*
+    """The engine body over a `formats.GraphFormat` and a *resolved*
     `api.spec.TraversalSpec`; ``roots`` is a (B,) int32 tensor on the
     graph's device.  ``steps``/``deg_mat`` come from the plan cache
-    (built here when absent).  ``pipeline="persistent"`` goes to K6 when
-    its budget fits, else degrades to the megakernel steps."""
+    (built here when absent).  ``pipeline="persistent"`` goes to the
+    format's whole-traversal kernel when its budget fits, else degrades
+    to the megakernel steps."""
     if spec.pipeline == "persistent":
-        if fmt.persistent_fits(spec):
+        if fmt.persistent_fits(int(roots.shape[0]), spec):
             return _traverse_persistent(fmt, roots, spec)
         spec = _persistent_degrade(fmt, int(roots.shape[0]), spec)
         steps = None
@@ -590,7 +590,7 @@ def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
     n_vertices = fmt.n_vertices
     v_pad = fmt.n_vertices_padded
     if deg_mat is None:
-        deg_mat = bm.degree_matrix(fmt.degrees(), v_pad)
+        deg_mat = fmt.degree_matrix()
     if steps is None:
         steps = fmt.make_steps(spec)
     dev = roots.device
@@ -618,7 +618,7 @@ def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
                      u_count, u_edges, n_vertices, bottom_up,
                      n_roots=n_roots)
         mode_t, next_bottom_up = policy.decide(w)
-        f_count = f_count_b.sum()
+        f_count = ops.popcount(frontier)       # K13: the termination test
         # the layer's one host sync: loop condition + mode together
         active, mode = torch.stack(
             [(f_count > 0).to(torch.int32), mode_t]).tolist()

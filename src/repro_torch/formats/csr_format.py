@@ -1,23 +1,26 @@
-"""CsrFormat — the §3.3.1 CSR as the engine's graph format.
+"""CsrFormat — the §3.3.1 CSR as a registered `GraphFormat`.
 
-A minimal adapter around `core/csr.py` with the contract the engine
-and the plan layer read: geometry, ``degrees``, the CSR tile rule
-(`resolve_tile`), ``make_steps`` and the whole-traversal kernel's
-``fused_graph`` / ``persistent_fits``.  The format registry, SELL-C-σ
-and the bitmap layout arrive with the formats slice.
+An adapter around `core/csr.py`: geometry, ``degrees``, the CSR tile
+rule (`resolve_tile`), the per-mode steps of `engine._make_steps` (K2,
+K3/K4 and K1 for ``fused_gather``; K5 for ``megakernel``) and the
+whole-traversal kernel K6 (``persistent_graph`` / ``persistent_fits`` /
+``persistent_run``).  The baseline every other layout is measured
+against.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import bitmap as bm
-from repro_torch.core.csr import Csr, check_structure, padded_vertex_count
+from repro_torch.core.csr import Csr, check_structure
+from repro_torch.formats.base import Footprint, GraphFormat, nbytes
+from repro_torch.formats.registry import register
 
 DEFAULT_TILE = 1024   # rows slots per block (the fused pipeline's unit)
 MIN_TILE = 128        # one lane set: small graphs keep several blocks
 
 
-class CsrFormat:
+@register
+class CsrFormat(GraphFormat):
     name = "csr"
     # the whole-layer (K5) and whole-traversal (K6) kernels run on the
     # CSR rows-block schedule; K6's in-kernel layer loop blends the
@@ -45,6 +48,9 @@ class CsrFormat:
         return Csr(rows=self.rows, colstarts=self.colstarts,
                    n_vertices=self._n_vertices, n_edges=self._n_edges)
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.rows, self.colstarts)
+
     def validate_structure(self) -> "CsrFormat":
         # memoized per instance: the checks read every edge once
         if not self._structure_ok:
@@ -53,7 +59,6 @@ class CsrFormat:
         return self
 
     def to(self, device) -> "CsrFormat":
-        """The same graph on ``device`` (self when already there)."""
         if self.rows.device == torch.device(device):
             return self
         return CsrFormat(self.colstarts.to(device), self.rows.to(device),
@@ -72,24 +77,9 @@ class CsrFormat:
     def n_edges_padded(self) -> int:
         return int(self.rows.shape[0])
 
-    @property
-    def n_vertices_padded(self) -> int:
-        return padded_vertex_count(self._n_vertices)
-
-    @property
-    def device(self) -> torch.device:
-        return self.rows.device
-
     # -- engine contract -------------------------------------------------
     def degrees(self) -> torch.Tensor:
         return self.colstarts[1:] - self.colstarts[:-1]
-
-    def degree_matrix(self) -> torch.Tensor:
-        """The (W, 32) word-aligned degree matrix (built once)."""
-        if self._deg_mat is None:
-            self._deg_mat = bm.degree_matrix(self.degrees(),
-                                             self.n_vertices_padded)
-        return self._deg_mat
 
     def resolve_tile(self, tile: int | None) -> int:
         """The CSR tile rule: ``tile`` (floored at 128) or, for auto,
@@ -102,7 +92,7 @@ class CsrFormat:
             tile = min(tile, max(e_pad, MIN_TILE))
         return max(int(tile), MIN_TILE)
 
-    def make_steps(self, spec) -> dict:
+    def _build_steps(self, spec) -> dict:
         from repro_torch.core import engine
         return engine._make_steps(self.colstarts, self.rows,
                                   self._n_vertices, self.n_vertices_padded,
@@ -114,8 +104,8 @@ class CsrFormat:
         return -(-self.n_edges_padded // tile)
 
     def fused_graph(self, spec):
-        """The whole-traversal kernel's loop constants at ``spec.tile``
-        (built once per tile)."""
+        """The fused kernels' loop constants at ``spec.tile`` (built once
+        per tile)."""
         if spec.tile not in self._fused:
             from repro_torch.core import engine
             from repro_torch.kernels.layer_fused import fused_csr
@@ -126,13 +116,50 @@ class CsrFormat:
                 spec.tile, self.n_vertices_padded)
         return self._fused[spec.tile]
 
-    def persistent_fits(self, spec) -> bool:
+    def persistent_graph(self, spec):
+        """K6's loop constants; refuses a prefetch ring no CTA can hold."""
+        from repro_torch.core import engine
+        engine.check_prefetch(spec.tile, spec.prefetch_depth,
+                              self.n_blocks(spec.tile))
+        return self.fused_graph(spec)
+
+    def persistent_budget(self, spec) -> int:
+        from repro_torch.kernels import ops
+        return ops.megakernel_budget(spec.tile, spec.prefetch_depth,
+                                     self.n_blocks(spec.tile))
+
+    def persistent_fits(self, n_roots: int, spec) -> bool:
         """Whether K6's per-CTA budget fits (batch-independent: its
         batch state lives in device memory)."""
         from repro_torch.kernels import ops
         return ops.persistent_fits(spec.tile, spec.prefetch_depth,
                                    self.n_blocks(spec.tile))
 
-    def __repr__(self) -> str:
-        return (f"CsrFormat(n_vertices={self._n_vertices}, "
-                f"n_edges={self._n_edges}, device={self.device})")
+    def persistent_run(self, frontier, visited, parent, spec):
+        from repro_torch.core import engine
+        from repro_torch.kernels import ops
+        code = engine.encode_policy(spec.policy, self._n_vertices,
+                                    int(frontier.shape[0]),
+                                    spec.max_layers)
+        return ops.traversal_fused_batched(
+            self.fused_graph(spec), frontier, visited, parent, code=code,
+            max_layers=spec.max_layers, prefetch_depth=spec.prefetch_depth)
+
+    # -- accounting ------------------------------------------------------
+    def footprint(self) -> Footprint:
+        return Footprint(self.name,
+                         (("rows", nbytes(self.rows)),
+                          ("colstarts", nbytes(self.colstarts))))
+
+    @property
+    def edge_slots(self) -> int:
+        return self.n_edges_padded
+
+    def layer_bytes(self) -> int:
+        # the materialized stream is written then read back
+        return 2 * 3 * 4 * self.edge_slots
+
+    def plan_bytes(self, tile: int, packed: bool = True) -> int:
+        # the planner also reads colstarts
+        return (4 * (self.n_vertices + 1)
+                + super().plan_bytes(tile, packed))

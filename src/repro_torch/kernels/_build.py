@@ -27,8 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
-           "layer_fused.cu", "traversal_fused.cu")
-HEADERS = ("bfs_common.cuh", "fused_phases.cuh")
+           "layer_fused.cu", "traversal_fused.cu", "sell_expand.cu",
+           "sell_layer_fused.cu", "sell_traversal_fused.cu", "popcount.cu")
+HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
+           "traversal_loop.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,6 +48,13 @@ SIGNATURES = {
     "repro_traversal_fused_grid": (_I, _I, _I, _P),
     "repro_traversal_fused": (_P,) * 21 + (_I,) * 10 + (_F,) * 3
     + (_I, _P),
+    "repro_sell_expand": (_P,) * 8 + (_I,) * 9 + (_P,),
+    "repro_sell_layer_fused_grid": (_I, _I, _I, _P),
+    "repro_sell_layer_fused": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "repro_sell_traversal_fused_grid": (_I, _I, _I, _P),
+    "repro_sell_traversal_fused": (_P,) * 19 + (_I,) * 9 + (_F,) * 3
+    + (_I, _P),
+    "repro_popcount": (_P, _P, _LL, _I, _P),
 }
 
 _LIB = None

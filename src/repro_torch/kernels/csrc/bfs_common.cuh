@@ -3,10 +3,11 @@
 //
 // * `owner_in`: the edge -> owning vertex binary search over colstarts;
 // * `expand_block`: the racy gather-expand body over one rows-block;
-// * `sweep`: a CTA's walk over its share of the work-lists, with the
-//   rows of `depth` blocks in flight into a (depth + 1)-stage ring of
-//   shared memory (`cp.async`), or read straight from device memory at
-//   depth 0;
+// * `sweep_items` / `sweep`: a CTA's walk over its share of the
+//   work-lists, with `depth` items in flight into a (depth + 1)-stage
+//   ring of shared memory (`cp.async`), or read straight from device
+//   memory at depth 0 (the SELL kernels stage slabs through the same
+//   walk);
 // * block-wide sums and an exclusive scan of one flag per thread.
 #pragma once
 
@@ -172,20 +173,23 @@ struct WorkItems {
   }
 };
 
-// Walk the CTA's items, calling body(b, blk, rows_of_blk) for each.
-// depth == 0 reads rows from device memory; depth > 0 keeps `depth`
-// blocks' copies in flight into stage slot (k % (depth + 1)) while item
-// k computes on the slot that has landed (the reference's
+// Walk the CTA's items, calling body(b, blk, slot) for each.  depth == 0
+// passes slot = nullptr (the body reads device memory); depth > 0 keeps
+// `depth` items' copies in flight into ring slot (k % (depth + 1)) while
+// item k computes on the slot that has landed (the reference's
 // `_dma_pipeline`: warm-up of `depth` copies, then one ahead per step).
-// `stage` is (depth + 1) * tile ints of dynamic shared memory.
-template <class Body>
-__device__ void sweep(const WorkItems& items, int b0, const int* rows,
-                      int tile, int depth, int* stage, Body body) {
+// stage(dst, blk) issues item blk's cp.async copies into a slot of
+// `slot_ints` ints; `ring` is (depth + 1) * slot_ints ints of dynamic
+// shared memory.
+template <class Stage, class Body>
+__device__ __forceinline__ void sweep_items(const WorkItems& items, int b0,
+                                            int depth, int slot_ints,
+                                            int* ring, Stage stage,
+                                            Body body) {
   WorkItems::Cursor cur = items.first(b0);
   if (depth == 0) {
     for (; items.valid(cur); items.next(cur)) {
-      const int blk = items.blk(cur);
-      body(cur.b, blk, rows + static_cast<long long>(blk) * tile);
+      body(cur.b, items.blk(cur), static_cast<const int*>(nullptr));
       __syncthreads();
     }
     return;
@@ -195,28 +199,41 @@ __device__ void sweep(const WorkItems& items, int b0, const int* rows,
   int k_ahead = 0;
   for (int j = 0; j < depth; ++j, ++k_ahead) {
     if (items.valid(ahead)) {
-      stage_block(stage + (k_ahead % n_stage) * tile,
-                  rows + static_cast<long long>(items.blk(ahead)) * tile,
-                  tile);
+      stage(ring + (k_ahead % n_stage) * slot_ints, items.blk(ahead));
       items.next(ahead);
     }
     cp_async_commit();
   }
   for (int k = 0; items.valid(cur); ++k, items.next(cur)) {
     if (items.valid(ahead)) {
-      stage_block(stage + (k_ahead % n_stage) * tile,
-                  rows + static_cast<long long>(items.blk(ahead)) * tile,
-                  tile);
+      stage(ring + (k_ahead % n_stage) * slot_ints, items.blk(ahead));
       items.next(ahead);
     }
     cp_async_commit();
     ++k_ahead;
     cp_async_wait_prior(depth);      // item k's group has landed
     __syncthreads();                 // ... for every thread's copies
-    body(cur.b, items.blk(cur), stage + (k % n_stage) * tile);
+    body(cur.b, items.blk(cur),
+         static_cast<const int*>(ring + (k % n_stage) * slot_ints));
     __syncthreads();                 // slot k is refilled next step
   }
   cp_async_wait<0>();
+}
+
+// The rows-block walk of the CSR kernels: body(b, blk, rows_of_blk),
+// with the block's rows staged in shared memory at depth > 0.
+template <class Body>
+__device__ void sweep(const WorkItems& items, int b0, const int* rows,
+                      int tile, int depth, int* stage, Body body) {
+  sweep_items(
+      items, b0, depth, tile, stage,
+      [&](int* dst, int blk) {
+        stage_block(dst, rows + static_cast<long long>(blk) * tile, tile);
+      },
+      [&](int b, int blk, const int* slot) {
+        body(b, blk,
+             slot ? slot : rows + static_cast<long long>(blk) * tile);
+      });
 }
 
 // ---------------------------------------------------------------------------

@@ -157,8 +157,10 @@ __device__ __forceinline__ unsigned restore_word(int* p_word, int lane,
   return __ballot_sync(0xffffffffu, marked);
 }
 
-// Phase 4 of K5: restore P and OR the delta into out.
-__device__ inline void restore(const FusedGraph& g, int* p, unsigned* out,
+// Phase 4 of K5 (and K9): restore P and OR the delta into out.  G has
+// n_words, v_pad and n_vertices.
+template <class G>
+__device__ inline void restore(const G& g, int* p, unsigned* out,
                                int n_batch) {
   const int lane = threadIdx.x & 31;
   const long long total = static_cast<long long>(n_batch) * g.n_words;

@@ -1,4 +1,4 @@
-"""Public wrappers around the kernels (K1-K6).
+"""Public wrappers around the kernels (K1-K6, K8-K10, K13).
 
 Each wrapper picks its arm from the device of the tensors it is given:
 a CPU tensor runs the kernel's plain torch version, a CUDA tensor
@@ -18,24 +18,27 @@ Launch accounting, two counters:
 
 Budgets.  The reference's VMEM budgets describe a TPU core's
 scratchpad.  On this card the fused kernels keep their state in device
-memory; what is scarce is a CTA's shared memory (the rows ring of the
-prefetch pipeline, ``(depth + 1) * tile * 4`` bytes, against the
-232,448-byte opt-in limit) and, for the cooperative launches of K5 and
-K6, co-residency: every CTA of the grid must be resident at once.  The
+memory; what is scarce is a CTA's shared memory (the prefetch ring:
+``(depth + 1) * tile * 4`` bytes of rows for K4-K6, ``(depth + 1) *
+spp * 1152 * 4`` bytes of slabs for K8-K10, against the 232,448-byte
+opt-in limit) and, for the cooperative launches of K5, K6, K9 and K10,
+co-residency: every CTA of the grid must be resident at once.  The
 grid is sized from the occupancy API at that shared memory, so a
-budget that fits always yields a co-resident grid.  `megakernel_fits`
-and `persistent_fits` test the shared memory; the engine degrades
-observably where they fail, as the reference does.  The budgets are
-pure arithmetic, so the CPU path takes the same decisions.
+budget that fits always yields a co-resident grid.  The ``*_fits``
+functions test the shared memory; the engine degrades observably where
+they fail, as the reference does.  The budgets are pure arithmetic, so
+the CPU path takes the same decisions.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import compact as ck
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import restoration as rest
+from repro_torch.kernels import sell_expand as se
 from repro_torch.kernels import traversal_fused as tf
 
 _LAUNCH_COUNT = [0]
@@ -43,7 +46,10 @@ _LAUNCH_COUNT = [0]
 #: CUDA kernel launches per wrapper (see module docstring)
 KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
                    "gather_expand_batched": 0, "gather_expand_prefetch": 0,
-                   "layer_fused_batched": 0, "traversal_fused_batched": 0}
+                   "layer_fused_batched": 0, "traversal_fused_batched": 0,
+                   "sell_expand_batched": 0, "sell_expand_prefetch": 0,
+                   "sell_layer_fused_batched": 0,
+                   "sell_traversal_fused_batched": 0, "popcount": 0}
 
 #: dynamic shared memory one CTA can opt into on the H100
 SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
@@ -191,6 +197,103 @@ def traversal_fused_batched(graph: lf.FusedCsr, frontier, visited, parent,
                                     code=code, max_layers=max_layers)
 
 
+def sell_batched(graph: se.SellGraph, frontier, visited, out_init, p_init,
+                 *, worklist=None, n_active=None, bottom_up: bool = False,
+                 prefetch_depth: int = 0):
+    """K8 over (B, ...) state: ``worklist`` (B, n_steps) slab groups with
+    ``n_active`` (B,) — omitted, every root sweeps every group (the full
+    SpMV sweep).  Updates ``out_init`` and ``p_init`` in place and
+    returns them as (out, parent) — restoration NOT applied.  The slab
+    arrays are padded to the step once, when ``graph`` is built
+    (`sell_expand.sell_graph`)."""
+    if worklist is None:
+        n_batch = int(frontier.shape[0])
+        worklist = torch.arange(graph.n_steps, dtype=torch.int32,
+                                device=frontier.device) \
+            .expand(n_batch, -1).contiguous()
+        n_active = torch.full((n_batch,), graph.n_steps,
+                              dtype=torch.int32, device=frontier.device)
+    _charge_launch()
+    if _arm(p_init, "sell_batched"):
+        name = ("sell_expand_prefetch" if prefetch_depth > 0
+                else "sell_expand_batched")
+        KERNEL_LAUNCHES[name] += 1
+        return se.sell_expand_cuda(graph, worklist, n_active, frontier,
+                                   visited, out_init, p_init,
+                                   bottom_up=bottom_up,
+                                   prefetch_depth=prefetch_depth)
+    return se.sell_expand_plain(graph, worklist, n_active, frontier,
+                                visited, out_init, p_init,
+                                bottom_up=bottom_up)
+
+
+def sell(graph: se.SellGraph, frontier, visited, out_init, p_init, *,
+         worklist=None, n_active=None, bottom_up: bool = False,
+         prefetch_depth: int = 0):
+    """K8 for one root ((W,), (V_pad,)): the batched call at B = 1;
+    ``out_init`` and ``p_init`` are updated in place."""
+    if worklist is not None:
+        worklist = worklist[None].contiguous()
+        n_active = torch.as_tensor(n_active, dtype=torch.int32,
+                                   device=frontier.device).reshape(1)
+    sell_batched(graph, frontier[None].contiguous(),
+                 visited[None].contiguous(), out_init[None], p_init[None],
+                 worklist=worklist, n_active=n_active, bottom_up=bottom_up,
+                 prefetch_depth=prefetch_depth)
+    return out_init, p_init
+
+
+def sell_layer_fused_batched(graph: se.SellGraph, frontier, visited, parent,
+                             *, bottom_up: bool = False,
+                             prefetch_depth: int = 0):
+    """K9: one whole SELL layer of (B, W) bitmaps and (B, V_pad) P —
+    plan, sweep, restore.  Returns (out, parent, n_active (B,)); P is
+    restored in place, ``out`` already holds the repair."""
+    _charge_launch()
+    if _arm(parent, "sell_layer_fused_batched"):
+        KERNEL_LAUNCHES["sell_layer_fused_batched"] += 1
+        return se.sell_layer_fused_cuda(graph, frontier, visited, parent,
+                                        bottom_up=bottom_up,
+                                        prefetch_depth=prefetch_depth)
+    return se.sell_layer_fused_plain(graph, frontier, visited, parent,
+                                     bottom_up=bottom_up)
+
+
+def sell_layer_fused(graph: se.SellGraph, frontier, visited, parent, *,
+                     bottom_up: bool = False, prefetch_depth: int = 0):
+    """K9 for one root: the batched call at B = 1."""
+    out, p, na = sell_layer_fused_batched(
+        graph, frontier[None].contiguous(), visited[None].contiguous(),
+        parent[None], bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+    return out[0], p[0], na
+
+
+def sell_traversal_fused_batched(graph: se.SellGraph, frontier, visited,
+                                 parent, *, code: tf.PolicyCode,
+                                 max_layers: int, prefetch_depth: int = 0):
+    """K10: the whole SELL traversal of a root batch from its initial
+    state.  Returns (frontier, visited, parent, depths, layers, stats)."""
+    _charge_launch()
+    if _arm(parent, "sell_traversal_fused_batched"):
+        KERNEL_LAUNCHES["sell_traversal_fused_batched"] += 1
+        return tf.sell_traversal_fused_cuda(
+            graph, frontier, visited, parent, code=code,
+            max_layers=max_layers, prefetch_depth=prefetch_depth)
+    return tf.sell_traversal_fused_plain(graph, frontier, visited, parent,
+                                         code=code, max_layers=max_layers)
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """K13: total set bits of an int32 word tensor -> () int32.  The
+    engine's host loop reads its termination test from it, outside any
+    step, so no layer's launches column counts it."""
+    _charge_launch()
+    if _arm(words, "popcount"):
+        KERNEL_LAUNCHES["popcount"] += 1
+        return bk.popcount_cuda(words)
+    return bk.popcount_plain(words)
+
+
 def _depth(prefetch_depth: int, n_blocks: int) -> int:
     """The depth the kernels run: clamped to the block count."""
     return min(max(int(prefetch_depth), 0), max(int(n_blocks), 1))
@@ -222,3 +325,29 @@ def persistent_fits(tile: int, prefetch_depth: int = 0,
     ((max_layers + 1) * B * 4 int64) and stats live in device memory,
     so neither the batch nor the layer cap enters."""
     return megakernel_fits(tile, prefetch_depth, n_blocks)
+
+
+def sell_stage_fits(spp: int, prefetch_depth: int, n_steps: int) -> bool:
+    """True when K8's ring of ``cols`` and ``slab_rows`` fits a CTA."""
+    return se.stage_bytes(spp, _depth(prefetch_depth, n_steps)) \
+        <= SMEM_OPTIN_BYTES
+
+
+def sell_megakernel_budget(spp: int, prefetch_depth: int,
+                           n_steps: int) -> int:
+    """Shared memory per CTA of the whole-layer SELL kernel (K9); K10
+    runs K9's phases in CTAs of the same shape."""
+    return se.smem_budget(spp, _depth(prefetch_depth, n_steps))
+
+
+def sell_megakernel_fits(spp: int, prefetch_depth: int = 0,
+                         n_steps: int = 1) -> bool:
+    return sell_megakernel_budget(spp, prefetch_depth, n_steps) \
+        <= SMEM_OPTIN_BYTES
+
+
+def sell_persistent_fits(spp: int, prefetch_depth: int = 0,
+                         n_steps: int = 1) -> bool:
+    """K10's budget is K9's; its batch state and counters live in device
+    memory, so neither the batch nor the layer cap enters."""
+    return sell_megakernel_fits(spp, prefetch_depth, n_steps)

@@ -1,0 +1,252 @@
+"""K8 and K9 — the SELL-C-σ slab sweep and the whole SELL layer: CUDA
+kernels and their plain torch versions.
+
+Layout (built by `formats.sell.SellFormat`): ``cols[slab, q, lane]`` is
+neighbour ``q`` of the virtual row in ``lane`` of a slab (sentinel V
+pads), ``slab_rows[slab, lane]`` the vertex that owns the row; a slab
+is one (W_QUANT=8, SLICE_C=128) int32 block.  The sweep walks slab
+*groups* of ``spp`` slabs (the format's tile), listed per root in a
+work-list as the CSR kernels list rows-blocks.
+
+**K8** (`sell_expand_plain` / `sell_expand_cuda`): for each root b and
+each of its first ``n_active[b]`` work-list groups, every lane whose
+gate side is in the frontier and whose discovered side is in neither
+``visited`` nor ``out`` (and neither side the sentinel) writes
+``P[disc] = gate - |V|`` and ORs disc's bit into ``out`` without
+atomics (§3.3.2).  Top-down gates on the row and discovers the
+neighbour; bottom-up swaps the roles.  ``out`` and P are updated in
+place, restoration NOT applied.  At ``prefetch_depth > 0`` each CTA
+keeps that many groups' ``cols`` and ``slab_rows`` in flight into a
+shared-memory ring (``cp.async``); the function is K8's, so the plain
+version is the same.  Replaces ``repro.kernels.sell_expand``'s
+``sell_expand[_batched]`` (BlockSpec and DMA arms).
+
+**K9** (`sell_layer_fused_plain` / `sell_layer_fused_cuda`): one SELL
+layer per launch — plan (a group is active iff one of its lanes owns a
+row below V that is in ``words``: the frontier top-down, ``~visited``
+bottom-up), K8's sweep into a zeroed ``out``, restoration.  Returns
+(out restored, P restored in place, n_active).  Replaces
+``sell_layer_fused[_batched]``.
+
+The plain versions process a root's active groups a chunk at a time,
+so their racy writes collide differently from the kernels'; after
+restoration ``out``, ``visited`` and the marked set are identical.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.bitmap import BITS_PER_WORD
+from repro_torch.kernels import gather_expand as ge
+from repro_torch.kernels import layer_fused as lf
+from repro_torch.kernels.restoration import restoration_plain
+
+SLICE_C = 128     # rows per slice (the reference's lane count)
+W_QUANT = 8       # columns per slab: one (8, 128) int32 block
+SLAB_INTS = (W_QUANT + 1) * SLICE_C   # one slab's cols + slab_rows
+CHUNK_ENTRIES = 1 << 24   # plain versions: slab entries per pass
+CTAS_PER_SM = 4           # K8 grid: CTAs per SM striding the lists
+
+
+class SellGraph(NamedTuple):
+    """The SELL kernels' loop constants, built once per (format, tile):
+    the slab arrays padded to a multiple of ``spp`` slabs with sentinel
+    slabs, and the degrees padded to V_pad."""
+    cols: torch.Tensor       # (n_steps * spp, W_QUANT, SLICE_C) int32
+    slab_rows: torch.Tensor  # (n_steps * spp, SLICE_C) int32
+    deg: torch.Tensor        # (V_pad,) int32, 0 on padding
+    n_vertices: int
+    spp: int                 # slabs per work-list group (the tile)
+
+    @property
+    def n_steps(self) -> int:
+        return int(self.cols.shape[0]) // self.spp
+
+    @property
+    def n_words(self) -> int:
+        return int(self.deg.shape[0]) // BITS_PER_WORD
+
+
+def pad_slabs(cols, slab_rows, n_vertices: int, step: int):
+    """Pad the slab axis to a multiple of ``step`` with sentinel slabs
+    (all-V ids mask out entirely) — the reference's ``ops._pad_slabs``."""
+    pad = (-int(cols.shape[0])) % step
+    if pad:
+        cols = torch.cat([cols, torch.full((pad,) + tuple(cols.shape[1:]),
+                                           n_vertices, dtype=torch.int32,
+                                           device=cols.device)])
+        slab_rows = torch.cat([slab_rows, torch.full(
+            (pad, slab_rows.shape[1]), n_vertices, dtype=torch.int32,
+            device=slab_rows.device)])
+    return cols.contiguous(), slab_rows.contiguous()
+
+
+def sell_graph(cols, slab_rows, deg, n_vertices: int, spp: int,
+               v_pad: int) -> SellGraph:
+    cols, slab_rows = pad_slabs(cols, slab_rows, n_vertices, spp)
+    deg_pad = torch.zeros((v_pad,), dtype=torch.int32, device=deg.device)
+    deg_pad[:deg.shape[0]] = deg.to(torch.int32)
+    return SellGraph(cols, slab_rows, deg_pad, int(n_vertices), int(spp))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def plan_slabs_plain(g: SellGraph, words: torch.Tensor):
+    """(B, W) membership bitmaps -> ((B, n_steps) work-lists, (B,)
+    counts): a group is active iff one of its lanes' rows (< V) has its
+    bit set.  Ascending, tail clamped to the last active group."""
+    rows = g.slab_rows.reshape(-1)
+    idx = (rows >> 5).clamp(0, words.shape[1] - 1).long()
+    member = ((words[:, idx] >> (rows & 31)) & 1) != 0
+    member &= rows < g.n_vertices
+    covered = member.reshape(words.shape[0], g.n_steps, -1).any(-1)
+    return lf.compact_worklist(covered, g.n_steps)
+
+
+def sell_expand_plain(g: SellGraph, wl, na, frontier, visited, out, p, *,
+                      bottom_up: bool = False):
+    """Plain torch K8 over (B, ...) state; updates ``out``/``p`` in place
+    and returns them."""
+    n = g.n_vertices
+    slab = torch.arange(g.spp, dtype=torch.int64, device=wl.device)
+    per_chunk = max(1, CHUNK_ENTRIES // (g.spp * W_QUANT * SLICE_C))
+    for b, n_act in enumerate(na.tolist()):
+        groups = wl[b, :n_act].to(torch.int64)
+        for s in range(0, int(n_act), per_chunk):
+            slabs = (groups[s:s + per_chunk, None] * g.spp + slab) \
+                .reshape(-1)
+            nbr = g.cols[slabs].reshape(-1).to(torch.int64)
+            src = g.slab_rows[slabs][:, None, :] \
+                .expand(-1, W_QUANT, -1).reshape(-1).to(torch.int64)
+            valid = (src < n) & (nbr < n)
+            gate, disc = (nbr, src) if bottom_up else (src, nbr)
+            ge._expand_edges(n, gate, disc, valid, frontier[b], visited[b],
+                             out[b], p[b])
+    return out, p
+
+
+def sell_layer_fused_plain(g: SellGraph, frontier, visited, parent, *,
+                           bottom_up: bool = False):
+    """Plain torch K9: (out restored, P restored in place, n_active)."""
+    wl, na = plan_slabs_plain(g, ~visited if bottom_up else frontier)
+    out = torch.zeros_like(frontier)
+    sell_expand_plain(g, wl, na, frontier, visited, out, parent,
+                      bottom_up=bottom_up)
+    fixed, delta = restoration_plain(parent, g.n_vertices)
+    parent.copy_(fixed)
+    return out | delta, parent, na
+
+
+# ---------------------------------------------------------------------------
+# Budgets and the CUDA launches
+# ---------------------------------------------------------------------------
+
+def stage_bytes(spp: int, depth: int) -> int:
+    """Shared memory of one CTA's ring at ``depth``: (depth + 1) slots of
+    one group's cols and slab_rows (0 at depth 0)."""
+    return (depth + 1) * spp * SLAB_INTS * 4 if depth > 0 else 0
+
+
+def smem_budget(spp: int, depth: int) -> int:
+    """Shared memory one CTA of K9 or K10 needs: the ring plus the
+    reductions' scratch."""
+    return stage_bytes(spp, depth) + lf.FUSED_STATIC_SMEM
+
+
+def check_args(g: SellGraph, kernel: str, **named) -> None:
+    """The CUDA wrappers' checks: contiguous int32 on the graph's
+    device, (B, W) bitmaps, a (B, V_pad) P and (B, n_steps) lists."""
+    dev = g.cols.device
+    n_batch = int(named["frontier"].shape[0])
+    widths = {"frontier": g.n_words, "visited": g.n_words,
+              "out": g.n_words, "p": int(g.deg.shape[0]),
+              "parent": int(g.deg.shape[0]), "wl": g.n_steps}
+    for name, t in named.items():
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous int32 tensor on "
+                f"{dev}, got {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()}")
+        shape = ((n_batch,) if name == "na"
+                 else (n_batch, widths[name]))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+
+
+def _depth(prefetch_depth: int, n_steps: int) -> int:
+    return min(max(int(prefetch_depth), 0), n_steps)
+
+
+def sell_expand_cuda(g: SellGraph, wl, na, frontier, visited, out, p, *,
+                     bottom_up: bool = False, prefetch_depth: int = 0):
+    """Launch K8 (its ``cp.async`` ring at ``prefetch_depth > 0``,
+    clamped to the step count); ``out``/``p`` are updated in place."""
+    from repro_torch.kernels import _build
+    check_args(g, "sell_expand", wl=wl, na=na, frontier=frontier,
+               visited=visited, out=out, p=p)
+    depth = _depth(prefetch_depth, g.n_steps)
+    if stage_bytes(g.spp, depth) > ge.SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"sell_expand: prefetch_depth={depth} at {g.spp} slabs per "
+            f"step needs {stage_bytes(g.spp, depth)} bytes of shared "
+            f"memory per CTA; the card allows {ge.SMEM_OPTIN_BYTES}")
+    sms = torch.cuda.get_device_properties(g.cols.device) \
+        .multi_processor_count
+    grid_x = max(1, min(g.n_steps, CTAS_PER_SM * sms))
+    lib = _build.load()
+    _build.check(lib.repro_sell_expand(
+        wl.data_ptr(), na.data_ptr(), g.cols.data_ptr(),
+        g.slab_rows.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
+        out.data_ptr(), p.data_ptr(), int(frontier.shape[0]), g.n_steps,
+        g.spp, g.n_words, int(g.deg.shape[0]), g.n_vertices,
+        int(bool(bottom_up)), depth, grid_x, _build.stream_of(p)),
+        "sell_expand")
+    return out, p
+
+
+def cooperative_grid(lib_fn, depth: int, spp: int) -> int:
+    """CTAs of a fully co-resident grid for K9 or K10."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    grid = ctypes.c_int(0)
+    _build.check(lib_fn(int(depth), int(spp), lf.CTAS_PER_SM,
+                        ctypes.byref(grid)), "cooperative grid")
+    return grid.value
+
+
+def n_root_chunks(n_batch: int) -> int:
+    """The plan's root masks cover 32 roots per word."""
+    return -(-int(n_batch) // 32)
+
+
+def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,
+                          bottom_up: bool = False, prefetch_depth: int = 0):
+    """Launch K9 (one cooperative launch); P is updated in place."""
+    from repro_torch.kernels import _build
+    check_args(g, "sell_layer_fused", frontier=frontier, visited=visited,
+               parent=parent)
+    n_batch = int(frontier.shape[0])
+    depth = _depth(prefetch_depth, g.n_steps)
+    lib = _build.load()
+    grid = cooperative_grid(lib.repro_sell_layer_fused_grid, depth, g.spp)
+    i32 = dict(dtype=torch.int32, device=g.cols.device)
+    out = torch.empty_like(frontier)
+    wl = torch.empty((n_batch, g.n_steps), **i32)
+    cnt = torch.empty((n_batch, grid), **i32)
+    na = torch.empty((n_batch,), **i32)
+    gmask = torch.empty((g.n_steps * n_root_chunks(n_batch),), **i32)
+    _build.check(lib.repro_sell_layer_fused(
+        g.cols.data_ptr(), g.slab_rows.data_ptr(), frontier.data_ptr(),
+        visited.data_ptr(), parent.data_ptr(), out.data_ptr(),
+        wl.data_ptr(), cnt.data_ptr(), na.data_ptr(), gmask.data_ptr(),
+        n_batch, g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]),
+        g.n_vertices, int(bool(bottom_up)), depth, grid,
+        _build.stream_of(parent)), "sell_layer_fused")
+    return out, parent, na

@@ -1,5 +1,5 @@
-"""K6 — a whole multi-root traversal per launch: CUDA kernel and its
-plain torch version.
+"""K6 and K10 — a whole multi-root traversal per launch, on CSR (K6)
+and on SELL-C-σ (K10): CUDA kernels and their plain torch versions.
 
 The engine's layer loop — measure, decide, sweep, restore, stats — for
 a root batch, from its initial (frontier, visited, P) to its end.
@@ -11,14 +11,18 @@ Returns (frontier, visited, P, depths (B,), layers (1,), stats
   mode; the truncated column is 0;
 * a scalar-mode layer tests the pre-layer ``visited`` only (the
   reference's ``_gather_tile_dyn``); SIMD and bottom-up layers test
-  ``visited | out``.
+  ``visited | out``.  K10 runs the SIMD algorithm only: its
+  scalar-mode layers are the top-down slab sweep (``_sell_tile_dyn``).
 
 The kernel cannot call a policy object, so the engine hands it a
 `PolicyCode`: the policy's kind and parameters as numbers.  The batch
 sums the policies compare are float32 of the exact int64 sums, as in
-the engine, so both decide alike.  The CUDA kernel
-(``csrc/traversal_fused.cu``) replaces
-``repro.kernels.traversal_fused.traversal_fused_batched``.
+the engine, so both decide alike.  The CUDA kernels
+(``csrc/traversal_fused.cu``, ``csrc/sell_traversal_fused.cu``, sharing
+``csrc/traversal_loop.cuh``) replace
+``repro.kernels.traversal_fused.traversal_fused_batched`` and
+``sell_traversal_fused_batched``.  The Table 1 counters come from the
+padded degree array, which SELL keeps itself (it has no colstarts).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.core import bitmap as bm
 from repro_torch.kernels import layer_fused as lf
+from repro_torch.kernels import sell_expand as se
 
 # engine modes and stats columns, restated: this module sits below the
 # engine in the import graph (tests pin them against the engine's)
@@ -80,10 +85,11 @@ def decide(code: PolicyCode, layer: int, f_count: int, f_edges: int,
     return MODE_SCALAR, False
 
 
-def traversal_fused_plain(g: lf.FusedCsr, frontier, visited, parent, *,
-                          code: PolicyCode, max_layers: int):
-    """Plain torch K6: the layer loop on the host over `layer_fused_plain`
-    sweeps."""
+def _traversal_plain(deg, layer, frontier, visited, parent, *,
+                     code: PolicyCode, max_layers: int):
+    """The layer loop of the whole-traversal kernels, on the host:
+    ``layer(frontier, visited, parent, bottom_up, scalar)`` is one
+    layer's plain sweep, returning (out restored, parent, n_active)."""
     frontier, visited, parent = (frontier.clone(), visited.clone(),
                                  parent.clone())
     n_batch = frontier.shape[0]
@@ -92,30 +98,52 @@ def traversal_fused_plain(g: lf.FusedCsr, frontier, visited, parent, *,
                         device=dev)
     depths = torch.zeros((n_batch,), dtype=torch.int32, device=dev)
     bottom_up = False
-    layer = 0
-    for layer in range(max_layers + 1):
-        f_count, f_edges = layer_counters(frontier, g.deg)
-        if layer == max_layers or int(f_count.sum()) == 0:
+    layer_no = 0
+    for layer_no in range(max_layers + 1):
+        f_count, f_edges = layer_counters(frontier, deg)
+        if layer_no == max_layers or int(f_count.sum()) == 0:
             break
         if code.needs_unvisited:
-            u_count, u_edges = layer_counters(~visited, g.deg)
+            u_count, u_edges = layer_counters(~visited, deg)
         else:
             u_count = u_edges = torch.zeros_like(f_count)
-        mode, bottom_up = decide(code, layer, int(f_count.sum()),
+        mode, bottom_up = decide(code, layer_no, int(f_count.sum()),
                                  int(f_edges.sum()), int(u_count.sum()),
                                  int(u_edges.sum()), bottom_up)
-        out, parent, na = lf.layer_fused_plain(
-            g, frontier, visited, parent, bottom_up=mode == MODE_BOTTOMUP,
-            scalar=mode == MODE_SCALAR)
+        out, parent, na = layer(frontier, visited, parent,
+                                mode == MODE_BOTTOMUP, mode == MODE_SCALAR)
         visited = visited | out
         frontier = out
-        stats[layer] = torch.tensor(
+        stats[layer_no] = torch.tensor(
             [int(f_count.sum()), int(f_edges.sum()),
              int(bm.popcount32(out).sum()), mode, 1, int(na.sum()), 0,
-             int(layer == 0)], dtype=torch.int32)
+             int(layer_no == 0)], dtype=torch.int32)
         depths += (f_count > 0).to(torch.int32)
-    layers = torch.tensor([layer], dtype=torch.int32, device=dev)
+    layers = torch.tensor([layer_no], dtype=torch.int32, device=dev)
     return frontier, visited, parent, depths, layers, stats
+
+
+def traversal_fused_plain(g: lf.FusedCsr, frontier, visited, parent, *,
+                          code: PolicyCode, max_layers: int):
+    """Plain torch K6: the layer loop on the host over `layer_fused_plain`
+    sweeps."""
+    def layer(f, v, p, bottom_up, scalar):
+        return lf.layer_fused_plain(g, f, v, p, bottom_up=bottom_up,
+                                    scalar=scalar)
+    return _traversal_plain(g.deg, layer, frontier, visited, parent,
+                            code=code, max_layers=max_layers)
+
+
+def sell_traversal_fused_plain(g: se.SellGraph, frontier, visited, parent,
+                               *, code: PolicyCode, max_layers: int):
+    """Plain torch K10: the layer loop over `sell_layer_fused_plain`
+    sweeps.  SELL runs the SIMD algorithm only, so a scalar-mode layer
+    is the top-down sweep (``visited | out`` test), as in its per-layer
+    steps."""
+    def layer(f, v, p, bottom_up, scalar):
+        return se.sell_layer_fused_plain(g, f, v, p, bottom_up=bottom_up)
+    return _traversal_plain(g.deg, layer, frontier, visited, parent,
+                            code=code, max_layers=max_layers)
 
 
 def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
@@ -157,4 +185,47 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
         int(g.deg.shape[0]), g.n_vertices, depth, int(max_layers),
         code.kind, code.alpha, code.v_over_beta, code.threshold, grid,
         _build.stream_of(parent)), "traversal_fused")
+    return f_out, v_out, p_out, depths, layers, stats
+
+
+def sell_traversal_fused_cuda(g: se.SellGraph, frontier, visited, parent,
+                              *, code: PolicyCode, max_layers: int,
+                              prefetch_depth: int = 0):
+    """Launch K10 (one cooperative launch); the inputs are not changed."""
+    from repro_torch.kernels import _build
+    se.check_args(g, "sell_traversal_fused", frontier=frontier,
+                  visited=visited, parent=parent)
+    n_batch = int(frontier.shape[0])
+    depth = se._depth(prefetch_depth, g.n_steps)
+    lib = _build.load()
+    grid = se.cooperative_grid(lib.repro_sell_traversal_fused_grid, depth,
+                               g.spp)
+    dev = g.cols.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f_out, v_out, p_out = (torch.empty_like(frontier),
+                           torch.empty_like(visited),
+                           torch.empty_like(parent))
+    out = torch.empty_like(frontier)
+    wl = torch.empty((n_batch, g.n_steps), **i32)
+    cnt = torch.empty((n_batch, grid), **i32)
+    na = torch.empty((n_batch,), **i32)
+    gmask = torch.empty((g.n_steps * se.n_root_chunks(n_batch),), **i32)
+    acc = torch.empty(((max_layers + 1) * n_batch * 4,),
+                      dtype=torch.int64, device=dev)
+    depths = torch.empty((n_batch,), **i32)
+    layers = torch.empty((1,), **i32)
+    stats = torch.empty((max_layers, N_STATS), **i32)
+    simd_layer = torch.tensor(
+        [int(l in code.simd_layers) for l in range(max_layers)], **i32)
+    _build.check(lib.repro_sell_traversal_fused(
+        g.cols.data_ptr(), g.slab_rows.data_ptr(), g.deg.data_ptr(),
+        frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),
+        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
+        out.data_ptr(), wl.data_ptr(), cnt.data_ptr(), na.data_ptr(),
+        gmask.data_ptr(), acc.data_ptr(), depths.data_ptr(),
+        layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
+        n_batch, g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]),
+        g.n_vertices, depth, int(max_layers), code.kind, code.alpha,
+        code.v_over_beta, code.threshold, grid, _build.stream_of(parent)),
+        "sell_traversal_fused")
     return f_out, v_out, p_out, depths, layers, stats

@@ -54,6 +54,14 @@ def disconnected_graph(n=128):
     return csr_from_pairs(pairs, n)
 
 
+def isolated_graph(n=160):
+    """A star on [0, 40), a path on [40, 100) and 60 isolated vertices:
+    zero-degree rows, which the SELL layout never stores."""
+    pairs = [(0, i) for i in range(1, 40)]
+    pairs += [(i, i + 1) for i in range(40, 99)]
+    return csr_from_pairs(pairs, n)
+
+
 def rmat_graph(scale=9, seed=3):
     return ref_csr.from_edges(
         ref_rmat.generate(jax.random.PRNGKey(seed), scale=scale,
@@ -69,6 +77,11 @@ ROOTS = {
 }
 BUILDERS = {"rmat9": rmat_graph, "star": star_graph, "path": path_graph,
             "disconnected": disconnected_graph}
+
+#: the formats slice's graph families (the four above plus isolated
+#: vertices), with (single root, batch of 4)
+FORMAT_BUILDERS = dict(BUILDERS, isolated=isolated_graph)
+FORMAT_ROOTS = dict(ROOTS, isolated=(0, [0, 41, 99, 150]))
 
 #: (reference policy, port policy) pairs, the reference's test set
 POLICY_PAIRS = [
