@@ -39,12 +39,31 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    2, 4), K9 and K13 against their plain versions on the largest
    captured SELL layer, K10 on the batch's initial state;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
-   of CSR and of SELL;
+   of CSR and of SELL (``materialized`` included);
 7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
    layout built on the card equals the CPU build bitwise): visited,
-   depths, the stats buffer and the direction log must be identical;
+   depths, the stats buffer and the direction log must be identical on
+   every pipeline (``materialized`` included), and for the three
+   portfolio algorithms values, parents, depths and the whole stats
+   buffer;
 8. the kernels' launch counts from their paths' runs (all > 0; K13 runs
-   every host-loop path's termination test).
+   every host-loop path's termination test);
+9. (run right after 5b) the semiring portfolio at the main path's
+   size, on CSR (K2 + K11) and on the autotuner's SELL layout (K12):
+   ksource_bfs (the 8 roots) equals the level-synchronous depths; sssp
+   (8 roots, max_layers 512) ends with an empty frontier and passes
+   the optimality certificate on every edge; cc (one root) equals
+   scipy's min-id components; CSR and SELL agree bitwise (values,
+   parents, layers, stats columns 0-4); each timed over 3 runs; K11
+   and K12 against their plain versions on the largest ksource_bfs
+   (int32) and sssp (float32) layers, bitwise, beside one
+   ``scatter_reduce_(amin)`` fold of the layer (phase 0 only);
+10. (run after 9) the materialized pipeline at the main path's size,
+   all-auto policy, on CSR (K2 + apportioned stream + K7 + K1) and
+   SELL (K8 over every slab group + K1): timed over 3 runs with the
+   peak device memory, held to the main path as in phase 5 (stats
+   columns 0-4), no edge truncated; K7 against its plain version on
+   the largest captured layer (K3's contract).
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -53,6 +72,7 @@ Any failure raises and exits non-zero.  Run from the repository root:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -78,6 +98,9 @@ REPLACES = {
     "sell_traversal_fused_batched":
         "src/repro/kernels/traversal_fused.py:519",
     "popcount": "src/repro/kernels/bitmap_kernels.py:39",
+    "frontier_expand_batched": "src/repro/kernels/frontier_expand.py:207",
+    "gather_relax_batched": "src/repro/kernels/gather_expand.py:493",
+    "sell_relax_batched": "src/repro/kernels/sell_expand.py:766",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -92,6 +115,9 @@ SOURCES = {
     "sell_layer_fused_batched": CSRC + "sell_layer_fused.cu",
     "sell_traversal_fused_batched": CSRC + "sell_traversal_fused.cu",
     "popcount": CSRC + "popcount.cu",
+    "frontier_expand_batched": CSRC + "frontier_expand.cu",
+    "gather_relax_batched": CSRC + "gather_relax.cu",
+    "sell_relax_batched": CSRC + "sell_relax.cu",
 }
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
@@ -164,48 +190,87 @@ def level_bfs_depths(src, dst, n_vertices: int, root: int):
     return depth
 
 
-class Capture:
-    """Records the kernel inputs of the fused layer with the most active
-    tiles while a traversal runs (the wrappers are wrapped, not
-    changed)."""
+def listed(args) -> int:
+    """A work-listed call's key: the blocks or slab groups its roots
+    list."""
+    return int(args["n_active"].sum())
 
-    def __init__(self, ops):
-        self.ops = ops
-        self.best = None
-        self._pending = None
+
+class Spy:
+    """Wraps kernel wrappers of ``ops`` while traversals run (the
+    wrappers are wrapped, not changed).  ``keys`` maps each wrapper's
+    name to the key of a call (a function of its arguments by name), or
+    to None.  A call is recorded as its arguments by parameter name,
+    plus ``args`` (the positional ones, in order) and ``kw`` (the
+    keyword-only ones but ``prefetch_depth``, so that the layer replays
+    at any depth); tensors are copied before the call, but for the
+    graph's arrays.  ``best[name]`` is the call with the largest key,
+    with ``before``: the latest call of each keyless wrapper.
+    ``calls`` collects ``each(call, result)`` of every call."""
+
+    SHARED = ("rows", "colstarts", "graph")
+
+    def __init__(self, ops, keys: dict, each=None):
+        self.ops, self.keys, self.each = ops, keys, each
+        self.best, self.last, self.calls = {}, {}, []
 
     def __enter__(self):
-        ops = self.ops
-        self._orig = (ops.frontier_compact_batched,
-                      ops.gather_expand_batched)
-        orig_compact, orig_gather = self._orig
-
-        def compact(words, *, size, fill):
-            self._pending = (words.clone(), size, fill)
-            return orig_compact(words, size=size, fill=fill)
-
-        def gather(wl, na, rows, colstarts, frontier, visited, out, p,
-                   **kw):
-            tiles = int(na.sum())
-            if self.best is None or tiles > self.best["tiles"]:
-                self.best = dict(
-                    tiles=tiles, compact=self._pending, wl=wl.clone(),
-                    na=na.clone(), rows=rows, colstarts=colstarts,
-                    frontier=frontier.clone(), visited=visited.clone(),
-                    out=out.clone(), p=p.clone(),
-                    kw={k: v for k, v in kw.items()
-                        if k != "prefetch_depth"})
-            return orig_gather(wl, na, rows, colstarts, frontier, visited,
-                               out, p, **kw)
-
-        ops.frontier_compact_batched = compact
-        ops.gather_expand_batched = gather
+        self._orig = {n: getattr(self.ops, n) for n in self.keys}
+        for name, orig in self._orig.items():
+            setattr(self.ops, name, self._wrap(name, orig))
         return self
 
     def __exit__(self, *exc):
-        self.ops.frontier_compact_batched, \
-            self.ops.gather_expand_batched = self._orig
+        for name, orig in self._orig.items():
+            setattr(self.ops, name, orig)
         return False
+
+    def _wrap(self, name, orig):
+        import inspect
+        import torch
+        sig = inspect.signature(orig)
+        params = sig.parameters
+        key_of = self.keys[name]
+
+        def record(bound):
+            call = {k: v.clone() if torch.is_tensor(v) and k not in
+                    self.SHARED else v for k, v in bound.arguments.items()}
+            call["args"] = tuple(call[k] for k, p in params.items()
+                                 if p.kind is p.POSITIONAL_OR_KEYWORD)
+            call["kw"] = {k: call[k] for k, p in params.items()
+                          if p.kind is p.KEYWORD_ONLY
+                          and k != "prefetch_depth"}
+            return call
+
+        def wrapped(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            call = None
+            if key_of is None:
+                call = self.last[name] = record(bound)
+            else:
+                key = key_of(bound.arguments)
+                if name not in self.best or key > self.best[name]["key"]:
+                    self.best.pop(name, None)     # free the old copies
+                    call = self.best[name] = dict(
+                        record(bound), key=key, before=dict(self.last))
+            if self.each is None:
+                return orig(*args, **kw)
+            call = call or record(bound)
+            result = orig(*args, **kw)
+            self.calls.append(self.each(call, result))
+            return result
+        return wrapped
+
+
+def layer_spy(ops, name: str) -> Spy:
+    """A `Spy` of a one-launch layer wrapper (K5 or K9) whose ``calls``
+    are each layer's (graph, frontier, visited, bottom_up,
+    discoveries)."""
+    from repro_torch.core.engine import row_popcounts
+    return Spy(ops, {name: None}, each=lambda c, out: (
+        c["graph"], c["frontier"], c["visited"], c["kw"]["bottom_up"],
+        int(row_popcounts(out[0]).sum())))
 
 
 def k3_bytes(cap, n_marked: int) -> int:
@@ -215,7 +280,7 @@ def k3_bytes(cap, n_marked: int) -> int:
     one P word per marked vertex."""
     import torch
     tile = cap["kw"]["tile"]
-    wl, na = cap["wl"], cap["na"]
+    wl, na = cap["worklist"], cap["n_active"]
     n_batch, n_blocks = wl.shape
     used = torch.zeros((n_blocks,), dtype=torch.bool, device=wl.device)
     for b in range(n_batch):
@@ -258,17 +323,43 @@ def fused_layer_bytes(fg, frontier, visited, bottom_up: bool,
             + 4 * n_batch)
 
 
+PROFILER_SESSIONS = 3   # sessions tried before an empty trace fails
+
+
+def traced_device_events(fn, activities):
+    """Run ``fn`` under ``torch.profiler`` and return (device-side
+    events, wall microseconds).  A session that recorded no device
+    event at all failed to trace (CUPTI on this machine sometimes
+    misses a whole session), so it is repeated, up to
+    `PROFILER_SESSIONS` sessions; an empty result is then returned and
+    fails the caller's count."""
+    import torch
+    from torch.profiler import profile
+    for attempt in range(PROFILER_SESSIONS):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side events only (kernels, copies), not the host ops
+        # that launched them, whose device time would count the same
+        # work twice
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        if events:
+            return events, wall_us
+        log(f"profiler session {attempt + 1} recorded no device event; "
+            f"tracing again")
+    return [], wall_us
+
+
 def device_kernels(fn):
     """Run ``fn`` under the profiler: {kernel name: launches} of the
     device-side events (kernels and copies)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and e.self_device_time_total > 0}
+    from torch.profiler import ProfilerActivity
+    events, _ = traced_device_events(fn, [ProfilerActivity.CUDA])
+    return {e.key: e.count for e in events}
 
 
 def launches_of(kernels: dict, name: str) -> int:
@@ -315,7 +406,8 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
     n_batch, n_words = cap["frontier"].shape
 
     # K2 on the captured planning bitmap
-    words, size, fill = cap["compact"]
+    plan = cap["before"]["frontier_compact_batched"]
+    words, size, fill = plan["words"], plan["kw"]["size"], plan["kw"]["fill"]
     q_k, c_k = ck.compact_cuda(words, size, fill)
     q_p, c_p = ck.compact_plain(words, size, fill)
     err = max(int((q_k - q_p).abs().max()), int((c_k - c_p).abs().max()))
@@ -329,8 +421,8 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
 
     # K3 on the captured layer; K1 on its racy output
     def k3(fn):
-        out, p = cap["out"].clone(), cap["p"].clone()
-        fn(cap["wl"], cap["na"], cap["rows"], cap["colstarts"],
+        out, p = cap["out_init"].clone(), cap["p_init"].clone()
+        fn(cap["worklist"], cap["n_active"], cap["rows"], cap["colstarts"],
            cap["frontier"], cap["visited"], out, p, **kw)
         return out, p
 
@@ -350,20 +442,20 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
     check_marks(cap, p_k, cap["frontier"])
     n_marked = int(marked_k.sum())
     cap["plain_k3"] = (out_p, p_p)
-    out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
+    out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
-        out_buf.copy_(cap["out"])
-        p_buf.copy_(cap["p"])
+        out_buf.copy_(cap["out_init"])
+        p_buf.copy_(cap["p_init"])
 
     def run_k3(fn):
-        return lambda: fn(cap["wl"], cap["na"], cap["rows"],
+        return lambda: fn(cap["worklist"], cap["n_active"], cap["rows"],
                           cap["colstarts"], cap["frontier"],
                           cap["visited"], out_buf, p_buf, **kw)
 
     results["gather_expand_batched"] = dict(
         max_abs_err=k3_err, bytes=k3_bytes(cap, n_marked),
-        active_tiles=cap["tiles"], marked=n_marked,
+        active_tiles=cap["key"], marked=n_marked,
         bottom_up=kw["bottom_up"],
         ms=cuda_ms(run_k3(ge.gather_expand_cuda), reps, setup=reset),
         plain_ms=cuda_ms(run_k3(ge.gather_expand_plain),
@@ -387,7 +479,7 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
                         "plain_ms": r["plain_ms"], "bytes": r["bytes"],
                         "bound_ms": r["bound_ms"],
                         "max_abs_err": r["max_abs_err"]}))
-    log(f"K3 layer{label}: {cap['tiles']} active tiles, {n_marked} "
+    log(f"K3 layer{label}: {cap['key']} active tiles, {n_marked} "
         f"marked, bottom_up={kw['bottom_up']}")
     return results
 
@@ -401,17 +493,17 @@ def phase_prefetch(cap, reps: int, k3: dict):
     kw, n = cap["kw"], cap["kw"]["n_vertices"]
     out_p, p_p = cap["plain_k3"]
     _, delta_p = rest.restoration_plain(p_p, n)
-    out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
+    out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
-        out_buf.copy_(cap["out"])
-        p_buf.copy_(cap["p"])
+        out_buf.copy_(cap["out_init"])
+        p_buf.copy_(cap["p_init"])
 
     per_depth = {}
     for depth in PREFETCH_DEPTHS:
         reset()
         run = lambda: ge.gather_expand_cuda(
-            cap["wl"], cap["na"], cap["rows"], cap["colstarts"],
+            cap["worklist"], cap["n_active"], cap["rows"], cap["colstarts"],
             cap["frontier"], cap["visited"], out_buf, p_buf,
             prefetch_depth=depth, **kw)
         run()
@@ -442,27 +534,27 @@ def phase_layer_fused(cap, v_pad: int, reps: int):
     kw, n = cap["kw"], cap["kw"]["n_vertices"]
     fg = lf.fused_csr(cap["colstarts"], cap["rows"], n, kw["tile"], v_pad)
     bu = kw["bottom_up"]
-    p_buf = cap["p"].clone()
+    p_buf = cap["p_init"].clone()
     run = lambda: lf.layer_fused_cuda(fg, cap["frontier"], cap["visited"],
                                       p_buf, bottom_up=bu)
     out_k, p_k, na_k = run()
-    p_plain = cap["p"].clone()
+    p_plain = cap["p_init"].clone()
     out_p, p_p, na_p = lf.layer_fused_plain(fg, cap["frontier"],
                                             cap["visited"], p_plain,
                                             bottom_up=bu)
     torch.cuda.synchronize()
-    marked_k, marked_p = p_k != cap["p"], p_p != cap["p"]
-    err = max(int((na_k != na_p).sum()), int((na_k != cap["na"]).sum()),
+    marked_k, marked_p = p_k != cap["p_init"], p_p != cap["p_init"]
+    err = max(int((na_k != na_p).sum()), int((na_k != cap["n_active"]).sum()),
               int((out_k != out_p).sum()), int((marked_k != marked_p).sum()),
               int(((cap["visited"] | out_k)
                    != (cap["visited"] | out_p)).sum()))
     assert err == 0, "layer_fused disagrees with its plain version"
-    check_marks(cap, torch.where(marked_k, p_k - n, cap["p"]),
+    check_marks(cap, torch.where(marked_k, p_k - n, cap["p_init"]),
                 cap["frontier"])
     n_marked = int(marked_k.sum())
 
     def reset():
-        p_buf.copy_(cap["p"])
+        p_buf.copy_(cap["p_init"])
 
     reset()
     kernels = device_kernels(run)
@@ -475,7 +567,7 @@ def phase_layer_fused(cap, v_pad: int, reps: int):
                ms=cuda_ms(run, reps, setup=reset),
                plain_ms=cuda_ms(lambda: lf.layer_fused_plain(
                    fg, cap["frontier"], cap["visited"], p_plain,
-                   bottom_up=bu), 3, setup=lambda: p_plain.copy_(cap["p"])))
+                   bottom_up=bu), 3, setup=lambda: p_plain.copy_(cap["p_init"])))
     res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
     log(json.dumps({"kernel": "layer_fused_batched", "ms": res["ms"],
                     "plain_ms": res["plain_ms"], "bytes": res["bytes"],
@@ -484,37 +576,10 @@ def phase_layer_fused(cap, v_pad: int, reps: int):
     return res
 
 
-class LayerCapture:
-    """Records every K5 layer's inputs (frontier, visited, direction) and
-    its discoveries while a megakernel traversal runs."""
-
-    def __init__(self, ops):
-        self.ops = ops
-        self.layers = []
-
-    def __enter__(self):
-        orig = self._orig = self.ops.layer_fused_batched
-
-        def layer(graph, frontier, visited, parent, **kw):
-            f, v = frontier.clone(), visited.clone()
-            out, p, na = orig(graph, frontier, visited, parent, **kw)
-            from repro_torch.core.engine import row_popcounts
-            self.layers.append((graph, f, v, kw["bottom_up"],
-                                int(row_popcounts(out).sum())))
-            return out, p, na
-
-        self.ops.layer_fused_batched = layer
-        return self
-
-    def __exit__(self, *exc):
-        self.ops.layer_fused_batched = self._orig
-        return False
-
-
 def phase_persistent_kernel(ct, roots, layers, reps: int):
     """K6 against its plain version on the batch's initial state; bytes
     = the per-layer K5 bytes of the same traversal (``layers`` from a
-    `LayerCapture`) plus one read of the degrees."""
+    `layer_spy`) plus one read of the degrees."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels import traversal_fused as tf
@@ -549,51 +614,6 @@ def phase_persistent_kernel(ct, roots, layers, reps: int):
     return res
 
 
-class SellCapture:
-    """Records the K8 inputs of the SELL layer with the most active
-    groups, and every K9 layer's inputs, while traversals run (the
-    wrappers are wrapped, not changed)."""
-
-    def __init__(self, ops):
-        self.ops = ops
-        self.best = None
-        self.layers = []
-
-    def __enter__(self):
-        ops = self.ops
-        self._orig = (ops.sell_batched, ops.sell_layer_fused_batched)
-        orig_sell, orig_layer = self._orig
-
-        def sell(graph, frontier, visited, out, p, *, worklist, n_active,
-                 **kw):
-            groups = int(n_active.sum())
-            if self.best is None or groups > self.best["groups"]:
-                self.best = dict(
-                    groups=groups, graph=graph, wl=worklist.clone(),
-                    na=n_active.clone(), frontier=frontier.clone(),
-                    visited=visited.clone(), out=out.clone(), p=p.clone(),
-                    bottom_up=kw["bottom_up"])
-            return orig_sell(graph, frontier, visited, out, p,
-                             worklist=worklist, n_active=n_active, **kw)
-
-        def layer(graph, frontier, visited, parent, **kw):
-            f, v = frontier.clone(), visited.clone()
-            out, p, na = orig_layer(graph, frontier, visited, parent, **kw)
-            from repro_torch.core.engine import row_popcounts
-            self.layers.append((graph, f, v, kw["bottom_up"],
-                                int(row_popcounts(out).sum())))
-            return out, p, na
-
-        ops.sell_batched = sell
-        ops.sell_layer_fused_batched = layer
-        return self
-
-    def __exit__(self, *exc):
-        self.ops.sell_batched, self.ops.sell_layer_fused_batched = \
-            self._orig
-        return False
-
-
 def sell_groups(graph, wl, na) -> int:
     """Slab groups in the union of the roots' work-lists."""
     import torch
@@ -610,9 +630,9 @@ def sell_k8_bytes(cap, n_marked: int) -> int:
     from repro_torch.kernels.sell_expand import SLAB_INTS
     graph = cap["graph"]
     n_batch, n_words = cap["frontier"].shape
-    return (4 * graph.spp * SLAB_INTS * sell_groups(graph, cap["wl"],
-                                                    cap["na"])
-            + 4 * (n_batch + int(cap["na"].sum()))
+    return (4 * graph.spp * SLAB_INTS * sell_groups(graph, cap["worklist"],
+                                                    cap["n_active"])
+            + 4 * (n_batch + int(cap["n_active"].sum()))
             + 4 * 4 * n_batch * n_words + 4 * n_marked)
 
 
@@ -648,21 +668,21 @@ def phase_sell_kernels(cap, g, reps: int):
     from repro_torch.kernels import restoration as rest
     from repro_torch.kernels import sell_expand as se
     graph, n = cap["graph"], g.n_vertices
-    bu = cap["bottom_up"]
+    bu = cap["kw"]["bottom_up"]
     res = {}
 
-    out_p, p_p = cap["out"].clone(), cap["p"].clone()
-    se.sell_expand_plain(graph, cap["wl"], cap["na"], cap["frontier"],
+    out_p, p_p = cap["out_init"].clone(), cap["p_init"].clone()
+    se.sell_expand_plain(graph, cap["worklist"], cap["n_active"], cap["frontier"],
                          cap["visited"], out_p, p_p, bottom_up=bu)
     _, delta_p = rest.restoration_plain(p_p, n)
-    out_buf, p_buf = cap["out"].clone(), cap["p"].clone()
+    out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
-        out_buf.copy_(cap["out"])
-        p_buf.copy_(cap["p"])
+        out_buf.copy_(cap["out_init"])
+        p_buf.copy_(cap["p_init"])
 
     def k8(fn, **kw):
-        return lambda: fn(graph, cap["wl"], cap["na"], cap["frontier"],
+        return lambda: fn(graph, cap["worklist"], cap["n_active"], cap["frontier"],
                           cap["visited"], out_buf, p_buf, bottom_up=bu, **kw)
 
     per_depth = {}
@@ -689,33 +709,33 @@ def phase_sell_kernels(cap, g, reps: int):
                        setup=reset)
     res["sell_expand_batched"] = dict(
         max_abs_err=0, ms=per_depth[0], plain_ms=plain_ms, bytes=bytes_k8,
-        groups=cap["groups"], marked=n_marked, bottom_up=bu)
+        groups=cap["key"], marked=n_marked, bottom_up=bu)
     res["sell_expand_prefetch"] = dict(
         max_abs_err=0, ms=per_depth[2], plain_ms=plain_ms, bytes=bytes_k8,
         per_depth=per_depth)
 
     # K9 on the same state
-    p9 = cap["p"].clone()
+    p9 = cap["p_init"].clone()
     run9 = lambda: se.sell_layer_fused_cuda(graph, cap["frontier"],
                                             cap["visited"], p9, bottom_up=bu)
     out_k, p_k, na_k = run9()
-    p9_plain = cap["p"].clone()
+    p9_plain = cap["p_init"].clone()
     out_q, p_q, na_q = se.sell_layer_fused_plain(
         graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu)
     torch.cuda.synchronize()
-    marked_k, marked_q = p_k != cap["p"], p_q != cap["p"]
-    err = max(int((na_k != na_q).sum()), int((na_k != cap["na"]).sum()),
+    marked_k, marked_q = p_k != cap["p_init"], p_q != cap["p_init"]
+    err = max(int((na_k != na_q).sum()), int((na_k != cap["n_active"]).sum()),
               int((out_k != out_q).sum()), int((marked_k != marked_q).sum()))
     assert err == 0, "sell_layer_fused disagrees with its plain version"
-    sell_check_marks(cap, torch.where(marked_k, p_k - n, cap["p"]), g)
+    sell_check_marks(cap, torch.where(marked_k, p_k - n, cap["p_init"]), g)
     bytes_k9 = sell_layer_bytes(graph, cap["frontier"], cap["visited"], bu,
                                 int(marked_k.sum()))
     res["sell_layer_fused_batched"] = dict(
         max_abs_err=err, bytes=bytes_k9,
-        ms=cuda_ms(run9, reps, setup=lambda: p9.copy_(cap["p"])),
+        ms=cuda_ms(run9, reps, setup=lambda: p9.copy_(cap["p_init"])),
         plain_ms=cuda_ms(lambda: se.sell_layer_fused_plain(
             graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu),
-            3, setup=lambda: p9_plain.copy_(cap["p"])))
+            3, setup=lambda: p9_plain.copy_(cap["p_init"])))
 
     # K13 on the layer's frontier words
     words = cap["frontier"]
@@ -732,7 +752,7 @@ def phase_sell_kernels(cap, g, reps: int):
                         "plain_ms": r["plain_ms"], "bytes": r["bytes"],
                         "bound_ms": r["bound_ms"],
                         "max_abs_err": r["max_abs_err"]}))
-    log(f"K8 layer: {cap['groups']} active slab groups (all roots), "
+    log(f"K8 layer: {cap['key']} active slab groups (all roots), "
         f"{n_marked} marked, bottom_up={bu}")
     return res
 
@@ -740,7 +760,7 @@ def phase_sell_kernels(cap, g, reps: int):
 def phase_sell_traversal_kernel(ct, roots, layers, reps: int):
     """K10 against its plain version on the batch's initial state; bytes
     = the per-layer K9 bytes of the same traversal (``layers`` from a
-    `SellCapture` of a megakernel run) plus one read of the degrees."""
+    `layer_spy` of a megakernel run) plus one read of the degrees."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels import traversal_fused as tf
@@ -808,7 +828,7 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int):
         for k in kernels:
             launches.setdefault(k, launched[k])
         if name == "sell_fused_gather":           # an untimed capture run
-            with SellCapture(ops) as cap:
+            with Spy(ops, {"sell_batched": listed}) as cap:
                 ct.run_batched(roots)
         if name == "sell_megakernel":
             kernels_seen = profile_run(ct, roots, name, top=8)
@@ -818,7 +838,7 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int):
                 f"K9 must be one CUDA launch per layer, saw {got}"
             log(f"sell_megakernel: {n_layers} K9 launches for {n_layers} "
                 f"layers")
-            with SellCapture(ops) as mega_cap:
+            with layer_spy(ops, "sell_layer_fused_batched") as mega_cap:
                 ct.run_batched(roots)
         if name == "sell_persistent":
             kernels_seen = profile_run(ct, roots, name, top=8)
@@ -829,31 +849,401 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int):
                 f"{sum(kernels_seen.values()) - 1} other device events "
                 f"(initial state)")
             kres["sell_traversal_fused_batched"] = \
-                phase_sell_traversal_kernel(ct, roots, mega_cap.layers, 5)
+                phase_sell_traversal_kernel(ct, roots, mega_cap.calls, 5)
         del ct
-    kres.update(phase_sell_kernels(cap.best, g, reps))
+    kres.update(phase_sell_kernels(cap.best["sell_batched"], g, reps))
     del cap, mega_cap, fmt
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
     return kres, launches
 
 
+def relax_bytes(name, args) -> int:
+    """Bytes K11 or K12 must move for a captured layer, each input read
+    once: the rows (CSR: with the colstarts entries their owners span)
+    or cols and slab_rows (SELL) of the union of listed blocks or
+    groups, the lists, the frontier words, ``vals`` read and
+    ``out_vals`` and ``p_layer`` written."""
+    import torch
+    from repro_torch.kernels.sell_expand import SLAB_INTS
+    if name == "gather_relax_batched":
+        wl, na, rows, cs, frontier, vals = args
+        tile = int(rows.shape[0]) // int(wl.shape[1])
+        used = torch.zeros((wl.shape[1],), dtype=torch.bool,
+                           device=wl.device)
+        for b in range(wl.shape[0]):
+            used[wl[b, :int(na[b])].long()] = True
+        blocks = torch.nonzero(used).flatten()
+        first = torch.searchsorted(cs, (blocks * tile).to(cs.dtype),
+                                   right=True) - 1
+        last = torch.searchsorted(
+            cs, (blocks * tile + tile - 1).to(cs.dtype), right=True) - 1
+        graph_bytes = 4 * tile * int(blocks.numel()) \
+            + 4 * int((last - first + 2).sum())
+    else:
+        graph, wl, na, frontier, vals = args
+        graph_bytes = 4 * graph.spp * SLAB_INTS * sell_groups(graph, wl,
+                                                              na)
+    return (graph_bytes + 4 * (int(wl.shape[0]) + int(na.sum()))
+            + 4 * frontier.numel() + 3 * 4 * vals.numel())
+
+
+def relax_fold_inputs(name, args, kw):
+    """The layer's candidates as one scatter-min's inputs over the
+    flattened (B * V_pad) value rows: (index, candidate) of every edge
+    from a frontier vertex to a real neighbour."""
+    import torch
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels import sell_expand as se
+    unit, weighted = kw["unit"], kw["weighted"]
+    if name == "gather_relax_batched":
+        wl, na, rows, cs, frontier, vals = args
+        n = kw["n_vertices"]
+        edges = lambda b: ge.worklist_edges(wl[b, :int(na[b])], rows, cs,
+                                            kw["tile"])
+    else:
+        graph, wl, na, frontier, vals = args
+        n = graph.n_vertices
+        edges = lambda b: se.slab_edges(graph, wl[b, :int(na[b])])
+    v_pad = vals.shape[1]
+    idx, cand = [], []
+    for b in range(vals.shape[0]):
+        for src, nbr in edges(b):
+            mask, c = ge.relax_candidates(n, src, nbr, frontier[b], vals[b],
+                                          unit=unit, weighted=weighted)
+            idx.append(nbr[mask] + b * v_pad)
+            cand.append(c[mask])
+    return torch.cat(idx), torch.cat(cand)
+
+
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_relax_kernels(cap, reps: int):
+    """K11 and K12 on the largest captured layer of each algorithm
+    (``cap``: {algorithm: its `Spy`}), against their plain versions:
+    ``out_vals`` and ``p_layer`` bitwise.  Returns {algorithm: {kernel:
+    results}}; each result also holds, as ``phase0_fold_ms``, the time
+    of one ``scatter_reduce_(amin)`` fold of the layer's candidates,
+    computed beforehand: phase 0 only, since no one PyTorch call
+    computes the whole function (so the kernel's ``library_ms`` stays
+    null)."""
+    import torch
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels import sell_expand as se
+    arms = {"gather_relax_batched": (ge.gather_relax_cuda,
+                                     ge.gather_relax_plain),
+            "sell_relax_batched": (se.sell_relax_cuda, se.sell_relax_plain)}
+    out = {}
+    for alg, spy in cap.items():
+        out[alg] = {}
+        for name, call in spy.best.items():
+            items, args, kw = call["key"], call["args"], call["kw"]
+            cuda_fn, plain_fn = arms[name]
+            got = cuda_fn(*args, **kw)
+            want, plain_ms = timed_once(lambda: plain_fn(*args, **kw))
+            vals = args[-1]
+            err = int((got[0].view(torch.int32)
+                       != want[0].view(torch.int32)).sum()) \
+                + int((got[1] != want[1]).sum())
+            assert err == 0, f"{name} ({alg}) disagrees with its plain " \
+                             f"version in {err} entries"
+            assert bool((got[0] >= 0).all()), f"{name}: negative value"
+            idx, cand = relax_fold_inputs(name, args, kw)
+            flat = vals.reshape(-1).clone()
+            fold_ms = cuda_ms(
+                lambda: flat.scatter_reduce_(0, idx, cand, "amin",
+                                             include_self=True), reps,
+                setup=lambda: flat.copy_(vals.reshape(-1)))
+            assert torch.equal(flat.view(vals.shape), got[0]), \
+                f"{name}: the scatter_reduce_ fold disagrees with K11/K12"
+            del idx, cand, flat
+            r = dict(max_abs_err=err, items=items, bytes=relax_bytes(
+                name, args), improved=int((got[0] != vals).sum()),
+                ms=cuda_ms(lambda: cuda_fn(*args, **kw), reps),
+                plain_ms=plain_ms, phase0_fold_ms=fold_ms,
+                dtype=str(vals.dtype).split(".")[-1])
+            r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            out[alg][name] = r
+            log(json.dumps({"kernel": name, "algorithm": alg, **{
+                k: r[k] for k in ("ms", "plain_ms", "phase0_fold_ms",
+                                  "bytes", "bound_ms", "max_abs_err",
+                                  "items", "improved", "dtype")},
+                "phase0_fold": "scatter_reduce_(amin) of the candidates, "
+                               "phase 0 only"}))
+            del got, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def sssp_certificate(g, res, roots, src, dst, w) -> None:
+    """The optimality certificate of every root's distances, on the card:
+    no edge from a reached vertex relaxes (``fl32(dist[u] + w) >=
+    dist[v]``, v reached), the root is 0 and its own parent, and every
+    other reached v is ``fl32(dist[p] + w(p, v))`` for its parent p,
+    (p, v) an edge (searched in the sorted int64 edge keys)."""
+    import torch
+    from repro_torch.algorithms.semiring import edge_weight
+    n = g.n_vertices
+    keys = src * n + dst          # CSR order: sorted
+    ids = torch.arange(n, device=src.device)
+    for b, r in enumerate(roots):
+        dist = res.values[b, :n]
+        parent = res.state.parent[b, :n].long()
+        reached = torch.isfinite(dist)
+        assert float(dist[r]) == 0.0 and int(parent[r]) == r, f"root {r}"
+        from_reached = reached[src]
+        assert bool(reached[dst][from_reached].all()), \
+            f"root {r}: an edge leaves the reached set"
+        relaxed = dist[src] + w
+        assert bool((relaxed >= dist[dst])[from_reached].all()), \
+            f"root {r}: an edge still relaxes"
+        v = torch.nonzero(reached & (ids != r)).flatten()
+        p = parent[v]
+        assert bool(((p >= 0) & (p < n)).all()) and bool(reached[p].all())
+        assert torch.equal(dist[v], dist[p] + edge_weight(p, v)), \
+            f"root {r}: a distance is not its parent's plus the edge"
+        k = p * n + v
+        pos = torch.searchsorted(keys, k).clamp(max=keys.numel() - 1)
+        assert torch.equal(keys[pos], k), f"root {r}: a parent is not a " \
+                                          f"neighbour"
+
+
+def cc_min_labels(g):
+    """Min vertex id of each vertex's component, from scipy on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    import torch
+    n, e = g.n_vertices, g.n_edges
+    mat = sp.csr_matrix((np.ones(e, np.int8), g.rows[:e].cpu().numpy(),
+                         g.colstarts.cpu().numpy()), shape=(n, n))
+    n_comp, labels = connected_components(mat, directed=False)
+    _, first = np.unique(labels, return_index=True)   # least id each
+    return torch.from_numpy(first[labels].astype(np.int32)), n_comp
+
+
+def phase_portfolio(g, roots, oracle, reps: int):
+    """Phase 9: the semiring portfolio at the main path's size on CSR and
+    on the autotuner's SELL layout.  ksource_bfs (8 roots) equals the
+    level-synchronous depths; sssp (8 roots, max_layers 512) ends with
+    an empty frontier and passes the edge certificate; cc (one root)
+    equals scipy's min-id components; CSR and SELL agree bitwise on
+    values, parents, layers and stats columns 0-4.  Returns ({kernel:
+    results}, {kernel: launches}): K11 and K12 are timed on the largest
+    layers of the ksource_bfs runs, so their launches are those runs'
+    (the sssp and cc runs' are printed beside them)."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import errors, formats
+    from repro_torch.algorithms.semiring import INT_INF, edge_weight
+    from repro_torch.kernels import ops
+    n = g.n_vertices
+    layouts = {"csr": g, "sell": formats.build(g, "auto")}
+    assert isinstance(layouts["sell"], formats.SellFormat)
+    src = torch.repeat_interleave(torch.arange(n, device=g.rows.device),
+                                  g.degrees().long(), output_size=g.n_edges)
+    dst = g.rows[:g.n_edges].long()
+    w = edge_weight(src, dst)
+    cc_want, n_comp = cc_min_labels(g)
+    log(f"scipy: {n_comp} components")
+    cc_want = cc_want.to(g.rows.device)
+    kernel_of = {"csr": "gather_relax_batched", "sell": "sell_relax_batched"}
+    launches = {}
+    per_run = {}
+    cap = {}
+    results = {}
+    for alg, alg_roots, fields in (
+            ("ksource_bfs", roots, {}), ("sssp", roots,
+                                         dict(max_layers=512)),
+            ("cc", roots[:1], dict(max_layers=512))):
+        # the kernels are compared on the int32 and float32 layers
+        capture = (cap.setdefault(alg, Spy(ops, dict.fromkeys(
+            kernel_of.values(), listed))) if alg != "cc"
+            else contextlib.nullcontext())
+        for lay, fmt in layouts.items():
+            ct = bfs.plan(fmt, bfs.TraversalSpec(algorithm=alg, **fields))
+            with capture:                        # warm-up and capture
+                ct.run_batched(alg_roots)
+            torch.cuda.synchronize()
+            errors.DEGRADES.clear()
+            ops.reset_kernel_launches()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = ct.run_batched(alg_roots)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if len(times) == 1:
+                    counted = dict(ops.KERNEL_LAUNCHES)
+            assert not errors.DEGRADES, errors.DEGRADES
+            k = kernel_of[lay]
+            assert counted[k] > 0, f"{alg} {lay}: {k} never launched"
+            per_run[f"{alg} {lay}"] = counted[k]
+            if alg == "ksource_bfs":
+                launches[k] = counted[k]
+            n_layers = int(res.state.layer)
+            assert n_layers < ct.resolved.max_layers, \
+                f"{alg} {lay}: hit max_layers"
+            assert int(ops.popcount(res.state.frontier)) == 0
+            vals = res.values[:, :n]
+            if alg == "ksource_bfs":
+                for b, r in enumerate(alg_roots):
+                    d = oracle(r)
+                    want = torch.where(d >= 0, d, int(INT_INF))
+                    assert torch.equal(vals[b], want), \
+                        f"ksource {lay}: root {r} depths differ"
+            elif alg == "sssp":
+                sssp_certificate(g, res, alg_roots, src, dst, w)
+            else:
+                assert torch.equal(vals[0], cc_want), f"cc {lay}: labels"
+            if lay == "csr":
+                base = res
+            else:
+                for what, a, b in (
+                        ("values", res.values.view(torch.int32),
+                         base.values.view(torch.int32)),
+                        ("parents", res.state.parent, base.state.parent),
+                        ("depths", res.depths, base.depths),
+                        ("stats columns 0-4", res.stats[:, :5],
+                         base.stats[:, :5])):
+                    assert torch.equal(a, b), \
+                        f"{alg}: SELL and CSR {what} differ"
+                assert n_layers == int(base.state.layer)
+            log(f"portfolio {alg} {lay}: {len(alg_roots)} roots, "
+                f"{n_layers} layers, runs {[round(t, 6) for t in times]} s; "
+                f"launches {k}={counted[k]}, popcount="
+                f"{counted['popcount']}" + (
+                    "; equals CSR bitwise (values, parents, layers, stats "
+                    "0-4)" if lay == "sell" else ""))
+            results[(alg, lay)] = times
+            del ct
+        del res, base
+    log(json.dumps({"portfolio_launches": per_run}))
+    del src, dst, w, layouts
+    torch.cuda.empty_cache()
+    kres = phase_relax_kernels(cap, reps)
+    del cap
+    torch.cuda.empty_cache()
+    rows = {name: dict(kres["ksource_bfs"][name]) for name in launches}
+    return rows, launches
+
+
+def phase_expand_kernel(cap, g, reps: int):
+    """K7 against its plain version on the captured layer, under K3's
+    contract: the marked sets, ``out|delta`` and ``visited|delta``
+    bitwise, every mark a frontier neighbour of its vertex."""
+    import torch
+    from repro_torch.kernels import frontier_expand as fe
+    from repro_torch.kernels import restoration as rest
+    n, kw = g.n_vertices, cap["kw"]
+    streams = (cap["nbr"], cap["cand"], cap["valid"], cap["frontier"],
+               cap["visited"])
+    out_k, p_k = cap["out_init"].clone(), cap["p_init"].clone()
+    fe.frontier_expand_cuda(*streams, out_k, p_k, **kw)
+    out_p, p_p = cap["out_init"].clone(), cap["p_init"].clone()
+    fe.frontier_expand_plain(*streams, out_p, p_p, **kw)
+    torch.cuda.synchronize()
+    _, delta_k = rest.restoration_plain(p_k, n)
+    _, delta_p = rest.restoration_plain(p_p, n)
+    err = int(((p_k < 0) != (p_p < 0)).sum())
+    for a, b in ((out_k | delta_k, out_p | delta_p),
+                 (cap["visited"] | delta_k, cap["visited"] | delta_p)):
+        err = max(err, int((a != b).sum()))
+    assert err == 0, "frontier_expand disagrees with its plain version"
+    check_marks(dict(kw=dict(n_vertices=n), rows=g.rows,
+                     colstarts=g.colstarts), p_k, cap["frontier"])
+    n_marked = int((p_k < 0).sum())
+    del out_p, p_p, delta_k, delta_p
+    out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
+
+    def reset():
+        out_buf.copy_(cap["out_init"])
+        p_buf.copy_(cap["p_init"])
+
+    run = lambda fn: lambda: fn(*streams, out_buf, p_buf, **kw)
+    n_batch, n_slots = cap["cand"].shape
+    # the valid flags of every slot, nbr and cand of the valid ones, the
+    # three bitmaps read, out written, one P word per discovery
+    bytes_ = (n_batch * n_slots + 8 * cap["key"]
+              + 4 * 4 * cap["frontier"].numel() + 4 * n_marked)
+    res = dict(max_abs_err=err, bytes=bytes_, n_marked=n_marked,
+               ms=cuda_ms(run(fe.frontier_expand_cuda), reps, setup=reset),
+               plain_ms=cuda_ms(run(fe.frontier_expand_plain), 1,
+                                setup=reset))
+    res["bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"kernel": "frontier_expand_batched", "ms": res["ms"],
+                    "plain_ms": res["plain_ms"], "bytes": bytes_,
+                    "bound_ms": res["bound_ms"], "max_abs_err": err,
+                    "valid_slots": cap["key"], "slots": n_batch * n_slots,
+                    "marked": n_marked,
+                    "check_frontier": kw["check_frontier"]}))
+    return res
+
+
+def phase_materialized(g, roots, base, oracle, edges: int, reps: int):
+    """Phase 10: the materialized pipeline at the main path's size, on
+    CSR (K2 + the apportioned stream + K7 + K1) and on the autotuner's
+    SELL layout (K8 over every slab group + K1), all-auto policy: each
+    timed over 3 runs with its peak device memory, held to the main
+    path (`run_path`); K7 against its plain version on the largest
+    captured layer.  Returns ({kernel: results}, {kernel: launches}):
+    K7's launches; K8's stay those of phase 5b's work-listed run, whose
+    layer its time is measured on (its full sweep here is printed)."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import formats
+    from repro_torch.kernels import ops
+    launches = {}
+    kres = {}
+    for name, fmt, kernels, per_layer in (
+            ("materialized", g, ("frontier_expand_batched", "restoration"),
+             3),
+            ("sell_materialized", formats.build(g, "auto"),
+             ("sell_expand_batched", "restoration"), 2)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ct, launched, _ = run_path(fmt, g, roots, name,
+                                   dict(pipeline="materialized"), kernels,
+                                   per_layer, base, oracle, edges,
+                                   (0, 1, 2, 3, 4))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"path {name}: batch {len(roots)}, peak device memory "
+            f"{peak / 2**30:.3f} GiB")
+        if name == "materialized":
+            launches[kernels[0]] = launched[kernels[0]]
+            with Spy(ops, {"expand_batched":
+                           lambda a: int(a["valid"].sum())}) as cap:
+                res = ct.run_batched(roots)
+            assert not bool(res.stats[:, 6].any()), "edges truncated"
+            log(f"path {name}: every layer's truncated count is 0")
+            del res
+            kres["frontier_expand_batched"] = phase_expand_kernel(
+                cap.best["expand_batched"], g, reps)
+            del cap
+        del ct
+        bfs.clear_plan_cache()
+        torch.cuda.empty_cache()
+    return kres, launches
+
+
 def profile_run(ct, roots, label: str = "main path", top: int = 15):
     """Trace one run: device time by kernel name and the device's idle
     share of the run's wall time.  Returns {kernel name: launches}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ct.run_batched(roots)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies), not the host ops that
-    # launched them, whose device time would count the same work twice
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
+    from torch.profiler import ProfilerActivity
+    events, wall_us = traced_device_events(
+        lambda: ct.run_batched(roots),
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in events)
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -906,7 +1296,7 @@ def launch_column(per_layer: int, n_layers: int) -> list:
 
 def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
              base, oracle, edges: int, stat_cols):
-    """Phases 5 and 5b: one path of ``graph`` (the main path's CSR ``g``
+    """Phases 5, 5b and 10: one path of ``graph`` (the main path's CSR ``g``
     or a SELL layout of it) at the main path's size, counted, timed over
     3 runs and held to the main path's result: visited, frontier,
     depths, layers, the stats columns ``stat_cols`` and the direction
@@ -1019,23 +1409,27 @@ def main(argv=None) -> int:
         and r.prefetch_depth == 0, r
     roots = pick_roots(g, BATCH, args.seed)
     log(f"roots: {roots}")
-    with Capture(ops) as cap:
+    with Spy(ops, {"frontier_compact_batched": None,
+                   "gather_expand_batched": listed}) as spy:
         ct.run_batched(roots)
+    cap = spy.best["gather_expand_batched"]
     torch.cuda.synchronize()
 
     # 3. kernels vs plain versions; 3b K4; 3c K5; K2/K3 at B = 1
-    kres = phase_kernels(cap.best, g.n_vertices, g.n_vertices_padded,
+    kres = phase_kernels(cap, g.n_vertices, g.n_vertices_padded,
                          args.reps)
     kres["gather_expand_prefetch"] = phase_prefetch(
-        cap.best, args.reps, kres["gather_expand_batched"])
+        cap, args.reps, kres["gather_expand_batched"])
     kres["layer_fused_batched"] = phase_layer_fused(
-        cap.best, g.n_vertices_padded, args.reps)
-    del cap
+        cap, g.n_vertices_padded, args.reps)
+    del cap, spy
     torch.cuda.empty_cache()
-    with Capture(ops) as cap1:
+    with Spy(ops, {"frontier_compact_batched": None,
+                   "gather_expand_batched": listed}) as cap1:
         ct.run(roots[0])
     torch.cuda.synchronize()
-    phase_kernels(cap1.best, g.n_vertices, g.n_vertices_padded,
+    phase_kernels(cap1.best["gather_expand_batched"], g.n_vertices,
+                  g.n_vertices_padded,
                   max(5, args.reps // 4), label="_b1")
     del cap1
     torch.cuda.empty_cache()
@@ -1092,7 +1486,7 @@ def main(argv=None) -> int:
             assert launches_of(kernels, "layer_fused_kernel") == n_layers, \
                 "K5 must be one CUDA launch per layer"
             log(f"megakernel: {n_layers} K5 launches for {n_layers} layers")
-            with LayerCapture(ops) as fused_layers:
+            with layer_spy(ops, "layer_fused_batched") as fused_layers:
                 ct_path.run_batched(roots)
         if name == "persistent":
             kernels = profile_run(ct_path, roots, "persistent", top=8)
@@ -1102,7 +1496,7 @@ def main(argv=None) -> int:
                 f"{sum(kernels.values()) - 1} other device events "
                 f"(initial state)")
             kres["traversal_fused_batched"] = phase_persistent_kernel(
-                ct_path, roots, fused_layers.layers, 5)
+                ct_path, roots, fused_layers.calls, 5)
         del ct_path
     del fused_layers
     launches.update(path_launches)
@@ -1115,6 +1509,18 @@ def main(argv=None) -> int:
     for name, n in sell_launches.items():
         if not launches.get(name):
             launches[name] = n
+
+    # 9. the semiring portfolio at the main path's size
+    port_kres, port_launches = phase_portfolio(
+        g, roots, oracle_depths.__getitem__, args.reps)
+    kres.update(port_kres)
+    launches.update(port_launches)
+
+    # 10. the materialized pipeline at the main path's size
+    mat_kres, mat_launches = phase_materialized(
+        g, roots, res, oracle_depths.__getitem__, edges, args.reps)
+    kres.update(mat_kres)
+    launches.update(mat_launches)
     del ct, res, parents, g, oracle_depths
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
@@ -1143,6 +1549,7 @@ def main(argv=None) -> int:
         errors.DEGRADES.clear()
         runs = [(g16, fields) for fields, _ in PATHS.values()]
         runs += [(sell16, fields) for fields, _, _ in SELL_PATHS.values()]
+        runs += [(gr, dict(pipeline="materialized")) for gr in (g16, sell16)]
         for graph, fields in runs:
             res = bfs.plan(graph, bfs.TraversalSpec(policy=pol, **fields)) \
                 .run_batched(roots16)
@@ -1180,7 +1587,8 @@ def main(argv=None) -> int:
                 bfs.PaperLiteralLayers(), bfs.BeamerHybrid()):
         for layout, (gg, gc) in (("csr", (g12, g12_cpu)),
                                  ("sell", (sell12, sell12_cpu))):
-            for pipeline in ("fused_gather", "megakernel", "persistent"):
+            for pipeline in ("fused_gather", "megakernel", "persistent",
+                             "materialized"):
                 spec = bfs.TraversalSpec(policy=pol, pipeline=pipeline)
                 a = bfs.plan(gg, spec).run_batched(roots12)
                 c = bfs.plan(gc, spec, device="cpu").run_batched(roots12)
@@ -1194,7 +1602,23 @@ def main(argv=None) -> int:
                 assert bfs.direction_log(a) == bfs.direction_log(c)
         log(f"parity {type(pol).__name__} @ SCALE 12: GPU == CPU "
             f"(visited, depths, stats, direction_log) on fused_gather, "
-            f"megakernel and persistent, for CSR and SELL")
+            f"megakernel, persistent and materialized, for CSR and SELL")
+    for alg in ("ksource_bfs", "sssp", "cc"):
+        for layout, (gg, gc) in (("csr", (g12, g12_cpu)),
+                                 ("sell", (sell12, sell12_cpu))):
+            spec = bfs.TraversalSpec(algorithm=alg, max_layers=512)
+            a = bfs.plan(gg, spec).run_batched(roots12)
+            c = bfs.plan(gc, spec, device="cpu").run_batched(roots12)
+            for name, x, y in (
+                    ("values", a.values.view(torch.int32),
+                     c.values.view(torch.int32)),
+                    ("parents", a.state.parent, c.state.parent),
+                    ("depths", a.depths, c.depths),
+                    ("stats", a.stats, c.stats)):
+                assert torch.equal(x.cpu(), y), \
+                    f"{alg} {layout}: GPU and CPU {name} differ"
+        log(f"parity {alg} @ SCALE 12: GPU == CPU (values, parents, "
+            f"depths, stats) for CSR and SELL")
 
     # 8. launch counts of the paths' runs
     log("launch counts (main path, fusion and SELL paths): " + ", ".join(
@@ -1214,7 +1638,10 @@ def main(argv=None) -> int:
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by="bytes", library_ms=None))
+            bound_by="bytes",
+            # no kernel has one PyTorch call computing its function; the
+            # K11/K12 phase-0 fold is printed on their own lines
+            library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

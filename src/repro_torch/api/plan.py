@@ -18,6 +18,11 @@ own entry.  The format part of the key is the identity of the format's
 arrays, which the cache entry holds, so two graphs of equal geometry
 never share padded arrays.
 
+A spec whose ``algorithm`` is in the semiring portfolio (``sssp``,
+``cc``, ``ksource_bfs``: `TraversalSpec.is_semiring`) binds the
+format's semiring step instead and runs `algorithms.traversal.
+traverse_semiring`; its results carry ``values``.
+
 ``device=`` (default ``"cuda"``) names where the traversal runs; the
 graph is moved there if it lies elsewhere, and without CUDA the default
 raises (pass ``device="cpu"`` for the plain torch path).
@@ -77,12 +82,18 @@ class _Executable:
     matrix for one (format, geometry, resolved spec).  The persistent
     pipeline builds no per-layer steps: its loop constants are built
     here (and kept on the format); only a degrade builds steps, at
-    run time."""
+    run time.  A semiring spec binds the format's one relax step."""
 
     def __init__(self, fmt: GraphFormat, spec: TraversalSpec):
         self.fmt = fmt
         self.spec = spec
-        if spec.pipeline == "persistent":
+        self.semiring_step = None
+        if spec.is_semiring:
+            from repro_torch.algorithms import semiring
+            self.steps = None
+            self.semiring_step = fmt.make_semiring_step(
+                spec, semiring.get(spec.algorithm))
+        elif spec.pipeline == "persistent":
             fmt.persistent_graph(spec)
             self.steps = None
         else:
@@ -90,6 +101,11 @@ class _Executable:
         self.deg_mat = fmt.degree_matrix()
 
     def run(self, roots: torch.Tensor) -> _engine.EngineResult:
+        if self.spec.is_semiring:
+            from repro_torch.algorithms.traversal import traverse_semiring
+            return traverse_semiring(self.fmt, roots, self.spec,
+                                     step=self.semiring_step,
+                                     deg_mat=self.deg_mat)
         return _engine._traverse_impl(self.fmt, roots, self.spec,
                                       steps=self.steps,
                                       deg_mat=self.deg_mat)
@@ -159,7 +175,8 @@ class CompiledTraversal:
             return _engine.EngineResult(
                 _engine.BfsState(st.frontier[0], st.visited[0],
                                  st.parent[0], st.layer),
-                res.depths[0], res.stats)
+                res.depths[0], res.stats,
+                None if res.values is None else res.values[0])
         return res
 
     def run_batched(self, roots) -> _engine.EngineResult:
@@ -183,7 +200,8 @@ class CompiledTraversal:
             return _engine.EngineResult(
                 _engine.BfsState(st.frontier[:n], st.visited[:n],
                                  st.parent[:n], st.layer),
-                res.depths[:n], res.stats)
+                res.depths[:n], res.stats,
+                None if res.values is None else res.values[:n])
         return self.executable.run(r)
 
     def stats(self, result) -> list[_engine.LayerStats]:

@@ -15,11 +15,14 @@ built-in defaults only (no benchmark table is read):
 * ``tile``: the format's rule (``fmt.resolve_tile``: rows slots per
   block on CSR, slabs per group on SELL).
 
-``pipeline`` runs ``"fused_gather"``, ``"megakernel"`` and
-``"persistent"``, at any ``prefetch_depth``, where the format supports
-them (its ``supports_*`` flags; the reference's messages); the auto
-choice stays ``fused_gather`` at depth 0 (changing it needs
-measurements).
+``pipeline`` runs ``"fused_gather"``, ``"materialized"``,
+``"megakernel"`` and ``"persistent"``, at any ``prefetch_depth``, where
+the format supports them (its ``supports_*`` flags; the reference's
+messages); the auto choice stays ``fused_gather`` at depth 0 (changing
+it needs measurements).  ``algorithm`` also takes the semiring
+portfolio (``"sssp"``, ``"cc"``, ``"ksource_bfs"``: `is_semiring`),
+which runs the ``fused_gather`` relax arm only, on formats that list it
+in ``supported_semirings``.
 
 Values the reference accepts but this port does not run yet raise a
 typed `NotImplementedError` naming the ROADMAP item that brings them;
@@ -32,16 +35,15 @@ from typing import Any
 
 import torch
 
+from repro_torch.algorithms.semiring import SEMIRING_ALGORITHMS
 from repro_torch.core import engine as _engine
 
 AUTO = "auto"
 
 _ALGORITHMS = ("simd", "nonsimd")
-#: the reference's pipelines; all but "materialized" are ported
+#: the reference's pipelines, all ported
 PIPELINES = ("fused_gather", "materialized", "megakernel", "persistent")
 _MERGES = ("allreduce", "owner", "packed")
-#: the reference's semiring portfolio values (ROADMAP item 9)
-SEMIRING_ALGORITHMS = ("sssp", "cc", "ksource_bfs")
 SKEW_THRESHOLD = 4.0       # max_deg / mean_deg floor for BeamerHybrid
 
 #: registered policy names <-> engine policy classes
@@ -55,7 +57,6 @@ _POLICY_NAMES = {cls: name for name, cls in POLICIES.items()}
 
 #: unsupported-but-valid values -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    ("pipeline", "materialized"): "6 (materialized pipeline on K7)",
     ("packed", False): "6 (the dense-mask packed=False arm)",
 }
 
@@ -69,8 +70,9 @@ def _is_policy(obj: Any) -> bool:
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP item {item}); "
-        f"the port runs the fused_gather, megakernel and persistent "
-        f"pipelines, packed=True, on the csr, sell and bitmap formats")
+        f"the port runs the fused_gather, materialized, megakernel and "
+        f"persistent pipelines, packed=True, on the csr, sell and bitmap "
+        f"formats")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +101,12 @@ class TraversalSpec:
                         for f in self.field_names())
                 and _is_policy(self.policy))
 
+    @property
+    def is_semiring(self) -> bool:
+        """True iff this spec selects the semiring portfolio (sssp, cc,
+        ksource_bfs) rather than the BFS engine."""
+        return self.algorithm in SEMIRING_ALGORITHMS
+
     def replace(self, **changes) -> "TraversalSpec":
         return dataclasses.replace(self, **changes)
 
@@ -113,14 +121,32 @@ class TraversalSpec:
             raise ValueError(
                 f"unknown policy {p!r}; expected a DirectionPolicy "
                 f"object, one of {sorted(POLICIES)}, or 'auto'")
-        if self.algorithm in SEMIRING_ALGORITHMS:
-            raise not_ported(f"algorithm={self.algorithm!r}",
-                             "9 (semiring portfolio, K11-K12)")
-        if self.algorithm != AUTO and self.algorithm not in _ALGORITHMS:
+        if self.algorithm != AUTO \
+                and self.algorithm not in _ALGORITHMS \
+                and self.algorithm not in SEMIRING_ALGORITHMS:
             raise ValueError(
                 f"unknown algorithm {self.algorithm!r}; expected a "
                 f"scalar algorithm in {_ALGORITHMS}, a semiring "
                 f"algorithm in {SEMIRING_ALGORITHMS}, or 'auto'")
+        if self.is_semiring:
+            # the relax kernels (K11, K12) are the fused_gather arm
+            # only: an explicit BFS-specialized pipeline or a prefetch
+            # stream is a typed error, with the reference's messages
+            if self.pipeline in ("megakernel", "persistent",
+                                 "materialized"):
+                raise ValueError(
+                    f"pipeline={self.pipeline!r} is invalid for the "
+                    f"semiring algorithm {self.algorithm!r}: the "
+                    f"portfolio kernels only implement the "
+                    f"'fused_gather' relax arm — use "
+                    f"pipeline='fused_gather' (or 'auto')")
+            if isinstance(self.prefetch_depth, int) \
+                    and self.prefetch_depth > 0:
+                raise ValueError(
+                    f"prefetch_depth={self.prefetch_depth} is invalid "
+                    f"for the semiring algorithm {self.algorithm!r}: "
+                    f"the relax kernels have no manual prefetch "
+                    f"stream — use prefetch_depth=0 (or 'auto')")
         if self.pipeline != AUTO and self.pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {self.pipeline!r}; "
                              f"expected one of {PIPELINES}")
@@ -163,6 +189,15 @@ class TraversalSpec:
         (the same messages, read from the format's capability flags),
         plus the persistent kernel's policies."""
         fmt_label = getattr(fmt, "name", type(fmt).__name__)
+        if self.is_semiring:
+            allowed = getattr(fmt, "supported_semirings", ())
+            if self.algorithm not in allowed:
+                raise ValueError(
+                    f"algorithm={self.algorithm!r} is invalid for "
+                    f"the {fmt_label!r} format: it declares "
+                    f"supported_semirings={allowed!r} — pick a "
+                    f"layout with a per-edge candidate stream "
+                    f"like 'csr'/'sell'")
         depth = self.prefetch_depth
         if isinstance(depth, int) and depth > 0 \
                 and not getattr(fmt, "supports_prefetch", True):
@@ -224,6 +259,10 @@ class TraversalSpec:
         elif isinstance(policy, str):
             policy = POLICIES[policy]()
         self._validate_for(fmt)
+        # the auto pipeline is fused_gather at depth 0 (no affinity
+        # table), which the semiring portfolio runs, so the reference's
+        # `pipeline_unsupported` / `prefetch_unsupported` degrades of an
+        # auto choice cannot arise here
         resolved = self.replace(
             policy=policy,
             algorithm="simd" if self.algorithm == AUTO else self.algorithm,

@@ -2,8 +2,8 @@
 
 A port of ``repro.core.engine`` on packed bitmaps, generic over the
 graph's `formats.GraphFormat` (CSR, SELL-C-σ, bitmap), with the
-reference's three fused pipelines: ``fused_gather`` (any
-``prefetch_depth``), ``megakernel`` and ``persistent``.  Each layer runs
+reference's four pipelines: ``fused_gather`` (any ``prefetch_depth``),
+``materialized``, ``megakernel`` and ``persistent``.  Each layer runs
 
     measure workload  ->  decide direction  ->  expand  ->  restore
 
@@ -22,10 +22,15 @@ reference's three fused pipelines: ``fused_gather`` (any
   into a queue, plain torch marks the rows-blocks its adjacency touches
   and compacts them into a work-list, K3 (K4 at ``prefetch_depth > 0``)
   gathers and expands those blocks with the racy scatter, and K1
-  restores.  For ``megakernel`` it is `_make_megakernel_step`: K5 does
-  all of that in one launch.  A scalar layer (`_make_scalar_step`) is
-  K2 plus the plain apportionment and `expand_candidates`, in every
-  pipeline.  SELL's steps are in `formats.sell`: K8 + K1, or K9.
+  restores.  For ``materialized`` it is `_make_simd_step` /
+  `_make_bottomup_step`: K2 compacts the frontier (the unvisited set),
+  the plain `apportion` writes the full (u, v, valid) stream of e_pad
+  slots per root, K7 expands it and K1 restores.  For ``megakernel``
+  it is `_make_megakernel_step`: K5 does all of that in one launch.
+  A scalar layer (`_make_scalar_step`) is K2 plus the plain
+  apportionment and `expand_candidates`, in every pipeline.  SELL's steps are in `formats.sell`: K8 + K1 (over every
+  slab group for ``materialized``), or K9.  The semiring portfolio has
+  its own driver, `algorithms.traversal`.
 * **restore** (§3.3.2): vertices marked by a negative P are repaired
   into ``out`` and ``visited``.
 
@@ -119,7 +124,7 @@ class EngineResult(NamedTuple):
     state: BfsState          # final state; batched arrays iff multi-root
     depths: torch.Tensor     # (B,) int32: layers each root stayed active
     stats: torch.Tensor      # (max_layers, 8) int32 device buffer
-    values: torch.Tensor | None = None   # semiring portfolio (not yet)
+    values: torch.Tensor | None = None   # semiring portfolio values
 
 
 # ---------------------------------------------------------------------------
@@ -213,36 +218,48 @@ def apportion(colstarts, rows, frontier_list, n_vertices: int,
     and ``truncated`` (B,) the edges that did not fit: a hub whose
     adjacency overruns the slots keeps its list prefix.  Owners come
     from a marker scatter at each adjacency's end offset plus a prefix
-    sum, as in the reference."""
+    sum, as in the reference.  Every (B, n_slots) temporary is int32
+    (offsets stay below the edge count, < 2**31) and each is freed as
+    soon as it is used: at SCALE 22 one is 4.3 GB for 8 roots."""
     n_batch, n_list = frontier_list.shape
+    dev = rows.device
+    i32 = dict(dtype=torch.int32, device=dev)
     is_real = frontier_list < n_vertices
     safe = torch.where(is_real, frontier_list, 0).to(torch.int64)
     deg = torch.where(is_real, colstarts[safe + 1] - colstarts[safe], 0)
-    cum = torch.cumsum(deg, dim=1)                      # int64
+    cum = torch.cumsum(deg, dim=1, dtype=torch.int32)
     total = cum[:, -1] if n_list else cum.new_zeros((n_batch,))
     truncated = (total - n_slots).clamp(min=0).to(torch.int32)
     # sentinel entries end at ``total``, past every valid slot: their
     # markers go to dropped slots, spread as in `_mark_blocks`
-    drop = n_slots + 1 + torch.arange(n_list, device=rows.device) \
-        % _DROP_SLOTS
-    markers = torch.zeros((n_batch, n_slots + 1 + _DROP_SLOTS),
-                          dtype=torch.int64, device=rows.device)
-    markers.scatter_add_(1, torch.where(is_real, cum.clamp(max=n_slots),
-                                        drop),
-                         torch.ones_like(cum))
-    owner = torch.cumsum(markers[:, :n_slots], dim=1)
-    owner_c = owner.clamp(0, n_list - 1)
-    prev = torch.where(owner_c > 0,
-                       torch.gather(cum, 1, (owner_c - 1).clamp(min=0)),
-                       0)
-    u = torch.gather(frontier_list, 1, owner_c)
-    slots = torch.arange(n_slots, dtype=torch.int64, device=rows.device)
+    drop = n_slots + 1 + torch.arange(n_list, device=dev) % _DROP_SLOTS
+    markers = torch.zeros((n_batch, n_slots + 1 + _DROP_SLOTS), **i32)
+    markers.scatter_add_(
+        1, torch.where(is_real, cum.clamp(max=n_slots).to(torch.int64),
+                       drop),
+        torch.ones((n_batch, n_list), **i32))
+    owner = torch.cumsum(markers[:, :n_slots], dim=1, dtype=torch.int32)
+    del markers
+    owner.clamp_(0, n_list - 1)
+    # per-root rows of the (B, L) lists, flattened for int32 lookups
+    base = (torch.arange(n_batch, **i32) * n_list)[:, None]
+    idx = (owner - 1).clamp_(min=0).add_(base)
+    prev = cum.reshape(-1).index_select(0, idx.reshape(-1)) \
+        .view(n_batch, n_slots)
+    prev.masked_fill_(owner == 0, 0)
+    idx = owner.add_(base)
+    del owner
+    u = frontier_list.to(torch.int32).reshape(-1) \
+        .index_select(0, idx.reshape(-1)).view(n_batch, n_slots)
+    del idx
+    slots = torch.arange(n_slots, **i32)
     valid = slots < total[:, None]
-    u_safe = torch.where(valid, u, 0).to(torch.int64)
-    e_idx = (colstarts[u_safe] + (slots - prev)) \
-        .clamp(0, rows.shape[0] - 1)
-    v = rows[e_idx]
-    return u.to(torch.int32), v, valid, truncated
+    e_idx = colstarts.index_select(
+        0, torch.where(valid, u, 0).reshape(-1)).view(n_batch, n_slots)
+    e_idx.add_(slots).sub_(prev).clamp_(0, rows.shape[0] - 1)
+    del prev
+    v = rows.index_select(0, e_idx.reshape(-1)).view(n_batch, n_slots)
+    return u, v, valid, truncated
 
 
 def restore_plain(parent, out, visited, n_vertices: int):
@@ -380,6 +397,64 @@ def _make_scalar_step(colstarts, rows, n_vertices: int, v_pad: int,
     return step
 
 
+def kernel_expand_restore(nbr, cand, valid, frontier, visited, parent,
+                          n_vertices: int, check_frontier: bool = False):
+    """The materialized layer's expand -> restore -> OR-delta sequence:
+    K7 over the apportioned stream, K1, and the delta merged into
+    ``out`` and ``visited``.  Returns (out, visited, parent)."""
+    out_racy, p_racy = ops.expand_batched(
+        nbr, cand, valid, frontier, visited, torch.zeros_like(frontier),
+        parent, n_vertices=n_vertices, check_frontier=check_frontier)
+    p_fixed, delta = ops.restore(p_racy, n_vertices=n_vertices)
+    return out_racy | delta, visited | delta, p_fixed
+
+
+def _make_simd_step(colstarts, rows, n_vertices: int, v_pad: int,
+                    e_pad: int, tile: int):
+    """§4 SIMD layer, materialized pipeline: K2 compacts the frontier,
+    the plain apportionment writes the full (u, v, valid) stream of
+    e_pad slots per root, K7 expands it and K1 restores.  Its StepAux
+    reports the full stream's tiles, as the reference does."""
+    tiles_per_root = -(-e_pad // tile)
+
+    def step(frontier, visited, parent):
+        with ops.count_launches() as c:
+            u, v, valid, trunc = _batched_edge_stream(
+                colstarts, rows, frontier, v_pad, n_vertices, e_pad)
+            out, visited, parent = kernel_expand_restore(
+                u, v, valid, frontier, visited, parent, n_vertices)
+        aux = StepAux(frontier.shape[0] * tiles_per_root, trunc.sum(),
+                      c.count)
+        return out, visited, parent, aux
+
+    return step
+
+
+def _make_bottomup_step(colstarts, rows, n_vertices: int, v_pad: int,
+                        e_pad: int, tile: int):
+    """Bottom-up layer, materialized pipeline: K2 compacts the unvisited
+    set (``~visited``, exact because padding is premarked), the plain
+    apportionment streams its adjacency, and K7 tests each neighbour
+    against the frontier (``check_frontier``) before K1 restores."""
+    tiles_per_root = -(-e_pad // tile)
+
+    def step(frontier, visited, parent):
+        with ops.count_launches() as c:
+            cands, _ = ops.frontier_compact_batched(~visited, size=v_pad,
+                                                    fill=n_vertices)
+            cand, nbr, valid, trunc = apportion(colstarts, rows, cands,
+                                                n_vertices, e_pad)
+            del cands
+            out, visited, parent = kernel_expand_restore(
+                nbr, cand, valid, frontier, visited, parent, n_vertices,
+                check_frontier=True)
+        aux = StepAux(frontier.shape[0] * tiles_per_root, trunc.sum(),
+                      c.count)
+        return out, visited, parent, aux
+
+    return step
+
+
 def _make_fused_step(colstarts, rows_t, n_vertices: int, tile: int,
                      bottom_up: bool, prefetch_depth: int = 0):
     """One fused_gather layer, both directions: K2 + plain block
@@ -440,7 +515,9 @@ def check_prefetch(tile: int, prefetch_depth: int, n_blocks: int) -> None:
 def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
                 tile, pipeline: str = "fused_gather",
                 prefetch_depth: int = 0):
-    """Per-mode steps of a pipeline.  ``megakernel`` (and the per-layer
+    """Per-mode steps of a pipeline.  ``materialized`` is K2 + the
+    apportioned stream + K7 + K1 (`_make_simd_step`,
+    `_make_bottomup_step`).  ``megakernel`` (and the per-layer
     steps of ``persistent``, which runs them only where its kernel
     degrades) is K5, unless its budget does not fit: then it degrades,
     observably, to the ``fused_gather`` steps.  Scalar layers are the
@@ -462,7 +539,12 @@ def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
             fallback="pipeline='fused_gather' unfused steps (3 launches/"
                      "layer instead of 1)")
         fused = False
-    if fused:
+    if pipeline == "materialized":
+        simd = _make_simd_step(colstarts, rows, n_vertices, v_pad, e_pad,
+                               tile)
+        bottomup = _make_bottomup_step(colstarts, rows, n_vertices, v_pad,
+                                       e_pad, tile)
+    elif fused:
         graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
         simd, bottomup = (_make_megakernel_step(graph, bu, prefetch_depth)
                           for bu in (False, True))

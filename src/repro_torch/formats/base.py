@@ -11,9 +11,13 @@ and the plan layer read from a layout:
   resolved `TraversalSpec`; ``resolve_tile`` is the layout's tile rule;
   ``persistent_fits`` / ``persistent_run`` are the whole-traversal
   kernel, where the layout has one;
+* **semiring step** — ``make_semiring_step(spec, semiring)`` returns
+  the per-layer relax step of the algorithm portfolio, where the
+  layout lists the algorithm in ``supported_semirings``;
 * **capabilities** — the class flags ``supports_prefetch``,
-  ``supports_megakernel``, ``supports_persistent`` and
-  ``persistent_algorithms``, which `TraversalSpec.validate` reads;
+  ``supports_megakernel``, ``supports_persistent``,
+  ``persistent_algorithms`` and ``supported_semirings``, which
+  `TraversalSpec.validate` reads;
 * **accounting** — ``footprint`` and the analytic bytes-moved model
   (``edge_slots``, ``layer_bytes``, ``tile_bytes``, ``plan_bytes``),
   summed by `traversal_bytes` and `membership_bytes`.
@@ -80,6 +84,11 @@ class GraphFormat(abc.ABC):
     supports_persistent: ClassVar[bool] = False
     #: scalar algorithms the whole-traversal kernel honours
     persistent_algorithms: ClassVar[tuple] = ()
+    #: semiring ``TraversalSpec.algorithm`` values the layout can relax
+    #: over ("sssp", "cc", "ksource_bfs"): opt-in through
+    #: `_build_semiring_step`; a layout with no per-edge stream keeps the
+    #: empty default, which `TraversalSpec.validate` rejects
+    supported_semirings: ClassVar[tuple] = ()
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -178,6 +187,26 @@ class GraphFormat(abc.ABC):
     @abc.abstractmethod
     def _build_steps(self, spec) -> dict:
         """Format-owned step construction from a resolved spec."""
+
+    def make_semiring_step(self, spec, semiring):
+        """One batched per-layer semiring relaxation step for a resolved
+        ``spec`` whose algorithm the layout lists in
+        ``supported_semirings``; ``semiring`` is the registered
+        `algorithms.semiring.Semiring`.  Returns ``fn(frontier, vals,
+        dense) -> (new_vals, p_layer, engine.StepAux)``: ``frontier``
+        (B, W) words, ``vals`` (B, V_pad) values, ``dense`` (B,) bool
+        selecting the full work-list (the CC endgame's dense arm), and
+        ``p_layer`` the per-layer min-id parent scatter the driver
+        merges under the improved mask."""
+        spec._validate_for(self)
+        return self._build_semiring_step(spec, semiring)
+
+    def _build_semiring_step(self, spec, semiring):
+        """Format-owned semiring step construction; formats that list
+        nothing in ``supported_semirings`` never reach here (validate
+        rejects first), so the default is a hard error."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no supported_semirings")
 
     def resolve_tile(self, tile: int | None) -> int:
         """The layout's tile rule; the default accepts any and returns 1."""

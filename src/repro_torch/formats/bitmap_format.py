@@ -24,6 +24,10 @@ from repro_torch.formats.registry import register
 class BitmapCompressedFormat(GraphFormat):
     name = "bitmap"
     supports_prefetch = False    # dense word sweep: no edge stream
+    # the word sweep stores bits, not neighbour ids: there is no
+    # per-edge candidate stream to relax a semiring over, so the
+    # portfolio is rejected by `TraversalSpec.validate`
+    supported_semirings = ()
 
     def __init__(self, adj: torch.Tensor, deg: torch.Tensor,
                  n_vertices: int, n_edges: int):

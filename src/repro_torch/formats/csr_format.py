@@ -2,9 +2,10 @@
 
 An adapter around `core/csr.py`: geometry, ``degrees``, the CSR tile
 rule (`resolve_tile`), the per-mode steps of `engine._make_steps` (K2,
-K3/K4 and K1 for ``fused_gather``; K5 for ``megakernel``) and the
-whole-traversal kernel K6 (``persistent_graph`` / ``persistent_fits`` /
-``persistent_run``).  The baseline every other layout is measured
+K3/K4 and K1 for ``fused_gather``; K2, the apportioned stream, K7 and
+K1 for ``materialized``; K5 for ``megakernel``), the whole-traversal
+kernel K6 (``persistent_graph`` / ``persistent_fits`` /
+``persistent_run``) and the semiring relax step (K2 planning + K11).  The baseline every other layout is measured
 against.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ class CsrFormat(GraphFormat):
     supports_megakernel = True
     supports_persistent = True
     persistent_algorithms = ("simd", "nonsimd")
+    supported_semirings = ("sssp", "cc", "ksource_bfs")
 
     def __init__(self, colstarts: torch.Tensor, rows: torch.Tensor,
                  n_vertices: int, n_edges: int):
@@ -99,6 +101,34 @@ class CsrFormat(GraphFormat):
                                   self.n_edges_padded, spec.algorithm,
                                   spec.tile, pipeline=spec.pipeline,
                                   prefetch_depth=spec.prefetch_depth)
+
+    def _build_semiring_step(self, spec, semiring):
+        """K2 plans the frontier's rows-blocks (`plan_active_tiles_batched`),
+        K11 relaxes them.  Dense arm (the CC endgame): a root whose
+        ``dense`` flag is set sweeps every block — the planner still
+        runs and is charged, as in the reference."""
+        from repro_torch.core import engine
+        from repro_torch.kernels import ops
+        tile, v = spec.tile, self._n_vertices
+        colstarts = self.colstarts.contiguous()
+        rows_t = engine._pad_rows_to_tile(self.rows.contiguous(), v, tile)
+        n_blocks = int(rows_t.shape[0]) // tile
+        full_wl = torch.arange(n_blocks, dtype=torch.int32,
+                               device=rows_t.device)
+
+        def step(frontier, vals, dense):
+            with ops.count_launches() as c:
+                wl, na = engine.plan_active_tiles_batched(
+                    colstarts, frontier, v, tile, n_blocks)
+                wl = torch.where(dense[:, None], full_wl[None], wl)
+                na = torch.where(dense, n_blocks, na)
+                new_vals, p_layer = ops.gather_relax_batched(
+                    wl, na, rows_t, colstarts, frontier, vals,
+                    n_vertices=v, tile=tile, unit=semiring.unit,
+                    weighted=semiring.weighted)
+            return new_vals, p_layer, engine.StepAux(na.sum(), 0, c.count)
+
+        return step
 
     def n_blocks(self, tile: int) -> int:
         return -(-self.n_edges_padded // tile)

@@ -26,6 +26,7 @@ Steps (``make_steps``):
   group is active iff one of its lanes owns a member of the frontier,
   or of ``~visited`` bottom-up), K8 (its ``cp.async`` ring at
   ``prefetch_depth > 0``) and K1 — two launches per layer;
+* ``materialized``: K8 over every slab group (no plan) and K1;
 * ``megakernel``: K9, one launch per layer;
 * ``persistent``: K10, one launch per traversal (``persistent_run``).
 
@@ -60,6 +61,8 @@ class SellFormat(GraphFormat):
     # plain dense sweep, which the in-kernel layer loop does not have
     supports_persistent = True
     persistent_algorithms = ("simd",)
+    # K12 relaxes the slab groups the frontier plans
+    supported_semirings = ("sssp", "cc", "ksource_bfs")
 
     DEFAULT_SIGMA = 8 * SLICE_C   # SlimSell's typical local-sort window
 
@@ -293,18 +296,27 @@ class SellFormat(GraphFormat):
                          "launches/layer instead of 1)")
             mega = False
 
+        # the materialized arm sweeps every slab group (K8 without a
+        # work-list), the SpMV sweep the reference's ablation streams
+        planned = spec.pipeline != "materialized"
+
         def make_kernel_step(bottom_up: bool):
             def step(frontier, visited, parent):
                 with ops.count_launches() as c:
-                    active = ~visited if bottom_up else frontier
-                    wl, na = se.plan_slabs_plain(g, active)
+                    kw = {}
+                    tiles = frontier.shape[0] * n_steps
+                    if planned:
+                        active = ~visited if bottom_up else frontier
+                        wl, na = se.plan_slabs_plain(g, active)
+                        kw = dict(worklist=wl, n_active=na)
+                        tiles = na.sum()
                     out_racy, p_racy = ops.sell_batched(
                         g, frontier, visited, torch.zeros_like(frontier),
-                        parent, worklist=wl, n_active=na,
-                        bottom_up=bottom_up, prefetch_depth=depth)
+                        parent, bottom_up=bottom_up, prefetch_depth=depth,
+                        **kw)
                     p_fixed, delta = ops.restore(
                         p_racy, n_vertices=self._n_vertices)
-                aux = engine.StepAux(na.sum(), 0, c.count)
+                aux = engine.StepAux(tiles, 0, c.count)
                 return out_racy | delta, visited | delta, p_fixed, aux
             return step
 
@@ -330,6 +342,27 @@ class SellFormat(GraphFormat):
                                      else dense_step),
                 engine.MODE_SIMD: kernel_step,
                 engine.MODE_BOTTOMUP: make_step(bottom_up=True)}
+
+    def _build_semiring_step(self, spec, semiring):
+        """Plain-torch slab planning over the frontier, K12 over the
+        listed groups; a ``dense`` root sweeps every group (the CC
+        endgame)."""
+        from repro_torch.core import engine
+        g = self.sell_graph(spec.tile)
+        full_wl = torch.arange(g.n_steps, dtype=torch.int32,
+                               device=g.cols.device)
+
+        def step(frontier, vals, dense):
+            with ops.count_launches() as c:
+                wl, na = se.plan_slabs_plain(g, frontier)
+                wl = torch.where(dense[:, None], full_wl[None], wl)
+                na = torch.where(dense, g.n_steps, na)
+                new_vals, p_layer = ops.sell_relax_batched(
+                    g, wl, na, frontier, vals, unit=semiring.unit,
+                    weighted=semiring.weighted)
+            return new_vals, p_layer, engine.StepAux(na.sum(), 0, c.count)
+
+        return step
 
     # -- persistent (whole-traversal) contract ---------------------------
     def persistent_graph(self, spec) -> se.SellGraph:

@@ -28,9 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
            "layer_fused.cu", "traversal_fused.cu", "sell_expand.cu",
-           "sell_layer_fused.cu", "sell_traversal_fused.cu", "popcount.cu")
+           "sell_layer_fused.cu", "sell_traversal_fused.cu", "popcount.cu",
+           "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu")
 HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
-           "traversal_loop.cuh")
+           "traversal_loop.cuh", "relax_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -55,6 +56,9 @@ SIGNATURES = {
     "repro_sell_traversal_fused": (_P,) * 19 + (_I,) * 9 + (_F,) * 3
     + (_I, _P),
     "repro_popcount": (_P, _P, _LL, _I, _P),
+    "repro_gather_relax": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "repro_sell_relax": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "repro_frontier_expand": (_P,) * 7 + (_I, _LL) + (_I,) * 5 + (_P,),
 }
 
 _LIB = None

@@ -1,5 +1,6 @@
-"""K3 and K4 — the fused work-listed CSR gather with the racy expand:
-CUDA kernel and its plain torch version.
+"""K3 and K4 — the fused work-listed CSR gather with the racy expand —
+and K11, the semiring relax over the same work-lists: CUDA kernels and
+their plain torch versions.
 
 For each root b and each of its first ``n_active[b]`` work-list entries
 (a ``tile``-sized block of the tile-padded ``rows``), every edge finds
@@ -21,13 +22,26 @@ K3's function, so K3's plain version is K4's.
 
 ``scalar=True`` (plain version only) tests the pre-layer ``visited``
 alone, as the whole-traversal kernel's scalar-mode layers do.
+
+**K11** (`gather_relax_plain` / `gather_relax_cuda`) walks the same
+work-listed blocks for the semiring portfolio: every edge whose owner
+u is in the frontier offers ``cand = vals[u] + unit (+ w(u, v))`` to
+v.  Phase 0 folds the candidates into ``out_vals`` (a copy of
+``vals``) by scatter-min; phase 1, over the finished values, sets
+``p_layer[v]`` to the least u whose candidate equals ``out_vals[v]``
+and beat ``vals[v]`` (`P_UNSET` where none did).  Min is
+order-independent, so both arms and the reference agree bitwise.
+Replaces ``repro.kernels.gather_expand.gather_relax_batched``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.algorithms.semiring import candidate
 from repro_torch.core.bitmap import WORD_MASK, WORD_SHIFT
 
+#: the per-layer parent scatter's "no edge won" value
+P_UNSET = 2**31 - 1
 CHUNK_EDGES = 1 << 24      # plain version: edges per vectorized pass
 CTAS_PER_SM = 4            # CUDA grid: CTAs per SM striding the lists
 SMEM_OPTIN_BYTES = 232_448  # H100: dynamic shared memory a CTA can opt into
@@ -53,8 +67,10 @@ def _owner_search(colstarts: torch.Tensor, e_idx: torch.Tensor,
 
 
 def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
-                  p, scalar: bool = False) -> None:
-    """The `_expand_tile` body on one root's 1-D views, in place."""
+                  p, scalar: bool = False, check_gate: bool = True) -> None:
+    """The `_expand_tile` body on one root's 1-D views, in place; the
+    gate's frontier test is skipped where ``check_gate`` is False (the
+    top-down materialized stream, whose gates are frontier vertices)."""
     n_words = out.shape[0]
     word = cand >> WORD_SHIFT
     bits = torch.ones_like(cand, dtype=torch.int32) \
@@ -63,10 +79,11 @@ def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
     out_words = out[w_clip]
     seen = vis[w_clip] if scalar else vis[w_clip] | out_words
     undiscovered = (seen & bits) == 0
-    gw = (gate >> WORD_SHIFT).clamp(0, n_words - 1)
-    gb = (gate & WORD_MASK).to(torch.int32)
-    in_front = ((frontier[gw] >> gb) & 1) != 0
-    mask = valid & undiscovered & in_front
+    mask = valid & undiscovered
+    if check_gate:
+        gw = (gate >> WORD_SHIFT).clamp(0, n_words - 1)
+        gb = (gate & WORD_MASK).to(torch.int32)
+        mask &= ((frontier[gw] >> gb) & 1) != 0
     p[cand[mask]] = (gate[mask] - n_vertices).to(torch.int32)
     out[word[mask]] = (out_words | bits)[mask]      # racy word writes
 
@@ -144,4 +161,128 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
         colstarts.shape[0], n_words, v_pad, int(n_vertices),
         int(bool(bottom_up)), depth, grid_x, _build.stream_of(rows)),
         "gather_expand")
+    return out, p
+
+
+# ---------------------------------------------------------------------------
+# K11: the semiring relax
+# ---------------------------------------------------------------------------
+
+def relax_candidates(n_vertices: int, src, nbr, frontier, vals, *,
+                     unit: int, weighted: bool):
+    """One root's edge stream -> (mask, cand): the edges whose source is
+    a real frontier vertex and whose neighbour is real, and every edge's
+    candidate ``vals[src] + unit (+ w(src, nbr))``."""
+    v_pad = vals.shape[0]
+    valid = (src < n_vertices) & (nbr < n_vertices)
+    sw = (src >> WORD_SHIFT).clamp(0, frontier.shape[0] - 1)
+    in_front = ((frontier[sw] >> (src & WORD_MASK).to(torch.int32)) & 1) \
+        != 0
+    cand = candidate(vals[src.clamp(0, v_pad - 1)], src, nbr, unit=unit,
+                     weighted=weighted)
+    return valid & in_front, cand
+
+
+def relax_edges(n_vertices: int, src, nbr, frontier, vals, out, p, *,
+                unit: int, weighted: bool, phase: int) -> None:
+    """One root's relax over an edge stream (1-D views), in place: phase
+    0 folds the frontier edges' candidates into ``out`` by scatter-min,
+    phase 1 takes into ``p`` the least source among the edges whose
+    candidate equals the finished ``out`` and beat ``vals``."""
+    mask, cand = relax_candidates(n_vertices, src, nbr, frontier, vals,
+                                  unit=unit, weighted=weighted)
+    if phase == 0:
+        out.scatter_reduce_(0, nbr[mask], cand[mask], "amin",
+                            include_self=True)
+        return
+    nbr_c = nbr.clamp(0, vals.shape[0] - 1)
+    cur = out[nbr_c]
+    win = mask & (cand == cur) & (cur < vals[nbr_c])
+    p.scatter_reduce_(0, nbr[win], src[win].to(torch.int32), "amin",
+                      include_self=True)
+
+
+def worklist_edges(blocks, rows, colstarts, tile: int):
+    """(src, nbr) int64 chunks of the listed rows-blocks' edge slots
+    (``blocks``: one root's active work-list entries)."""
+    lane = torch.arange(tile, dtype=torch.int64, device=rows.device)
+    per_chunk = max(1, CHUNK_EDGES // tile)
+    blocks = blocks.to(torch.int64)
+    for s in range(0, int(blocks.shape[0]), per_chunk):
+        e = (blocks[s:s + per_chunk, None] * tile + lane).reshape(-1)
+        yield (_owner_search(colstarts, e, colstarts.shape[0]),
+               rows[e].to(torch.int64))
+
+
+def gather_relax_plain(wl, na, rows, colstarts, frontier, vals, *,
+                       n_vertices: int, tile: int, unit: int = 0,
+                       weighted: bool = False):
+    """Plain torch K11 over (B, ...) arrays: returns (out_vals, p_layer),
+    new tensors; ``vals`` is int32 or float32."""
+    out = vals.clone()
+    p = torch.full(vals.shape, P_UNSET, dtype=torch.int32,
+                   device=vals.device)
+    for b, n_act in enumerate(na.tolist()):
+        for phase in (0, 1):
+            for u, v in worklist_edges(wl[b, :n_act], rows, colstarts,
+                                       tile):
+                relax_edges(n_vertices, u, v, frontier[b], vals[b], out[b],
+                            p[b], unit=unit, weighted=weighted,
+                            phase=phase)
+    return out, p
+
+
+def check_relax_args(kernel: str, device, vals, shapes: dict,
+                     **ints) -> None:
+    """The relax wrappers' checks: contiguous tensors on ``device``,
+    int32 or float32 ``vals``, int32 everything else, and the shapes
+    named in ``shapes``."""
+    if vals.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"{kernel}: vals must be int32 or float32, got "
+                         f"{vals.dtype}")
+    for name, t in dict(ints, vals=vals).items():
+        if (name != "vals" and t.dtype != torch.int32) \
+                or not t.is_contiguous() or t.device != device:
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous tensor on "
+                f"{device} (int32, or float32 for vals), got {t.dtype} "
+                f"on {t.device}, contiguous={t.is_contiguous()}")
+    named = dict(ints, vals=vals)
+    for name, shape in shapes.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape "
+                             f"{tuple(named[name].shape)}, expected "
+                             f"{shape}")
+
+
+def gather_relax_cuda(wl, na, rows, colstarts, frontier, vals, *,
+                      n_vertices: int, tile: int, unit: int = 0,
+                      weighted: bool = False):
+    """Launch K11 (two launches: phase 0, then phase 1) into a fresh
+    ``out_vals`` (a copy of ``vals``) and ``p_layer`` (`P_UNSET`)."""
+    from repro_torch.kernels import _build
+    n_batch, n_blocks = wl.shape
+    n_words = frontier.shape[1]
+    v_pad = vals.shape[1]
+    if weighted and vals.dtype != torch.float32:
+        raise ValueError("gather_relax: weighted needs float32 vals")
+    check_relax_args(
+        "gather_relax", rows.device, vals,
+        dict(na=(n_batch,), rows=(n_blocks * tile,),
+             frontier=(n_batch, n_words), vals=(n_batch, 32 * n_words)),
+        wl=wl, na=na, rows=rows, colstarts=colstarts, frontier=frontier)
+    out = vals.clone()
+    p = torch.full(vals.shape, P_UNSET, dtype=torch.int32,
+                   device=vals.device)
+    sms = torch.cuda.get_device_properties(rows.device) \
+        .multi_processor_count
+    grid_x = max(1, min(n_blocks, CTAS_PER_SM * sms))
+    lib = _build.load()
+    _build.check(lib.repro_gather_relax(
+        wl.data_ptr(), na.data_ptr(), rows.data_ptr(),
+        colstarts.data_ptr(), frontier.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), p.data_ptr(), n_batch, n_blocks, int(tile),
+        colstarts.shape[0], n_words, v_pad, int(n_vertices), int(unit),
+        int(bool(weighted)), int(vals.dtype == torch.float32), grid_x,
+        _build.stream_of(rows)), "gather_relax")
     return out, p

@@ -1,4 +1,4 @@
-"""Public wrappers around the kernels (K1-K6, K8-K10, K13).
+"""Public wrappers around the kernels (K1-K13).
 
 Each wrapper picks its arm from the device of the tensors it is given:
 a CPU tensor runs the kernel's plain torch version, a CUDA tensor
@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import compact as ck
+from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import restoration as rest
@@ -49,7 +50,9 @@ KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
                    "layer_fused_batched": 0, "traversal_fused_batched": 0,
                    "sell_expand_batched": 0, "sell_expand_prefetch": 0,
                    "sell_layer_fused_batched": 0,
-                   "sell_traversal_fused_batched": 0, "popcount": 0}
+                   "sell_traversal_fused_batched": 0, "popcount": 0,
+                   "frontier_expand_batched": 0,
+                   "gather_relax_batched": 0, "sell_relax_batched": 0}
 
 #: dynamic shared memory one CTA can opt into on the H100
 SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
@@ -155,6 +158,67 @@ def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
         out_init[None], p_init[None], n_vertices=n_vertices, tile=tile,
         bottom_up=bottom_up, prefetch_depth=prefetch_depth)
     return out_init, p_init
+
+
+def expand_batched(nbr, cand, valid, frontier, visited, out_init, p_init,
+                   *, n_vertices: int, check_frontier: bool = False):
+    """K7 over (B, E_slots) apportioned streams (``valid`` bool), (B, W)
+    bitmaps and (B, V_pad) P.  Updates ``out_init`` and
+    ``p_init`` in place and returns them as (out, parent) — restoration
+    NOT applied."""
+    _charge_launch()
+    if _arm(p_init, "expand_batched"):
+        KERNEL_LAUNCHES["frontier_expand_batched"] += 1
+        return fe.frontier_expand_cuda(
+            nbr, cand, valid, frontier, visited, out_init, p_init,
+            n_vertices=n_vertices, check_frontier=check_frontier)
+    return fe.frontier_expand_plain(
+        nbr, cand, valid, frontier, visited, out_init, p_init,
+        n_vertices=n_vertices, check_frontier=check_frontier)
+
+
+def expand(nbr, cand, valid, frontier, visited, out_init, p_init, *,
+           n_vertices: int, check_frontier: bool = False):
+    """K7 for one root ((E_slots,) streams, (W,), (V_pad,)): the batched
+    call at B = 1; ``out_init`` and ``p_init`` are updated in place."""
+    expand_batched(nbr[None].contiguous(), cand[None].contiguous(),
+                   valid[None].contiguous(), frontier[None].contiguous(),
+                   visited[None].contiguous(), out_init[None],
+                   p_init[None], n_vertices=n_vertices,
+                   check_frontier=check_frontier)
+    return out_init, p_init
+
+
+def gather_relax_batched(worklist, n_active, rows, colstarts, frontier,
+                         vals, *, n_vertices: int, tile: int,
+                         unit: int = 0, weighted: bool = False):
+    """K11: the semiring relax over (B, n_blocks) work-lists of the
+    tile-padded ``rows``; ``vals`` (B, V_pad) int32 or float32.  Returns
+    (out_vals, p_layer), ``p_layer`` `gather_expand.P_UNSET` where no
+    edge won.  One launch charged, as the reference's one Pallas call
+    (the CUDA arm is two launches, one per phase)."""
+    _charge_launch()
+    if _arm(rows, "gather_relax_batched"):
+        KERNEL_LAUNCHES["gather_relax_batched"] += 1
+        return ge.gather_relax_cuda(
+            worklist, n_active, rows, colstarts, frontier, vals,
+            n_vertices=n_vertices, tile=tile, unit=unit, weighted=weighted)
+    return ge.gather_relax_plain(
+        worklist, n_active, rows, colstarts, frontier, vals,
+        n_vertices=n_vertices, tile=tile, unit=unit, weighted=weighted)
+
+
+def sell_relax_batched(graph: se.SellGraph, worklist, n_active, frontier,
+                       vals, *, unit: int = 0, weighted: bool = False):
+    """K12: the semiring relax over (B, n_steps) slab-group work-lists;
+    the contract of `gather_relax_batched`."""
+    _charge_launch()
+    if _arm(vals, "sell_relax_batched"):
+        KERNEL_LAUNCHES["sell_relax_batched"] += 1
+        return se.sell_relax_cuda(graph, worklist, n_active, frontier,
+                                  vals, unit=unit, weighted=weighted)
+    return se.sell_relax_plain(graph, worklist, n_active, frontier, vals,
+                               unit=unit, weighted=weighted)
 
 
 def layer_fused_batched(graph: lf.FusedCsr, frontier, visited, parent, *,

@@ -1,5 +1,6 @@
-"""K8 and K9 — the SELL-C-σ slab sweep and the whole SELL layer: CUDA
-kernels and their plain torch versions.
+"""K8 and K9 — the SELL-C-σ slab sweep and the whole SELL layer — and
+K12, the semiring relax over slab groups: CUDA kernels and their plain
+torch versions.
 
 Layout (built by `formats.sell.SellFormat`): ``cols[slab, q, lane]`` is
 neighbour ``q`` of the virtual row in ``lane`` of a slab (sentinel V
@@ -27,6 +28,12 @@ row below V that is in ``words``: the frontier top-down, ``~visited``
 bottom-up), K8's sweep into a zeroed ``out``, restoration.  Returns
 (out restored, P restored in place, n_active).  Replaces
 ``sell_layer_fused[_batched]``.
+
+**K12** (`sell_relax_plain` / `sell_relax_cuda`): K11's two-phase
+scatter-min relax (`gather_expand.gather_relax_plain`) over the edges
+of the listed slab groups, src = ``slab_rows[s, lane]`` and nbr =
+``cols[s, q, lane]``.  Deterministic: both arms and the reference agree
+bitwise.  Replaces ``sell_relax_batched``.
 
 The plain versions process a root's active groups a chunk at a time,
 so their racy writes collide differently from the kernels'; after
@@ -250,3 +257,68 @@ def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,
         g.n_vertices, int(bool(bottom_up)), depth, grid,
         _build.stream_of(parent)), "sell_layer_fused")
     return out, parent, na
+
+
+# ---------------------------------------------------------------------------
+# K12: the semiring relax over slab groups
+# ---------------------------------------------------------------------------
+
+def slab_edges(g: SellGraph, groups):
+    """(src, nbr) int64 chunks of the listed slab groups' entries
+    (``groups``: one root's active work-list entries)."""
+    slab = torch.arange(g.spp, dtype=torch.int64, device=g.cols.device)
+    per_chunk = max(1, CHUNK_ENTRIES // (g.spp * W_QUANT * SLICE_C))
+    groups = groups.to(torch.int64)
+    for s in range(0, int(groups.shape[0]), per_chunk):
+        slabs = (groups[s:s + per_chunk, None] * g.spp + slab).reshape(-1)
+        nbr = g.cols[slabs].reshape(-1).to(torch.int64)
+        src = g.slab_rows[slabs][:, None, :].expand(-1, W_QUANT, -1) \
+            .reshape(-1).to(torch.int64)
+        yield src, nbr
+
+
+def sell_relax_plain(g: SellGraph, wl, na, frontier, vals, *,
+                     unit: int = 0, weighted: bool = False):
+    """Plain torch K12 over (B, ...) arrays: returns (out_vals, p_layer),
+    new tensors; ``vals`` is int32 or float32."""
+    out = vals.clone()
+    p = torch.full(vals.shape, ge.P_UNSET, dtype=torch.int32,
+                   device=vals.device)
+    for b, n_act in enumerate(na.tolist()):
+        for phase in (0, 1):
+            for src, nbr in slab_edges(g, wl[b, :n_act]):
+                ge.relax_edges(g.n_vertices, src, nbr, frontier[b],
+                               vals[b], out[b], p[b], unit=unit,
+                               weighted=weighted, phase=phase)
+    return out, p
+
+
+def sell_relax_cuda(g: SellGraph, wl, na, frontier, vals, *,
+                    unit: int = 0, weighted: bool = False):
+    """Launch K12 (two launches: phase 0, then phase 1) into a fresh
+    ``out_vals`` (a copy of ``vals``) and ``p_layer`` (`P_UNSET`)."""
+    from repro_torch.kernels import _build
+    n_batch = int(frontier.shape[0])
+    if weighted and vals.dtype != torch.float32:
+        raise ValueError("sell_relax: weighted needs float32 vals")
+    ge.check_relax_args(
+        "sell_relax", g.cols.device, vals,
+        dict(wl=(n_batch, g.n_steps), na=(n_batch,),
+             frontier=(n_batch, g.n_words),
+             vals=(n_batch, int(g.deg.shape[0]))),
+        wl=wl, na=na, frontier=frontier)
+    out = vals.clone()
+    p = torch.full(vals.shape, ge.P_UNSET, dtype=torch.int32,
+                   device=vals.device)
+    sms = torch.cuda.get_device_properties(g.cols.device) \
+        .multi_processor_count
+    grid_x = max(1, min(g.n_steps, CTAS_PER_SM * sms))
+    lib = _build.load()
+    _build.check(lib.repro_sell_relax(
+        wl.data_ptr(), na.data_ptr(), g.cols.data_ptr(),
+        g.slab_rows.data_ptr(), frontier.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), p.data_ptr(), n_batch, g.n_steps, g.spp, g.n_words,
+        int(g.deg.shape[0]), g.n_vertices, int(unit), int(bool(weighted)),
+        int(vals.dtype == torch.float32), grid_x, _build.stream_of(vals)),
+        "sell_relax")
+    return out, p

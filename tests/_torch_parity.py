@@ -11,6 +11,8 @@ tile at ``e_pad // 32``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +168,27 @@ def check_slice(graphs, graph_name, policy_index, batched):
                           reference_depth=depth).ok
         assert ref_validate(g, jnp.asarray(parents[b]), root,
                             reference_depth=depth).ok
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """While the block runs, wraps ``module.<name>`` (the function is
+    wrapped, not changed) and yields the list of its calls as (args, kw,
+    result), the tensor arguments cloned before the call."""
+    orig = getattr(module, name)
+    calls = []
+
+    def copy(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def wrapped(*args, **kw):
+        snap = tuple(map(copy, args)), {k: copy(v) for k, v in kw.items()}
+        out = orig(*args, **kw)
+        calls.append((*snap, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)

@@ -68,9 +68,12 @@ def test_resolved_spec_dict_loads_in_reference(rmat):
 
 
 #: values ported since the parametrization below was written: they now
-#: resolve and run (the fusion levels, K4-K6)
+#: resolve and run (the fusion levels, K4-K6; the materialized pipeline,
+#: K7; the semiring portfolio, K11-K12)
 PORTED = {("pipeline", "megakernel"), ("pipeline", "persistent"),
-          ("prefetch_depth", 2)}
+          ("prefetch_depth", 2), ("pipeline", "materialized"),
+          ("algorithm", "sssp"), ("algorithm", "cc"),
+          ("algorithm", "ksource_bfs")}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -81,8 +84,10 @@ PORTED = {("pipeline", "megakernel"), ("pipeline", "persistent"),
 ])
 def test_unported_values_raise_not_implemented(rmat, field, value):
     """Values not ported raise a typed refusal naming their ROADMAP
-    item; the three fusion values of `PORTED` resolve, load from a
-    reference dict and run on the CPU like the default pipeline."""
+    item; the values of `PORTED` resolve, load from a reference dict and
+    run on the CPU: the BFS pipelines like the default pipeline, the
+    portfolio with values and, but for cc (which labels every vertex),
+    the default's reached set."""
     spec = bfs.TraversalSpec(**{field: value})
     if (field, value) in PORTED:
         ct = bfs.plan(rmat, spec, device="cpu")
@@ -92,6 +97,11 @@ def test_unported_values_raise_not_implemented(rmat, field, value):
         got = ct.run_batched([17, 3])
         base = bfs.plan(rmat, bfs.TraversalSpec(), device="cpu") \
             .run_batched([17, 3])
+        if field == "algorithm":
+            assert got.values is not None
+            if value != "cc":
+                assert torch.equal(got.state.visited, base.state.visited)
+            return
         assert torch.equal(got.state.visited, base.state.visited)
         assert torch.equal(got.depths, base.depths)
         return
@@ -215,6 +225,7 @@ def test_imports_without_jax_or_the_reference():
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.bfs, repro_torch.interop\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.algorithms, repro_torch.algorithms.traversal\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

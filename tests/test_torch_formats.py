@@ -353,7 +353,7 @@ def test_sell_persistent_rejects_nonsimd(graphs):
 
 def test_unported_values_name_the_formats(graphs):
     with pytest.raises(NotImplementedError, match="csr, sell and bitmap"):
-        tbfs.TraversalSpec(pipeline="materialized").validate()
+        tbfs.TraversalSpec(packed=False).validate()
 
 
 # ---------------------------------------------------------------------------
