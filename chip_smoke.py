@@ -10,7 +10,8 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    and compaction must match exactly; gather-expand must give the same
    repaired ``out``/``visited`` and marked set, and every mark must
    name a frontier neighbour); each kernel's median time, its plain
-   version's, and its bound.  The same on that layer for K4 (the
+   version's, and its bound; K3 with the size of the union of the
+   layer's work-lists.  The same on that layer for K4 (the
    prefetch ring, depths 1, 2, 4: K3's contract) and K5 (one layer in
    one launch: n_active, ``out`` and the marked set bitwise, exactly
    one CUDA launch per call by the profiler), and for K2/K3 at B = 1
@@ -40,6 +41,9 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    captured SELL layer, K10 on the batch's initial state;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
+6b. at SCALE 16 with 33 roots (two words of K3's and K11's root
+   masks): K3 (and K4 at each depth) and K11 (int32 and float32 layers)
+   against their plain versions on their contracts;
 7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
    layout built on the card equals the CPU build bitwise): visited,
    depths, the stats buffer and the direction log must be identical on
@@ -141,6 +145,10 @@ SELL_PATHS = {
                         ("sell_traversal_fused_batched",), 0),
 }
 PREFETCH_DEPTHS = (1, 2, 4)
+#: the build-log entries printed whole (every ptxas line, kernel names
+#: included): the two kernels that walk the union of the lists
+UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu")
+WIDE_BATCH = 33               # two root-mask words
 SELL_DEPTHS = (0, 1, 2, 4)
 
 
@@ -426,22 +434,12 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
            cap["frontier"], cap["visited"], out, p, **kw)
         return out, p
 
-    out_k, p_k = k3(ge.gather_expand_cuda)
     out_p, p_p = k3(ge.gather_expand_plain)
-    torch.cuda.synchronize()
-    marked_k, marked_p = p_k < 0, p_p < 0
-    k3_err = int((marked_k != marked_p).sum())
-    fixed_k, delta_k = rest.restoration_plain(p_k, n_vertices)
-    fixed_p, delta_p = rest.restoration_plain(p_p, n_vertices)
-    for name, a, b in (("out|delta", out_k | delta_k, out_p | delta_p),
-                       ("visited|delta", cap["visited"] | delta_k,
-                        cap["visited"] | delta_p)):
-        k3_err = max(k3_err, int((a != b).sum()))
-        assert torch.equal(a, b), f"gather_expand: {name} disagrees"
-    assert k3_err == 0, "gather_expand: the marked sets disagree"
-    check_marks(cap, p_k, cap["frontier"])
-    n_marked = int(marked_k.sum())
     cap["plain_k3"] = (out_p, p_p)
+    out_k, p_k = k3(ge.gather_expand_cuda)
+    torch.cuda.synchronize()
+    k3_err = k3_contract(cap, out_k, p_k)
+    n_marked = int((p_k < 0).sum())
     out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
@@ -453,11 +451,14 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
                           cap["colstarts"], cap["frontier"],
                           cap["visited"], out_buf, p_buf, **kw)
 
+    n_blocks = int(cap["worklist"].shape[1])
     results["gather_expand_batched"] = dict(
         max_abs_err=k3_err, bytes=k3_bytes(cap, n_marked),
-        active_tiles=cap["key"], marked=n_marked,
-        bottom_up=kw["bottom_up"],
+        active_tiles=cap["key"], union_blocks=union_blocks(cap),
+        marked=n_marked, bottom_up=kw["bottom_up"],
         ms=cuda_ms(run_k3(ge.gather_expand_cuda), reps, setup=reset),
+        union_ms=cuda_ms(lambda: ge.union_worklist(
+            cap["worklist"], cap["n_active"], n_blocks), reps),
         plain_ms=cuda_ms(run_k3(ge.gather_expand_plain),
                          max(3, reps // 4), setup=reset))
 
@@ -478,21 +479,51 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
         log(json.dumps({"kernel": name + label, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bytes": r["bytes"],
                         "bound_ms": r["bound_ms"],
-                        "max_abs_err": r["max_abs_err"]}))
-    log(f"K3 layer{label}: {cap['key']} active tiles, {n_marked} "
-        f"marked, bottom_up={kw['bottom_up']}")
+                        "max_abs_err": r["max_abs_err"], **{
+                            k: r[k] for k in ("active_tiles",
+                                              "union_blocks", "union_ms")
+                                  if k in r}}))
+    log(f"K3 layer{label}: {cap['key']} active tiles, "
+        f"{results['gather_expand_batched']['union_blocks']} union blocks, "
+        f"{n_marked} marked, bottom_up={kw['bottom_up']}")
     return results
 
 
-def phase_prefetch(cap, reps: int, k3: dict):
+def union_blocks(cap) -> int:
+    """The captured K3/K4/K11 call's union size (``ucount``)."""
+    from repro_torch.kernels import gather_expand as ge
+    wl = cap["worklist"]
+    return int(ge.union_worklist(wl, cap["n_active"], int(wl.shape[1]))[1])
+
+
+def k3_contract(cap, out_k, p_k) -> int:
+    """K3's contract against its plain version's output on the captured
+    layer (``cap["plain_k3"]``): after restoration ``out``, ``visited``
+    and the marked set equal, every mark a frontier neighbour.  Returns
+    the count of disagreeing entries (0; any other count fails)."""
+    import torch
+    from repro_torch.kernels import restoration as rest
+    n = cap["kw"]["n_vertices"]
+    out_p, p_p = cap["plain_k3"]
+    err = int(((p_k < 0) != (p_p < 0)).sum())
+    _, delta_k = rest.restoration_plain(p_k, n)
+    _, delta_p = rest.restoration_plain(p_p, n)
+    for name, a, b in (("out|delta", out_k | delta_k, out_p | delta_p),
+                       ("visited|delta", cap["visited"] | delta_k,
+                        cap["visited"] | delta_p)):
+        err = max(err, int((a != b).sum()))
+        assert torch.equal(a, b), f"gather_expand: {name} disagrees"
+    assert err == 0, "gather_expand: the marked sets disagree"
+    check_marks(cap, p_k, cap["frontier"])
+    return err
+
+
+def phase_prefetch(cap, reps: int, k3: dict, label: str = ""):
     """Phase 3b: K4 at each depth on the captured layer, on K3's
     contract against the plain version (K3's)."""
     import torch
     from repro_torch.kernels import gather_expand as ge
-    from repro_torch.kernels import restoration as rest
-    kw, n = cap["kw"], cap["kw"]["n_vertices"]
-    out_p, p_p = cap["plain_k3"]
-    _, delta_p = rest.restoration_plain(p_p, n)
+    kw = cap["kw"]
     out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
@@ -508,21 +539,15 @@ def phase_prefetch(cap, reps: int, k3: dict):
             prefetch_depth=depth, **kw)
         run()
         torch.cuda.synchronize()
-        _, delta_k = rest.restoration_plain(p_buf, n)
-        err = int(((p_buf < 0) != (p_p < 0)).sum())
-        for name, a, b in (("out|delta", out_buf | delta_k, out_p | delta_p),
-                           ("visited|delta", cap["visited"] | delta_k,
-                            cap["visited"] | delta_p)):
-            err = max(err, int((a != b).sum()))
-        assert err == 0, f"K4 at depth {depth} disagrees with K3's plain"
-        check_marks(cap, p_buf, cap["frontier"])
+        err = k3_contract(cap, out_buf, p_buf)
         per_depth[depth] = cuda_ms(run, reps, setup=reset)
-        log(json.dumps({"kernel": "gather_expand_prefetch",
+        log(json.dumps({"kernel": "gather_expand_prefetch" + label,
                         "prefetch_depth": depth, "ms": per_depth[depth],
-                        "k3_ms": k3["ms"], "max_abs_err": err}))
+                        "k3_ms": k3["ms"], "max_abs_err": err,
+                        "union_blocks": k3["union_blocks"]}))
     return dict(max_abs_err=0, ms=per_depth[2], plain_ms=k3["plain_ms"],
                 bytes=k3["bytes"], bound_ms=k3["bound_ms"],
-                per_depth=per_depth)
+                per_depth=per_depth, union_blocks=k3["union_blocks"])
 
 
 def phase_layer_fused(cap, v_pad: int, reps: int):
@@ -928,15 +953,16 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_relax_kernels(cap, reps: int):
+def phase_relax_kernels(cap, reps: int, label: str = "",
+                        fold: bool = True):
     """K11 and K12 on the largest captured layer of each algorithm
     (``cap``: {algorithm: its `Spy`}), against their plain versions:
     ``out_vals`` and ``p_layer`` bitwise.  Returns {algorithm: {kernel:
-    results}}; each result also holds, as ``phase0_fold_ms``, the time
-    of one ``scatter_reduce_(amin)`` fold of the layer's candidates,
-    computed beforehand: phase 0 only, since no one PyTorch call
-    computes the whole function (so the kernel's ``library_ms`` stays
-    null)."""
+    results}}; with ``fold`` each result also holds, as
+    ``phase0_fold_ms``, the time of one ``scatter_reduce_(amin)`` fold
+    of the layer's candidates, computed beforehand: phase 0 only, since
+    no one PyTorch call computes the whole function (so the kernel's
+    ``library_ms`` stays null)."""
     import torch
     from repro_torch.kernels import gather_expand as ge
     from repro_torch.kernels import sell_expand as se
@@ -949,40 +975,76 @@ def phase_relax_kernels(cap, reps: int):
         for name, call in spy.best.items():
             items, args, kw = call["key"], call["args"], call["kw"]
             cuda_fn, plain_fn = arms[name]
-            got = cuda_fn(*args, **kw)
             want, plain_ms = timed_once(lambda: plain_fn(*args, **kw))
             vals = args[-1]
+            got = cuda_fn(*args, **kw)
             err = int((got[0].view(torch.int32)
                        != want[0].view(torch.int32)).sum()) \
                 + int((got[1] != want[1]).sum())
             assert err == 0, f"{name} ({alg}) disagrees with its plain " \
                              f"version in {err} entries"
             assert bool((got[0] >= 0).all()), f"{name}: negative value"
-            idx, cand = relax_fold_inputs(name, args, kw)
-            flat = vals.reshape(-1).clone()
-            fold_ms = cuda_ms(
-                lambda: flat.scatter_reduce_(0, idx, cand, "amin",
-                                             include_self=True), reps,
-                setup=lambda: flat.copy_(vals.reshape(-1)))
-            assert torch.equal(flat.view(vals.shape), got[0]), \
-                f"{name}: the scatter_reduce_ fold disagrees with K11/K12"
-            del idx, cand, flat
             r = dict(max_abs_err=err, items=items, bytes=relax_bytes(
                 name, args), improved=int((got[0] != vals).sum()),
                 ms=cuda_ms(lambda: cuda_fn(*args, **kw), reps),
-                plain_ms=plain_ms, phase0_fold_ms=fold_ms,
-                dtype=str(vals.dtype).split(".")[-1])
+                plain_ms=plain_ms, dtype=str(vals.dtype).split(".")[-1])
+            if name == "gather_relax_batched":
+                r["union_blocks"] = union_blocks(call)
+            if fold:
+                idx, cand = relax_fold_inputs(name, args, kw)
+                flat = vals.reshape(-1).clone()
+                r["phase0_fold_ms"] = cuda_ms(
+                    lambda: flat.scatter_reduce_(0, idx, cand, "amin",
+                                                 include_self=True), reps,
+                    setup=lambda: flat.copy_(vals.reshape(-1)))
+                assert torch.equal(flat.view(vals.shape), got[0]), \
+                    f"{name}: the scatter_reduce_ fold disagrees with " \
+                    f"K11/K12"
+                del idx, cand, flat
             r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
             out[alg][name] = r
-            log(json.dumps({"kernel": name, "algorithm": alg, **{
+            log(json.dumps({"kernel": name + label, "algorithm": alg, **{
                 k: r[k] for k in ("ms", "plain_ms", "phase0_fold_ms",
                                   "bytes", "bound_ms", "max_abs_err",
-                                  "items", "improved", "dtype")},
-                "phase0_fold": "scatter_reduce_(amin) of the candidates, "
-                               "phase 0 only"}))
+                                  "items", "union_blocks",
+                                  "improved", "dtype") if k in r},
+                **({"phase0_fold": "scatter_reduce_(amin) of the "
+                                   "candidates, phase 0 only"}
+                   if fold else {})}))
             del got, want
             torch.cuda.empty_cache()
     return out
+
+
+def phase_wide_batch(g, seed: int, reps: int) -> None:
+    """Phase 6b: a batch of `WIDE_BATCH` roots (two root-mask words) on
+    ``g``: K2, K3 (and K4 at each depth) and K1 on the largest layer of
+    its main-path traversal, and K11 on the largest ksource_bfs (int32)
+    and sssp (float32) layers, against their plain versions with the
+    phase-3 and phase-9 contracts."""
+    import repro_torch.bfs as bfs
+    from repro_torch.kernels import ops
+    roots = pick_roots(g, WIDE_BATCH, seed + 3)
+    assert len(roots) == WIDE_BATCH
+    label = f"_b{WIDE_BATCH}"
+    with Spy(ops, {"frontier_compact_batched": None,
+                   "gather_expand_batched": listed}) as spy:
+        bfs.plan(g, bfs.TraversalSpec()).run_batched(roots)
+    cap = spy.best["gather_expand_batched"]
+    k3 = phase_kernels(cap, g.n_vertices, g.n_vertices_padded, reps,
+                       label=label)
+    phase_prefetch(cap, reps, k3["gather_expand_batched"], label=label)
+    del cap, spy
+    relax = {}
+    for alg, fields in (("ksource_bfs", {}),
+                        ("sssp", dict(max_layers=512))):
+        relax[alg] = Spy(ops, {"gather_relax_batched": listed})
+        with relax[alg]:
+            bfs.plan(g, bfs.TraversalSpec(algorithm=alg, **fields)) \
+                .run_batched(roots)
+    phase_relax_kernels(relax, reps, label=label, fold=False)
+    log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
+        f"V={g.n_vertices}: K3, K4 and K11 equal their plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1390,9 +1452,10 @@ def main(argv=None) -> int:
     _build.load()
     log(f"build: {time.perf_counter() - t0:.3f} s")
     for entry in _build.BUILD_LOG:
+        full = entry.startswith(UNION_SOURCES)
         for line in entry.splitlines():
             if line.startswith("==") or "registers" in line \
-                    or "spill" in line:
+                    or "spill" in line or (full and "ptxas" in line):
                 log("  " + line.strip())
 
     # main-path graph and a capture run (warm-up) for phase 3
@@ -1567,6 +1630,8 @@ def main(argv=None) -> int:
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
             f"depths equal bfs_serial, every CSR and SELL pipeline equals "
             f"fused_gather; {bfs.direction_log(base16)}")
+    # 6b. two root-mask words: K3, K4 and K11 at B = 33
+    phase_wide_batch(g16, args.seed, max(3, args.reps // 4))
     del g16, sell16
     bfs.clear_plan_cache()
 
@@ -1641,7 +1706,9 @@ def main(argv=None) -> int:
             bound_by="bytes",
             # no kernel has one PyTorch call computing its function; the
             # K11/K12 phase-0 fold is printed on their own lines
-            library_ms=None))
+            library_ms=None,
+            **({"union_blocks": k["union_blocks"]}
+               if "union_blocks" in k else {})))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

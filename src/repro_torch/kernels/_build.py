@@ -43,7 +43,7 @@ SIGNATURES = {
     "repro_restoration": (_P, _P, _P, _LL, _I, _P),
     "repro_tile_popcounts": (_P, _P, _I, _I, _I, _P),
     "repro_rank_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_gather_expand": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "repro_gather_expand": (_P,) * 9 + (_I,) * 10 + (_P,),
     "repro_layer_fused_grid": (_I, _I, _I, _P),
     "repro_layer_fused": (_P,) * 12 + (_I,) * 10 + (_P,),
     "repro_traversal_fused_grid": (_I, _I, _I, _P),
@@ -56,7 +56,7 @@ SIGNATURES = {
     "repro_sell_traversal_fused": (_P,) * 19 + (_I,) * 9 + (_F,) * 3
     + (_I, _P),
     "repro_popcount": (_P, _P, _LL, _I, _P),
-    "repro_gather_relax": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "repro_gather_relax": (_P,) * 9 + (_I,) * 11 + (_P,),
     "repro_sell_relax": (_P,) * 8 + (_I,) * 10 + (_P,),
     "repro_frontier_expand": (_P,) * 7 + (_I, _LL) + (_I,) * 5 + (_P,),
 }

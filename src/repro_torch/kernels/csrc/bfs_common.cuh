@@ -1,17 +1,26 @@
-// Device helpers shared by the gather-expand kernels (K3, K4) and the
-// fused layer and traversal kernels (K5, K6).
+// Device helpers shared by the CSR and SELL kernels.  Two gather bodies
+// live here:
 //
-// * `owner_in`: the edge -> owning vertex binary search over colstarts;
-// * `expand_block`: the racy gather-expand body over one rows-block;
-// * `sweep_items` / `sweep`: a CTA's walk over its share of the
-//   work-lists, with `depth` items in flight into a (depth + 1)-stage
-//   ring of shared memory (`cp.async`), or read straight from device
-//   memory at depth 0 (the SELL kernels stage slabs through the same
-//   walk);
-// * block-wide sums and an exclusive scan of one flag per thread.
+// * the per-root body, `expand_block` over `sweep` (a CTA walks one
+//   root's work-list and searches each slot's owner with `owner_in`):
+//   the fused layer and traversal kernels K5 and K6 (fused_phases.cuh);
+// * the union body, `owners_by_scan` + `expand_roots` over
+//   `sweep_union` (a CTA walks the union of the batch's work-lists and
+//   serves every root whose bit is set in the block's root mask, the
+//   owners of a block put in shared memory by one scan): K3 and K4
+//   (gather_expand.cu) and K11 (gather_relax.cu, with its own per-root
+//   step in relax_common.cuh).
+//
+// Also here: `sweep_items`, the walk with `depth` items in flight into
+// a (depth + 1)-stage ring of shared memory (`cp.async`), or read
+// straight from device memory at depth 0, which the SELL kernels (K8-K10,
+// K12) use with their own stage; block-wide sums and an exclusive scan
+// of one flag per thread.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 #include <stdint.h>
 
 namespace bfs {
@@ -173,20 +182,21 @@ struct WorkItems {
   }
 };
 
-// Walk the CTA's items, calling body(b, blk, slot) for each.  depth == 0
-// passes slot = nullptr (the body reads device memory); depth > 0 keeps
+// Walk the CTA's items (`WorkItems` or `UnionItems`), calling
+// body(b, blk, slot) for each.  depth == 0 passes slot = nullptr (the
+// body reads device memory); depth > 0 keeps
 // `depth` items' copies in flight into ring slot (k % (depth + 1)) while
 // item k computes on the slot that has landed (the reference's
 // `_dma_pipeline`: warm-up of `depth` copies, then one ahead per step).
 // stage(dst, blk) issues item blk's cp.async copies into a slot of
 // `slot_ints` ints; `ring` is (depth + 1) * slot_ints ints of dynamic
 // shared memory.
-template <class Stage, class Body>
-__device__ __forceinline__ void sweep_items(const WorkItems& items, int b0,
+template <class Items, class Stage, class Body>
+__device__ __forceinline__ void sweep_items(const Items& items, int b0,
                                             int depth, int slot_ints,
                                             int* ring, Stage stage,
                                             Body body) {
-  WorkItems::Cursor cur = items.first(b0);
+  typename Items::Cursor cur = items.first(b0);
   if (depth == 0) {
     for (; items.valid(cur); items.next(cur)) {
       body(cur.b, items.blk(cur), static_cast<const int*>(nullptr));
@@ -195,7 +205,7 @@ __device__ __forceinline__ void sweep_items(const WorkItems& items, int b0,
     return;
   }
   const int n_stage = depth + 1;
-  WorkItems::Cursor ahead = cur;
+  typename Items::Cursor ahead = cur;
   int k_ahead = 0;
   for (int j = 0; j < depth; ++j, ++k_ahead) {
     if (items.valid(ahead)) {
@@ -234,6 +244,198 @@ __device__ void sweep(const WorkItems& items, int b0, const int* rows,
         body(b, blk,
              slot ? slot : rows + static_cast<long long>(blk) * tile);
       });
+}
+
+// ---------------------------------------------------------------------------
+// The union body (K3, K4, K11): one CTA per listed block for all roots
+// ---------------------------------------------------------------------------
+
+// The union of the batch's work-lists: entries t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... below `count` (read on the device by the
+// kernel from the union's count).  The cursor's root is unused.
+struct UnionItems {
+  const int* ulist;
+  int count;
+
+  struct Cursor {
+    int b, t;
+  };
+
+  __device__ Cursor first(int) const {
+    return Cursor{0, static_cast<int>(blockIdx.x)};
+  }
+  __device__ void next(Cursor& c) const { c.t += gridDim.x; }
+  __device__ bool valid(const Cursor& c) const { return c.t < count; }
+  __device__ int blk(const Cursor& c) const { return __ldg(ulist + c.t); }
+};
+
+// The grid of a kernel that strides over a list: as many CTAs of
+// kThreads as the card holds at once at `smem` bytes of dynamic shared
+// memory (more would wait for a free slot and stretch the tail), at
+// most max_grid.  The occupancy query runs once per (kernel, smem,
+// device); later launches read the cache.
+template <class Kernel>
+__host__ cudaError_t resident_grid(Kernel kernel, size_t smem, int max_grid,
+                                   int* grid) {
+  struct Entry {
+    const void* fn;
+    size_t smem;
+    int dev, full;
+  };
+  static Entry cache[32];
+  static int n_cached = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int full = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n_cached && !full; ++i)
+      if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev)
+        full = cache[i].full;
+  }
+  if (!full) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kThreads, smem);
+    if (rc != cudaSuccess) return rc;
+    full = per_sm * sms > 0 ? per_sm * sms : 1;
+    std::lock_guard<std::mutex> lock(mu);
+    if (n_cached < 32) cache[n_cached++] = Entry{fn, smem, dev, full};
+  }
+  *grid = full < max_grid ? full : max_grid;
+  if (*grid < 1) *grid = 1;
+  return cudaSuccess;
+}
+
+// The union walk: body(blk, rows_of_blk), rows staged at depth > 0.
+template <class Body>
+__device__ void sweep_union(const UnionItems& items, const int* rows,
+                            int tile, int depth, int* stage, Body body) {
+  sweep_items(
+      items, 0, depth, tile, stage,
+      [&](int* dst, int blk) {
+        stage_block(dst, rows + static_cast<long long>(blk) * tile, tile);
+      },
+      [&](int, int blk, const int* slot) {
+        body(blk, slot ? slot : rows + static_cast<long long>(blk) * tile);
+      });
+}
+
+// Largest u in [0, n_cs - 1] with cs[u] <= e (cs[0] == 0 <= e), by the
+// calling warp: each round probes 32 evenly spaced entries of the
+// remaining range at once, so ~log32(n_cs) dependent loads (5 at
+// SCALE 22) instead of log2(n_cs) (23).  Every lane returns the answer.
+__device__ __forceinline__ int owner_by_warp(const int* __restrict__ cs,
+                                             int n_cs, int e) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n_cs - 1;              // the answer is in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int probe = lo + (lane + 1) * step;
+    const bool ok = probe <= hi && __ldg(cs + probe) <= e;
+    lo += __popc(__ballot_sync(0xffffffffu, ok)) * step;
+    hi = min(hi, lo + step - 1);
+  }
+  return lo;
+}
+
+// In place: a[i] = max(a[0..i]) over n shared ints, each thread scanning
+// a run of consecutive entries (every thread of the CTA must call it).
+__device__ __forceinline__ void block_prefix_max(int* a, int n) {
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int i0 = threadIdx.x * per, i1 = min(i0 + per, n);
+  int run = -1;
+  for (int i = i0; i < i1; ++i) run = max(run, a[i]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, run, off);
+    if (lane >= off) run = max(run, up);
+  }
+  if (lane == 31) s_warp[warp] = run;
+  __syncthreads();
+  int before = __shfl_up_sync(0xffffffffu, run, 1);
+  if (lane == 0) before = -1;
+  for (int w = 0; w < warp; ++w) before = max(before, s_warp[w]);
+  for (int i = i0; i < i1; ++i) {
+    before = max(before, a[i]);
+    a[i] = before;
+  }
+  __syncthreads();
+}
+
+// own[i] = the owner of edge slot e0 + i (largest u with cs[u] <= e0 + i)
+// for i < n, with no dependent global load per slot: warps 0 and 1 find
+// the owners lo and hi of the first and last slot; every u in (lo, hi]
+// lands on slot cs[u] - e0 (cs[u] > e0 there, so never slot 0) by a
+// shared atomicMax (zero-degree vertices share a colstarts value, and
+// the owner is the largest); slot 0 takes lo; a prefix max fills the
+// rest.  The colstarts reads over (lo, hi] are coalesced, however long
+// the range (runs of isolated vertices).  Past the last edge the owner
+// is n_cs - 1 (== V), the sentinel tail.  Every thread must call it.
+__device__ __forceinline__ void owners_by_scan(const int* __restrict__ cs,
+                                               int n_cs, int e0, int n,
+                                               int* own) {
+  __shared__ int s_range[2];
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int r = owner_by_warp(cs, n_cs, warp == 0 ? e0 : e0 + n - 1);
+    if ((threadIdx.x & 31) == 0) s_range[warp] = r;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) own[i] = -1;
+  __syncthreads();
+  const int lo = s_range[0], hi = s_range[1];
+  if (threadIdx.x == 0) own[0] = lo;
+  for (int u = lo + 1 + threadIdx.x; u <= hi; u += blockDim.x)
+    atomicMax(own + (__ldg(cs + u) - e0), u);
+  __syncthreads();
+  block_prefix_max(own, n);
+}
+
+// The racy gather-expand over n slots of one block for every root whose
+// bit is set in `mask` (n_mask_words words): slot i has owner own[i] and
+// neighbour rows_sub[i].  Per root, the body of `expand_block`: the
+// gate's frontier bit, the `visited | out` test, the negative P mark and
+// the racy out word write (paper §3.3.2).  The bitmaps are
+// root-interleaved, (n_words, B): root b's word w is at w * n_batch + b,
+// so the B words of one vertex share a sector.  The owner side of each
+// test goes first (the gate top-down, the candidate bottom-up): it is
+// the same word for a run of slots, so a root it rules out costs no
+// load of the random side.  P stays (B, v_pad).
+__device__ __forceinline__ void expand_roots(
+    const int* rows_sub, const int* own, int n,
+    const unsigned* __restrict__ mask, int n_mask_words,
+    const unsigned* __restrict__ fr, const unsigned* __restrict__ vis,
+    unsigned* out, int* p, long long n_batch, long long v_pad,
+    int n_vertices, bool bottom_up) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int u = own[i];
+    const int v = rows_sub[i];
+    if (u >= n_vertices || v >= n_vertices) continue;   // sentinel tail
+    const int gate = bottom_up ? v : u;
+    const int cand = bottom_up ? u : v;
+    const unsigned* fg = fr + (gate >> 5) * n_batch;
+    const unsigned* vc = vis + (cand >> 5) * n_batch;
+    unsigned* oc = out + (cand >> 5) * n_batch;
+    const unsigned gbit = 1u << (gate & 31), cbit = 1u << (cand & 31);
+    for (int k = 0; k < n_mask_words; ++k) {
+      for (unsigned m = __ldg(mask + k); m; m &= m - 1) {
+        const int b = 32 * k + __ffs(m) - 1;
+        if (!bottom_up && !(__ldg(fg + b) & gbit)) continue;
+        const unsigned ow = oc[b];                         // racy read
+        if ((__ldg(vc + b) | ow) & cbit) continue;
+        if (bottom_up && !(__ldg(fg + b) & gbit)) continue;
+        p[b * v_pad + cand] = gate - n_vertices;           // negative mark
+        oc[b] = ow | cbit;                                 // racy write
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

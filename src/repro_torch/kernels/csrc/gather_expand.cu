@@ -1,4 +1,5 @@
-// K3 and K4: fused work-listed CSR gather + racy expand for Hopper.
+// K3 and K4: fused work-listed CSR gather + racy expand for Hopper, one
+// CTA per rows-block of the union of the batch's work-lists.
 //
 // Replaces: src/repro/kernels/gather_expand.py, `gather_expand_batched`
 // (Pallas bodies `_gather_batched_kernel` at prefetch_depth = 0 — K3 —
@@ -28,26 +29,36 @@
 // and the set of marked vertices are the reference's exactly.
 //
 // What bounds it on this card: bytes, and in practice the latency of
-// dependent loads.  Each active block moves tile * 4 bytes of `rows`
-// (coalesced), the colstarts entries its owners span, and one 4-byte
-// bitmap word gather per edge for the gate, the visited and the out
-// test; plus 4 bytes of P per discovery.  colstarts (16.8 MB at
-// SCALE 22) and the bitmaps (0.5 MB per root) stay in the 50 MB L2.
-// Design against the latency: thread 0 of the CTA finds the block's
-// first and last owner by a binary search over all of colstarts, once
-// per block; every thread then searches only that narrow owner range,
-// ~log2(tile / mean degree) dependent loads instead of ~23.  The grid
-// is (CTAs, B) with CTAs striding over the work-list, and n_active is
-// read on the device, so no host sync is needed and a root with an
-// empty work-list costs one load.
+// dependent loads.  The bytes bound counts each listed block's rows and
+// colstarts once, but the roots of a batch list mostly the same blocks
+// (849,920 listed pairs over 130,536 blocks on the largest SCALE-22
+// layer at 8 roots), and a kernel that walks each root's list reads a
+// block's rows, and searches its slots' owners, once per root that
+// lists it.
+//
+// The design: the wrapper builds the union of the lists (`ulist`, the
+// blocks any root lists, with `ucount` read here on the device) and a
+// root mask per block (`rmask`, bit b of word b / 32 set when root b
+// lists it); a 1-D grid strides over the union, so each block's rows
+// are read once and its owners found once for all its roots
+// (`bfs::owners_by_scan`: one warp-parallel search per end of the
+// block, then every owner put in shared memory by a coalesced scan of
+// colstarts and a prefix max, instead of ~5 dependent loads per slot
+// and root).  Per slot the roots of the mask run the per-root body
+// (`bfs::expand_roots`).  The wrapper hands the bitmaps over
+// root-interleaved, (n_words, B): the B words of one vertex then share a
+// 32-byte sector instead of lying B rows apart.  The grid is the CTAs
+// the card holds at once (`bfs::resident_grid`, the occupancy API's
+// count for this kernel); more only queue and stretch the tail, since a
+// block's work grows with its mask's popcount.
 //
 // K4 (depth > 0) is the same body fed from shared memory: each CTA
-// keeps the rows of its next `depth` blocks in flight with cp.async
-// into its own (depth + 1)-stage ring (`bfs::sweep`), the TPU kernel's
-// make_async_copy pipeline.  Only entries below n_active are copied:
-// the reference's clamped work-list tail, which it copies and skips,
-// is never visited.  A ring above 48 KB needs the opt-in attribute,
-// set here before the launch.
+// keeps the rows of its next `depth` union blocks in flight with
+// cp.async into its own (depth + 1)-stage ring (`bfs::sweep_union` over
+// `bfs::sweep_items`), the TPU kernel's make_async_copy pipeline.  The
+// owners of `sub` slots at a time sit after the ring; a block longer
+// than `sub` is scanned in pieces.  Above 48 KB of dynamic shared memory
+// the opt-in attribute is set here before the launch.
 #include <cuda_runtime.h>
 
 #include "bfs_common.cuh"
@@ -55,64 +66,66 @@
 namespace {
 
 __global__ void __launch_bounds__(bfs::kThreads) gather_expand_kernel(
-    const int* __restrict__ wl, const int* __restrict__ na,
-    const int* __restrict__ rows, const int* __restrict__ cs,
-    const unsigned* __restrict__ frontier,
+    const int* __restrict__ ulist, const int* __restrict__ ucount,
+    const unsigned* __restrict__ rmask, const int* __restrict__ rows,
+    const int* __restrict__ cs, const unsigned* __restrict__ frontier,
     const unsigned* __restrict__ visited, unsigned* out, int* p,
-    int n_blocks, int tile, int n_cs, int n_words, int v_pad,
-    int n_vertices, int bottom_up, int depth) {
-  extern __shared__ __align__(16) int stage[];
-  __shared__ int s_lo, s_hi;
-  const int b = blockIdx.y;
-  const unsigned* fr = frontier + static_cast<long long>(b) * n_words;
-  const unsigned* vis = visited + static_cast<long long>(b) * n_words;
-  unsigned* ob = out + static_cast<long long>(b) * n_words;
-  int* pb = p + static_cast<long long>(b) * v_pad;
-  const bfs::WorkItems items{wl, na, n_blocks, b + 1};
-  bfs::sweep(items, b, rows, tile, depth, stage,
-             [&](int, int blk, const int* rows_blk) {
-               const int e0 = blk * tile;
-               if (threadIdx.x == 0) {
-                 const int lo = bfs::owner_in(cs, 0, n_cs - 1, e0);
-                 s_lo = lo;
-                 s_hi = bfs::owner_in(cs, lo, n_cs - 1, e0 + tile - 1);
-               }
-               __syncthreads();
-               bfs::expand_block<false>(rows_blk, cs, e0, tile, s_lo, s_hi,
-                                        fr, vis, ob, pb, n_vertices,
-                                        bottom_up != 0, false);
-             });
+    int n_mask_words, int tile, int sub, int n_cs, int v_pad,
+    int n_vertices, int bottom_up, int depth, int n_batch) {
+  extern __shared__ __align__(16) int smem[];
+  int* own = smem + (depth > 0 ? (depth + 1) * tile : 0);
+  const bfs::UnionItems items{ulist, __ldg(ucount)};
+  bfs::sweep_union(
+      items, rows, tile, depth, smem, [&](int blk, const int* rows_blk) {
+        const unsigned* mask =
+            rmask + static_cast<long long>(blk) * n_mask_words;
+        for (int s0 = 0; s0 < tile; s0 += sub) {
+          const int n = min(sub, tile - s0);
+          bfs::owners_by_scan(cs, n_cs, blk * tile + s0, n, own);
+          bfs::expand_roots(rows_blk + s0, own, n, mask, n_mask_words,
+                            frontier, visited, out, p, n_batch, v_pad,
+                            n_vertices, bottom_up != 0);
+          if (s0 + sub < tile) __syncthreads();   // own is rewritten
+        }
+      });
 }
 
 }  // namespace
 
-// wl: (B, n_blocks) int32; na: (B,) int32; rows: (n_blocks * tile,)
-// int32; cs: (n_cs,) int32; frontier, visited, out: (B, n_words)
-// 32-bit words; p: (B, v_pad) int32.  out and p are updated in place.
-// depth = 0 is K3; depth > 0 is K4 with (depth + 1) * tile * 4 bytes
-// of dynamic shared memory per CTA.
+// ulist: (n_blocks,) int32 union list; ucount: (1,) int32; rmask:
+// (n_blocks, n_mask_words) 32-bit root masks; rows: (n_blocks * tile,)
+// int32; cs: (n_cs,) int32; frontier, visited, out: root-interleaved
+// (n_words, B) 32-bit words; p: (B, v_pad) int32.  out and p are updated in place.  Dynamic shared
+// memory: the ring ((depth + 1) * tile ints at depth > 0) and `sub`
+// owner slots.  The grid is the CTAs the card holds at once (at most
+// max_grid), each striding over the union.
 extern "C" int repro_gather_expand(
-    const void* wl, const void* na, const void* rows, const void* cs,
-    const void* frontier, const void* visited, void* out, void* p,
-    int n_batch, int n_blocks, int tile, int n_cs, int n_words, int v_pad,
-    int n_vertices, int bottom_up, int depth, int grid_x, void* stream) {
-  if (n_batch == 0 || n_blocks == 0 || grid_x <= 0) return 0;
-  const size_t smem =
+    const void* ulist, const void* ucount, const void* rmask,
+    const void* rows, const void* cs, const void* frontier,
+    const void* visited, void* out, void* p, int n_batch, int n_mask_words,
+    int tile, int sub, int n_cs, int v_pad, int n_vertices, int bottom_up,
+    int depth, int max_grid, void* stream) {
+  if (n_batch == 0 || max_grid <= 0) return 0;
+  const size_t ring =
       depth > 0 ? static_cast<size_t>(depth + 1) * tile * sizeof(int) : 0;
+  const size_t smem = ring + static_cast<size_t>(sub) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         gather_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  dim3 grid(grid_x, n_batch);
+  int grid = 0;
+  const cudaError_t rc =
+      bfs::resident_grid(gather_expand_kernel, smem, max_grid, &grid);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   gather_expand_kernel<<<grid, bfs::kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(wl), static_cast<const int*>(na),
-      static_cast<const int*>(rows), static_cast<const int*>(cs),
-      static_cast<const unsigned*>(frontier),
+      static_cast<const int*>(ulist), static_cast<const int*>(ucount),
+      static_cast<const unsigned*>(rmask), static_cast<const int*>(rows),
+      static_cast<const int*>(cs), static_cast<const unsigned*>(frontier),
       static_cast<const unsigned*>(visited), static_cast<unsigned*>(out),
-      static_cast<int*>(p), n_blocks, tile, n_cs, n_words, v_pad,
-      n_vertices, bottom_up, depth);
+      static_cast<int*>(p), n_mask_words, tile, sub, n_cs, v_pad,
+      n_vertices, bottom_up, depth, n_batch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// K11: the semiring relax over work-listed CSR rows-blocks, for Hopper.
+// K11: the semiring relax over work-listed CSR rows-blocks, for Hopper,
+// one CTA per rows-block of the union of the batch's work-lists.
 //
 // Replaces: src/repro/kernels/gather_expand.py, `gather_relax_batched`
 // (Pallas body `_relax_batched_kernel` over `_relax_edges`,
@@ -23,13 +24,24 @@
 // lower out[v] below vals[v] and phase 1 would reject it anyway.
 //
 // What bounds it on this card: bytes, and the latency of dependent
-// loads, as in K3: per active block the rows (coalesced) and the
-// colstarts entries its owners span, per edge a frontier word, vals[u]
-// and vals[v] (L2-resident for small layers), and an atomic per
-// improving candidate, read twice (once per phase).  Design as K3's:
-// thread 0 finds the block's owner range once, every thread searches
-// only that range; the grid is (CTAs, B) with CTAs striding over the
-// work-list, n_active read on the device, no host sync.
+// loads, as in K3: per listed block the rows (coalesced) and the
+// colstarts entries its owners span, per edge and root a frontier word,
+// vals[u] and vals[v], and an atomic per improving candidate, all read
+// twice (once per phase).  The roots of a batch list mostly the same
+// blocks, so a walk of each root's own list repeats the rows and the
+// owner search of a block for every root that lists it.
+//
+// Design, as K3's (gather_expand.cu): a 1-D grid of resident CTAs
+// strides over the union of the lists; each block's rows are read once
+// and its owners put in shared memory once per phase
+// (`bfs::owners_by_scan`) for all the roots in its mask, which then run
+// the per-root step: the frontier test, `relax::candidate` and
+// `relax::relax_at`.  The wrapper hands `vals` and `out` over
+// root-interleaved, (v_pad, B), and the frontier (n_words, B), so that
+// the B values of one vertex share a sector: vals[v] and the atomics on
+// out[v] are random, and on an H100 that layout alone takes the kernel
+// from ~28 ms in (B, v_pad) rows to ~11 ms on the largest SCALE-22
+// layer.  `pl` stays (B, v_pad).
 #include <cuda_runtime.h>
 
 #include "relax_common.cuh"
@@ -38,68 +50,88 @@ namespace {
 
 template <bool kFloat>
 __global__ void __launch_bounds__(bfs::kThreads) gather_relax_kernel(
-    const int* __restrict__ wl, const int* __restrict__ na,
-    const int* __restrict__ rows, const int* __restrict__ cs,
-    const unsigned* __restrict__ frontier, const int* __restrict__ vals,
-    int* out, int* pl, int n_blocks, int tile, int n_cs, int n_words,
-    int v_pad, int n_vertices, int unit, int weighted, int phase) {
-  __shared__ int s_lo, s_hi;
-  const int b = blockIdx.y;
-  const unsigned* fr = frontier + static_cast<long long>(b) * n_words;
-  const long long vo = static_cast<long long>(b) * v_pad;
-  const int* vb = vals + vo;
-  int* ob = out + vo;
-  int* pb = pl + vo;
-  const bfs::WorkItems items{wl, na, n_blocks, b + 1};
-  bfs::sweep(items, b, rows, tile, 0, nullptr,
-             [&](int, int blk, const int* rows_blk) {
-               const int e0 = blk * tile;
-               if (threadIdx.x == 0) {
-                 const int lo = bfs::owner_in(cs, 0, n_cs - 1, e0);
-                 s_lo = lo;
-                 s_hi = bfs::owner_in(cs, lo, n_cs - 1, e0 + tile - 1);
-               }
-               __syncthreads();
-               const int lo = s_lo, hi = s_hi;
-               for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-                 const int u = bfs::owner_in(cs, lo, hi, e0 + i);
-                 const int v = __ldg(rows_blk + i);
-                 if (u >= n_vertices || v >= n_vertices) continue;
-                 if (!relax::in_frontier(fr, u)) continue;
-                 const int cand = relax::candidate<kFloat>(
-                     __ldg(vb + u), u, v, unit, weighted != 0);
-                 relax::relax_edge(phase, u, v, cand, vb, ob, pb);
-               }
-             });
+    const int* __restrict__ ulist, const int* __restrict__ ucount,
+    const unsigned* __restrict__ rmask, const int* __restrict__ rows,
+    const int* __restrict__ cs, const unsigned* __restrict__ frontier,
+    const int* __restrict__ vals, int* out, int* pl, int n_mask_words,
+    int tile, int sub, int n_cs, int v_pad, int n_vertices, int unit,
+    int weighted, int phase, int n_batch) {
+  extern __shared__ __align__(16) int own[];
+  const bfs::UnionItems items{ulist, __ldg(ucount)};
+  bfs::sweep_union(
+      items, rows, tile, 0, nullptr, [&](int blk, const int* rows_blk) {
+        const unsigned* mask =
+            rmask + static_cast<long long>(blk) * n_mask_words;
+        for (int s0 = 0; s0 < tile; s0 += sub) {
+          const int n = min(sub, tile - s0);
+          bfs::owners_by_scan(cs, n_cs, blk * tile + s0, n, own);
+          for (int i = threadIdx.x; i < n; i += blockDim.x) {
+            const int u = own[i];
+            const int v = __ldg(rows_blk + s0 + i);
+            if (u >= n_vertices || v >= n_vertices) continue;
+            // root b's word w / value x at w * n_batch + b / x * n_batch + b
+            const unsigned* fu =
+                frontier + static_cast<long long>(u >> 5) * n_batch;
+            const int* vu = vals + static_cast<long long>(u) * n_batch;
+            const long long vv = static_cast<long long>(v) * n_batch;
+            const unsigned ubit = 1u << (u & 31);
+            for (int k = 0; k < n_mask_words; ++k) {
+              for (unsigned m = __ldg(mask + k); m; m &= m - 1) {
+                const int b = 32 * k + __ffs(m) - 1;
+                if (!(__ldg(fu + b) & ubit)) continue;
+                const int cand = relax::candidate<kFloat>(
+                    __ldg(vu + b), u, v, unit, weighted != 0);
+                relax::relax_at(phase, u, cand, vals + vv + b,
+                                out + vv + b,
+                                pl + static_cast<long long>(b) * v_pad + v);
+              }
+            }
+          }
+          if (s0 + sub < tile) __syncthreads();   // own is rewritten
+        }
+      });
 }
 
 }  // namespace
 
-// wl: (B, n_blocks) int32; na: (B,) int32; rows: (n_blocks * tile,)
-// int32; cs: (n_cs,) int32; frontier: (B, n_words) 32-bit words; vals,
-// out: (B, v_pad) 32-bit values (int32, or float32 bits when is_float);
-// pl: (B, v_pad) int32.  out must hold a copy of vals and pl P_UNSET;
-// both are updated in place by the two launches.
+// ulist: (n_blocks,) int32 union list; ucount: (1,) int32; rmask:
+// (n_blocks, n_mask_words) 32-bit root masks; rows: (n_blocks * tile,)
+// int32; cs: (n_cs,) int32; frontier: root-interleaved (n_words, B)
+// 32-bit words; vals, out: root-interleaved (v_pad, B) 32-bit values
+// (int32, or float32 bits when is_float); pl: (B, v_pad) int32.  out must hold a copy of vals and
+// pl P_UNSET; both are updated in place by the two launches.  Dynamic
+// shared memory: `sub` owner slots.  The grid is the CTAs the card
+// holds at once (at most max_grid), each striding over the union.
 extern "C" int repro_gather_relax(
-    const void* wl, const void* na, const void* rows, const void* cs,
-    const void* frontier, const void* vals, void* out, void* pl,
-    int n_batch, int n_blocks, int tile, int n_cs, int n_words, int v_pad,
-    int n_vertices, int unit, int weighted, int is_float, int grid_x,
-    void* stream) {
-  if (n_batch == 0 || n_blocks == 0 || grid_x <= 0) return 0;
-  dim3 grid(grid_x, n_batch);
-  for (int phase = 0; phase < 2; ++phase) {
-    auto kernel = is_float ? gather_relax_kernel<true>
-                           : gather_relax_kernel<false>;
-    kernel<<<grid, bfs::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(wl), static_cast<const int*>(na),
-        static_cast<const int*>(rows), static_cast<const int*>(cs),
-        static_cast<const unsigned*>(frontier),
-        static_cast<const int*>(vals), static_cast<int*>(out),
-        static_cast<int*>(pl), n_blocks, tile, n_cs, n_words, v_pad,
-        n_vertices, unit, weighted, phase);
-    const cudaError_t rc = cudaGetLastError();
+    const void* ulist, const void* ucount, const void* rmask,
+    const void* rows, const void* cs, const void* frontier,
+    const void* vals, void* out, void* pl, int n_batch, int n_mask_words,
+    int tile, int sub, int n_cs, int v_pad, int n_vertices, int unit,
+    int weighted, int is_float, int max_grid, void* stream) {
+  if (n_batch == 0 || max_grid <= 0) return 0;
+  const size_t smem = static_cast<size_t>(sub) * sizeof(int);
+  auto kernel = is_float ? gather_relax_kernel<true>
+                         : gather_relax_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  int grid = 0;
+  const cudaError_t rc = bfs::resident_grid(kernel, smem, max_grid, &grid);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  for (int phase = 0; phase < 2; ++phase) {
+    kernel<<<grid, bfs::kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ulist), static_cast<const int*>(ucount),
+        static_cast<const unsigned*>(rmask), static_cast<const int*>(rows),
+        static_cast<const int*>(cs), static_cast<const unsigned*>(frontier),
+        static_cast<const int*>(vals), static_cast<int*>(out),
+        static_cast<int*>(pl), n_mask_words, tile, sub, n_cs, v_pad,
+        n_vertices, unit, weighted, phase, n_batch);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }

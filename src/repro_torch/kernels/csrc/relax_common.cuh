@@ -1,6 +1,7 @@
 // Device code shared by the semiring relax kernels (K11, gather_relax.cu;
 // K12, sell_relax.cu): the synthetic edge weight, the candidate formula
-// and the two phases of one edge's relaxation.
+// and the two phases of one edge's relaxation (`relax_edge` for K12's
+// (B, v_pad) rows, `relax_at` for K11's layouts).
 //
 // Values travel as 32-bit patterns: int32 values as they are, float32
 // values as their bits.  Every value the portfolio produces is >= 0
@@ -64,6 +65,19 @@ __device__ __forceinline__ void relax_edge(int phase, int u, int v,
   } else {
     const int cur = __ldg(out + v);
     if (cand == cur && cur < __ldg(vals + v)) atomicMin(pl + v, u);
+  }
+}
+
+// relax_edge on pointers to v's entries (K11's strided layouts): the
+// same tests, loads and atomics.
+__device__ __forceinline__ void relax_at(int phase, int u, int cand,
+                                         const int* val_v, int* out_v,
+                                         int* pl_v) {
+  if (phase == 0) {
+    if (cand < __ldg(val_v)) atomicMin(out_v, cand);
+  } else {
+    const int cur = __ldg(out_v);
+    if (cand == cur && cur < __ldg(val_v)) atomicMin(pl_v, u);
   }
 }
 

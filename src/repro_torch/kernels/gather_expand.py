@@ -20,6 +20,17 @@ from device memory, at ``prefetch_depth > 0`` (K4) each CTA keeps that
 many blocks' rows in flight into a shared-memory ring.  K4 computes
 K3's function, so K3's plain version is K4's.
 
+**The union.**  The CUDA kernels (K3, K4 and K11) do not walk each
+root's list: `union_worklist` (plain torch, no host sync) turns the
+(B, n_blocks) lists into the blocks any root lists and a root mask per
+block, and one CTA serves every root of a block's mask, reading the
+block's rows and finding its owners once (`owners_by_scan_plain` is
+that owner scan's plain counterpart).  The wrappers hand the kernels
+the per-root state root-interleaved, (n_words, B) bitmaps and (v_pad,
+B) values, so that the B words of one vertex share a sector, and copy
+``out`` back to (B, ...); at B = 1 the two layouts are one.  The
+wrappers' arguments are the plain versions'.
+
 ``scalar=True`` (plain version only) tests the pre-layer ``visited``
 alone, as the whole-traversal kernel's scalar-mode layers do.
 
@@ -35,6 +46,8 @@ Replaces ``repro.kernels.gather_expand.gather_relax_batched``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.algorithms.semiring import candidate
@@ -43,8 +56,9 @@ from repro_torch.core.bitmap import WORD_MASK, WORD_SHIFT
 #: the per-layer parent scatter's "no edge won" value
 P_UNSET = 2**31 - 1
 CHUNK_EDGES = 1 << 24      # plain version: edges per vectorized pass
-CTAS_PER_SM = 4            # CUDA grid: CTAs per SM striding the lists
 SMEM_OPTIN_BYTES = 232_448  # H100: dynamic shared memory a CTA can opt into
+OWNER_SUB = 1024           # slots whose owners one scan puts in shared memory
+SMEM_RESERVE = 1024        # the kernels' static shared memory, rounded up
 
 
 def _owner_search(colstarts: torch.Tensor, e_idx: torch.Tensor,
@@ -64,6 +78,99 @@ def _owner_search(colstarts: torch.Tensor, e_idx: torch.Tensor,
         u = torch.where(ok, cand, u)
         step //= 2
     return u
+
+
+def owners_by_scan_plain(colstarts: torch.Tensor, blocks: torch.Tensor,
+                         tile: int) -> torch.Tensor:
+    """The owners of every slot of rows-blocks ``blocks`` ((k,) ids) as
+    (k, tile) int64, by the CUDA kernels' owner scan: the owners lo and
+    hi of each block's first and last slot; every u in (lo, hi] put at
+    slot ``colstarts[u] - e0`` by scatter-max (zero-degree vertices share
+    a colstarts value, and the owner is the largest); slot 0 takes lo;
+    a running max along the slots fills the rest.  Equals `_owner_search`
+    on every slot, the sentinel tail (owner V) included."""
+    n_cs = colstarts.shape[0]
+    dev = colstarts.device
+    k = int(blocks.shape[0])
+    e0 = blocks.to(torch.int64) * tile
+    lo = _owner_search(colstarts, e0, n_cs)
+    hi = _owner_search(colstarts, e0 + tile - 1, n_cs)
+    own = torch.full((k, tile), -1, dtype=torch.int64, device=dev)
+    own[:, 0] = lo
+    span = hi - lo
+    blk = torch.repeat_interleave(torch.arange(k, device=dev), span)
+    first = torch.cumsum(span, 0) - span
+    u = lo[blk] + 1 + torch.arange(int(span.sum()), device=dev) \
+        - first[blk]
+    slot = colstarts[u].to(torch.int64) - e0[blk]
+    own.view(-1).scatter_reduce_(0, blk * tile + slot, u, "amax")
+    return torch.cummax(own, dim=1).values
+
+
+@functools.lru_cache(maxsize=64)
+def _union_constants(n_batch: int, n_ids: int, device: torch.device):
+    """`union_worklist`'s inputs that depend only on the shapes: the ids
+    0..n_ids-1, each root's bit of its mask word (bit 31 is INT32_MIN)
+    and each root's word, made once per shape, not before every launch."""
+    ids = torch.arange(n_ids, dtype=torch.int32, device=device)
+    root = torch.arange(n_batch, device=device)
+    bit = (torch.ones((n_batch, 1), dtype=torch.int32, device=device)
+           << (root % 32).to(torch.int32)[:, None])
+    return ids, bit, root // 32
+
+
+def union_worklist(wl: torch.Tensor, na: torch.Tensor, n_blocks: int):
+    """(B, L) work-lists and (B,) counts -> (ulist (n_blocks,) int32, the
+    blocks any root lists in ascending order, then zeros; ucount (1,)
+    int32; rmask (n_blocks, ceil(B / 32)) int32, bit ``b % 32`` of word
+    ``b // 32`` set when root b lists the block).  Entries of ``wl[b]``
+    at or past ``na[b]`` (the clamped tail) set no bit.  Any B; no host
+    sync, no ``nonzero``; few and large torch ops, since on the card it
+    runs before every K3/K11 launch."""
+    n_batch, n_list = wl.shape
+    dev = wl.device
+    ids, bit, word = _union_constants(n_batch, max(n_list, n_blocks), dev)
+    live = ids[:n_list] < na[:, None]
+    # listed[b, blk] where root b lists blk; column n_blocks takes the
+    # tail entries
+    listed = torch.zeros((n_batch, n_blocks + 1), dtype=torch.bool,
+                         device=dev)
+    listed.scatter_(1, torch.where(live, wl, n_blocks).to(torch.int64),
+                    True)
+    listed = listed[:, :n_blocks]
+    # a word's bits are distinct, so their int32 sum is their OR
+    words = torch.zeros(((n_batch + 31) // 32, n_blocks), dtype=torch.int32,
+                        device=dev)
+    words.index_add_(0, word, listed * bit)
+    any_root = listed.any(0)
+    rank = torch.cumsum(any_root, 0)            # 1-based rank, int64
+    # listed blocks go to their rank, the others to a dump slot past the end
+    ulist = torch.zeros((n_blocks + 1,), dtype=torch.int32, device=dev)
+    ulist.scatter_(0, torch.where(any_root, rank - 1, n_blocks),
+                   ids[:n_blocks])
+    ucount = rank[-1:].to(torch.int32) if n_blocks else \
+        torch.zeros((1,), dtype=torch.int32, device=dev)
+    return ulist[:n_blocks], ucount, words.t().contiguous()
+
+
+def owner_sub(tile: int, depth: int) -> int:
+    """Slots per owner scan of the CUDA kernels: `OWNER_SUB` (or the
+    tile), fewer where a K4 ring leaves less room; refused below one
+    warp's worth."""
+    room = (SMEM_OPTIN_BYTES - stage_bytes(tile, depth) - SMEM_RESERVE) // 4
+    sub = min(tile, OWNER_SUB, room)
+    if sub < 32:
+        raise ValueError(
+            f"gather_expand: prefetch_depth={depth} at tile={tile} leaves "
+            f"{max(room, 0) * 4} bytes of shared memory per CTA for the "
+            f"owner scan; it needs 128")
+    return sub
+
+
+def _interleaved(t: torch.Tensor) -> torch.Tensor:
+    """(B, n) -> its root-interleaved (n, B) layout (a copy where B > 1;
+    at B = 1 the two layouts are one)."""
+    return t.t().contiguous() if t.shape[0] > 1 else t
 
 
 def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
@@ -118,8 +225,9 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
                        p, *, n_vertices: int, tile: int,
                        bottom_up: bool = False, prefetch_depth: int = 0):
     """Launch the CUDA kernel (K3, or K4 at ``prefetch_depth > 0``,
-    clamped to the block count as the reference clamps it); ``out``/``p``
-    are updated in place."""
+    clamped to the block count as the reference clamps it) over the
+    union of the lists, on root-interleaved bitmaps; ``out``/``p`` are
+    updated in place."""
     from repro_torch.kernels import _build
     n_batch, n_blocks = wl.shape
     n_words = visited.shape[1]
@@ -150,17 +258,20 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
             f"gather_expand: prefetch_depth={depth} at tile={tile} needs "
             f"{stage_bytes(tile, depth)} bytes of shared memory per CTA; "
             f"the card allows {SMEM_OPTIN_BYTES}")
-    sms = torch.cuda.get_device_properties(rows.device) \
-        .multi_processor_count
-    grid_x = max(1, min(n_blocks, CTAS_PER_SM * sms))
+    sub = owner_sub(tile, depth)
+    ulist, ucount, rmask = union_worklist(wl, na, n_blocks)
+    fr, vis, ob = (_interleaved(frontier), _interleaved(visited),
+                   _interleaved(out))
     lib = _build.load()
     _build.check(lib.repro_gather_expand(
-        wl.data_ptr(), na.data_ptr(), rows.data_ptr(),
-        colstarts.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
-        out.data_ptr(), p.data_ptr(), n_batch, n_blocks, int(tile),
-        colstarts.shape[0], n_words, v_pad, int(n_vertices),
-        int(bool(bottom_up)), depth, grid_x, _build.stream_of(rows)),
-        "gather_expand")
+        ulist.data_ptr(), ucount.data_ptr(), rmask.data_ptr(),
+        rows.data_ptr(), colstarts.data_ptr(), fr.data_ptr(),
+        vis.data_ptr(), ob.data_ptr(), p.data_ptr(), n_batch,
+        rmask.shape[1], int(tile), sub, colstarts.shape[0], v_pad,
+        int(n_vertices), int(bool(bottom_up)), depth, n_blocks,
+        _build.stream_of(rows)), "gather_expand")
+    if ob is not out:
+        out.copy_(ob.t())
     return out, p
 
 
@@ -258,8 +369,9 @@ def check_relax_args(kernel: str, device, vals, shapes: dict,
 def gather_relax_cuda(wl, na, rows, colstarts, frontier, vals, *,
                       n_vertices: int, tile: int, unit: int = 0,
                       weighted: bool = False):
-    """Launch K11 (two launches: phase 0, then phase 1) into a fresh
-    ``out_vals`` (a copy of ``vals``) and ``p_layer`` (`P_UNSET`)."""
+    """Launch K11 (two launches: phase 0, then phase 1) over the union of
+    the lists into a fresh ``out_vals`` (a copy of ``vals``) and
+    ``p_layer`` (`P_UNSET`), on root-interleaved values and frontier."""
     from repro_torch.kernels import _build
     n_batch, n_blocks = wl.shape
     n_words = frontier.shape[1]
@@ -271,18 +383,19 @@ def gather_relax_cuda(wl, na, rows, colstarts, frontier, vals, *,
         dict(na=(n_batch,), rows=(n_blocks * tile,),
              frontier=(n_batch, n_words), vals=(n_batch, 32 * n_words)),
         wl=wl, na=na, rows=rows, colstarts=colstarts, frontier=frontier)
-    out = vals.clone()
+    sub = owner_sub(tile, 0)
+    ulist, ucount, rmask = union_worklist(wl, na, n_blocks)
+    fr, vk = _interleaved(frontier), _interleaved(vals)
+    out = vk.clone()
     p = torch.full(vals.shape, P_UNSET, dtype=torch.int32,
                    device=vals.device)
-    sms = torch.cuda.get_device_properties(rows.device) \
-        .multi_processor_count
-    grid_x = max(1, min(n_blocks, CTAS_PER_SM * sms))
     lib = _build.load()
     _build.check(lib.repro_gather_relax(
-        wl.data_ptr(), na.data_ptr(), rows.data_ptr(),
-        colstarts.data_ptr(), frontier.data_ptr(), vals.data_ptr(),
-        out.data_ptr(), p.data_ptr(), n_batch, n_blocks, int(tile),
-        colstarts.shape[0], n_words, v_pad, int(n_vertices), int(unit),
-        int(bool(weighted)), int(vals.dtype == torch.float32), grid_x,
+        ulist.data_ptr(), ucount.data_ptr(), rmask.data_ptr(),
+        rows.data_ptr(), colstarts.data_ptr(), fr.data_ptr(),
+        vk.data_ptr(), out.data_ptr(), p.data_ptr(), n_batch,
+        rmask.shape[1], int(tile), sub, colstarts.shape[0], v_pad,
+        int(n_vertices), int(unit), int(bool(weighted)),
+        int(vals.dtype == torch.float32), n_blocks,
         _build.stream_of(rows)), "gather_relax")
-    return out, p
+    return (out.t().contiguous() if n_batch > 1 else out), p
