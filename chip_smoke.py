@@ -6,20 +6,26 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels vs plain versions on the card, at the main path's shapes,
-   with inputs captured from a real layer of the main path (restoration
-   and compaction must match exactly; gather-expand must give the same
-   repaired ``out``/``visited`` and marked set, and every mark must
-   name a frontier neighbour); each kernel's median time, its plain
-   version's, and its bound; K3 with the size of the union of the
-   layer's work-lists.  The same on that layer for K4 (the
+   with inputs captured from a real layer of the main path: the union
+   planner (not a TPU kernel) bitwise on every layer, as planned and
+   with a dense root, and timed beside the planning it replaced;
+   restoration and compaction (on the layer's planning bitmap; the
+   main path no longer runs K2) must match exactly; gather-expand, on
+   the planner's plan, must give the same repaired ``out``/``visited``
+   and marked set, and every mark must name a frontier neighbour; each
+   kernel's median time (the plan built outside the timed window), its
+   plain version's, and its bound.  The same on that layer for K4 (the
    prefetch ring, depths 1, 2, 4: K3's contract) and K5 (one layer in
    one launch: n_active, ``out`` and the marked set bitwise, exactly
-   one CUDA launch per call by the profiler), and for K2/K3 at B = 1
-   from a ``run(root)`` traversal;
+   one CUDA launch per call by the profiler), and for the planner, K2
+   and K3 at B = 1 from a ``run(root)`` traversal;
 4. main path: Graph500 R-MAT SCALE 22 / edgefactor 16 from ``--seed``,
    an all-auto plan (must resolve to BeamerHybrid + fused_gather), a
-   batch of 8 roots with degree > 0, timed; every tree validated and
-   its depths checked against an independent level-synchronous BFS;
+   batch of 8 roots with degree > 0, timed; one planner launch per
+   layer and no call of the planning it replaced; the same traversal
+   with that planning gives the same visited and frontier sets, depths,
+   stats columns 0-7 and direction log; every tree validated and its
+   depths checked against an independent level-synchronous BFS;
 5. the fusion paths at the same size — ``fused_gather`` at
    ``prefetch_depth=2`` (K4), ``megakernel`` at depth 0 and 2 (K5) and
    ``persistent`` (K6): each timed over 3 runs, trees valid, visited,
@@ -41,9 +47,10 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    captured SELL layer, K10 on the batch's initial state;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
-6b. at SCALE 16 with 33 roots (two words of K3's and K11's root
-   masks): K3 (and K4 at each depth) and K11 (int32 and float32 layers)
-   against their plain versions on their contracts;
+6b. at SCALE 16 with 33 roots (two root-mask words): the planner
+   (both arms, every layer, with a dense root), K3 (and K4 at each
+   depth), K11 and K12 (int32 and float32 layers) against their plain
+   versions on their contracts;
 7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
    layout built on the card equals the CPU build bitwise): visited,
    depths, the stats buffer and the direction log must be identical on
@@ -58,10 +65,12 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    (8 roots, max_layers 512) ends with an empty frontier and passes
    the optimality certificate on every edge; cc (one root) equals
    scipy's min-id components; CSR and SELL agree bitwise (values,
-   parents, layers, stats columns 0-4); each timed over 3 runs; K11
-   and K12 against their plain versions on the largest ksource_bfs
-   (int32) and sssp (float32) layers, bitwise, beside one
-   ``scatter_reduce_(amin)`` fold of the layer (phase 0 only);
+   parents, layers, stats columns 0-4); each timed over 3 runs, with
+   one planner launch per layer and no plain planning; K11 and K12
+   against their plain versions on the largest ksource_bfs (int32) and
+   sssp (float32) layers, bitwise, at 8 roots and for the first root
+   alone, beside one ``scatter_reduce_(amin)`` fold of the layer
+   (phase 0 only); the planner's SELL arm timed on the ksource layer;
 10. (run after 9) the materialized pipeline at the main path's size,
    all-auto policy, on CSR (K2 + apportioned stream + K7 + K1) and
    SELL (K8 over every slab group + K1): timed over 3 runs with the
@@ -77,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -105,6 +115,8 @@ REPLACES = {
     "frontier_expand_batched": "src/repro/kernels/frontier_expand.py:207",
     "gather_relax_batched": "src/repro/kernels/gather_expand.py:493",
     "sell_relax_batched": "src/repro/kernels/sell_expand.py:766",
+    "plan_union": "not a TPU kernel: the planning around the kernels "
+                  "(src/repro/core/engine.py:447 plan_active_tiles_batched)",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -122,7 +134,16 @@ SOURCES = {
     "frontier_expand_batched": CSRC + "frontier_expand.cu",
     "gather_relax_batched": CSRC + "gather_relax.cu",
     "sell_relax_batched": CSRC + "sell_relax.cu",
+    "plan_union": CSRC + "plan_union.cu",
 }
+#: how the work-listed kernels are timed
+KERNEL_ONLY = "kernel alone; its plan is built outside the timed window"
+#: the plain planning functions the union planner replaced: the main
+#: path and the portfolio must call none of them
+PLAIN_PLANNING = (("repro_torch.core.engine", "plan_active_tiles_batched"),
+                  ("repro_torch.core.engine", "mark_blocks_from_queue"),
+                  ("repro_torch.kernels.gather_expand", "union_worklist"),
+                  ("repro_torch.kernels.sell_expand", "plan_slabs_plain"))
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -146,8 +167,10 @@ SELL_PATHS = {
 }
 PREFETCH_DEPTHS = (1, 2, 4)
 #: the build-log entries printed whole (every ptxas line, kernel names
-#: included): the two kernels that walk the union of the lists
-UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu")
+#: included): the kernels that walk the union of the lists, and the
+#: planner that builds it
+UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
+                 "== sell_relax.cu", "== plan_union.cu")
 WIDE_BATCH = 33               # two root-mask words
 SELL_DEPTHS = (0, 1, 2, 4)
 
@@ -200,8 +223,9 @@ def level_bfs_depths(src, dst, n_vertices: int, root: int):
 
 def listed(args) -> int:
     """A work-listed call's key: the blocks or slab groups its roots
-    list."""
-    return int(args["n_active"].sum())
+    list (from its plan, or K8's per-root counts)."""
+    plan = args.get("plan")
+    return int((plan.na if plan is not None else args["n_active"]).sum())
 
 
 class Spy:
@@ -240,9 +264,17 @@ class Spy:
         params = sig.parameters
         key_of = self.keys[name]
 
+        def copy(k, v):
+            if k in self.SHARED:
+                return v
+            if torch.is_tensor(v):
+                return v.clone()
+            if isinstance(v, tuple) and v and all(map(torch.is_tensor, v)):
+                return type(v)(*(x.clone() for x in v))    # a plan
+            return v
+
         def record(bound):
-            call = {k: v.clone() if torch.is_tensor(v) and k not in
-                    self.SHARED else v for k, v in bound.arguments.items()}
+            call = {k: copy(k, v) for k, v in bound.arguments.items()}
             call["args"] = tuple(call[k] for k, p in params.items()
                                  if p.kind is p.POSITIONAL_OR_KEYWORD)
             call["kw"] = {k: call[k] for k, p in params.items()
@@ -250,7 +282,8 @@ class Spy:
                           and k != "prefetch_depth"}
             return call
 
-        def wrapped(*args, **kw):
+        @functools.wraps(orig)      # a Spy inside another sees orig's
+        def wrapped(*args, **kw):  # signature
             bound = sig.bind(*args, **kw)
             bound.apply_defaults()
             call = None
@@ -271,6 +304,33 @@ class Spy:
         return wrapped
 
 
+class CallCount:
+    """Counts the calls of module-level functions ((module name, function
+    name) pairs) while the block runs; the functions are wrapped, not changed.
+    ``counts[name]`` is each one's count."""
+
+    def __init__(self, targets):
+        self.targets = tuple(targets)
+        self.counts = {name: 0 for _, name in self.targets}
+
+    def __enter__(self):
+        import importlib
+        self._orig = [(importlib.import_module(m), n) for m, n in
+                      self.targets]
+        self._orig = [(m, n, getattr(m, n)) for m, n in self._orig]
+        for module, name, orig in self._orig:
+            def wrapped(*a, _orig=orig, _name=name, **kw):
+                self.counts[_name] += 1
+                return _orig(*a, **kw)
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in self._orig:
+            setattr(module, name, orig)
+        return False
+
+
 def layer_spy(ops, name: str) -> Spy:
     """A `Spy` of a one-launch layer wrapper (K5 or K9) whose ``calls``
     are each layer's (graph, frontier, visited, bottom_up,
@@ -283,17 +343,14 @@ def layer_spy(ops, name: str) -> Spy:
 
 def k3_bytes(cap, n_marked: int) -> int:
     """Bytes K3 must move for the captured layer, each input read once:
-    rows of the union of active blocks, the colstarts entries their
-    owners span, wl/na, frontier + visited + out read, out written, and
-    one P word per marked vertex."""
+    rows of the plan's union of blocks, the colstarts entries their
+    owners span, the union list, count and root masks, frontier +
+    visited + out read, out written, and one P word per marked vertex."""
     import torch
     tile = cap["kw"]["tile"]
-    wl, na = cap["worklist"], cap["n_active"]
-    n_batch, n_blocks = wl.shape
-    used = torch.zeros((n_blocks,), dtype=torch.bool, device=wl.device)
-    for b in range(n_batch):
-        used[wl[b, :int(na[b])].long()] = True
-    blocks = torch.nonzero(used).flatten()
+    plan = cap["plan"]
+    n_union = int(plan.ucount)
+    blocks = plan.ulist[:n_union].long()
     cs = cap["colstarts"]
     first = torch.searchsorted(cs, (blocks * tile).to(cs.dtype),
                                right=True) - 1
@@ -301,9 +358,9 @@ def k3_bytes(cap, n_marked: int) -> int:
                               right=True) - 1
     cs_entries = int((last - first + 2).sum())
     words = cap["frontier"].numel()
-    return (4 * tile * int(blocks.numel()) + 4 * cs_entries
-            + 4 * (n_batch + int(na.sum())) + 4 * 4 * words
-            + 4 * n_marked)
+    return (4 * tile * n_union + 4 * cs_entries
+            + 4 * (1 + n_union * (1 + int(plan.rmask.shape[1])))
+            + 4 * 4 * words + 4 * n_marked)
 
 
 def fused_layer_bytes(fg, frontier, visited, bottom_up: bool,
@@ -403,8 +460,12 @@ def check_marks(cap, p_racy, frontier_b):
 
 def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
                   label: str = ""):
-    """Phase 3: each kernel against its plain version on the card.  The
-    plain K3's output stays in ``cap["plain_k3"]`` for phase 3b."""
+    """Phase 3: each kernel against its plain version on the card, on
+    the captured layer: K2 on its planning bitmap (the main path no
+    longer runs K2; the materialized path does), the union planner, K3
+    on the planner's plan (the plan built outside the timed window) and
+    K1.  The plain K3's output stays in ``cap["plain_k3"]`` for phase
+    3b."""
     import torch
     from repro_torch.kernels import compact as ck
     from repro_torch.kernels import gather_expand as ge
@@ -412,10 +473,13 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
     results = {}
     kw = cap["kw"]
     n_batch, n_words = cap["frontier"].shape
+    plan_call = cap["before"]["plan_union"]
 
     # K2 on the captured planning bitmap
-    plan = cap["before"]["frontier_compact_batched"]
-    words, size, fill = plan["words"], plan["kw"]["size"], plan["kw"]["fill"]
+    words = plan_call["words"]
+    if plan_call["kw"]["complement"]:
+        words = ~words
+    size, fill = v_pad, n_vertices
     q_k, c_k = ck.compact_cuda(words, size, fill)
     q_p, c_p = ck.compact_plain(words, size, fill)
     err = max(int((q_k - q_p).abs().max()), int((c_k - c_p).abs().max()))
@@ -427,11 +491,14 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
         plain_ms=cuda_ms(lambda: ck.compact_plain(words, size, fill),
                          max(3, reps // 4)))
 
+    # the union planner on the same layer
+    results["plan_union"] = plan_row(plan_call, reps)
+
     # K3 on the captured layer; K1 on its racy output
     def k3(fn):
         out, p = cap["out_init"].clone(), cap["p_init"].clone()
-        fn(cap["worklist"], cap["n_active"], cap["rows"], cap["colstarts"],
-           cap["frontier"], cap["visited"], out, p, **kw)
+        fn(cap["plan"], cap["rows"], cap["colstarts"], cap["frontier"],
+           cap["visited"], out, p, **kw)
         return out, p
 
     out_p, p_p = k3(ge.gather_expand_plain)
@@ -447,18 +514,15 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
         p_buf.copy_(cap["p_init"])
 
     def run_k3(fn):
-        return lambda: fn(cap["worklist"], cap["n_active"], cap["rows"],
-                          cap["colstarts"], cap["frontier"],
-                          cap["visited"], out_buf, p_buf, **kw)
+        return lambda: fn(cap["plan"], cap["rows"], cap["colstarts"],
+                          cap["frontier"], cap["visited"], out_buf, p_buf,
+                          **kw)
 
-    n_blocks = int(cap["worklist"].shape[1])
     results["gather_expand_batched"] = dict(
         max_abs_err=k3_err, bytes=k3_bytes(cap, n_marked),
-        active_tiles=cap["key"], union_blocks=union_blocks(cap),
-        marked=n_marked, bottom_up=kw["bottom_up"],
+        active_tiles=cap["key"], union_blocks=int(cap["plan"].ucount),
+        marked=n_marked, bottom_up=kw["bottom_up"], timing=KERNEL_ONLY,
         ms=cuda_ms(run_k3(ge.gather_expand_cuda), reps, setup=reset),
-        union_ms=cuda_ms(lambda: ge.union_worklist(
-            cap["worklist"], cap["n_active"], n_blocks), reps),
         plain_ms=cuda_ms(run_k3(ge.gather_expand_plain),
                          max(3, reps // 4), setup=reset))
 
@@ -475,25 +539,163 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
         plain_ms=cuda_ms(lambda: rest.restoration_plain(p_k, n_vertices),
                          max(3, reps // 4)))
     for name, r in results.items():
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        log(json.dumps({"kernel": name + label, "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bytes": r["bytes"],
-                        "bound_ms": r["bound_ms"],
-                        "max_abs_err": r["max_abs_err"], **{
-                            k: r[k] for k in ("active_tiles",
-                                              "union_blocks", "union_ms")
-                                  if k in r}}))
-    log(f"K3 layer{label}: {cap['key']} active tiles, "
+        r.setdefault("bound_ms", r["bytes"] / HBM_BYTES_PER_S * 1e3)
+        log_row(name + label, r)
+    log(f"K3 layer{label}: {cap['key']} listed (root, block) pairs, "
         f"{results['gather_expand_batched']['union_blocks']} union blocks, "
         f"{n_marked} marked, bottom_up={kw['bottom_up']}")
     return results
 
 
-def union_blocks(cap) -> int:
-    """The captured K3/K4/K11 call's union size (``ucount``)."""
+def log_row(name: str, r: dict, **extra) -> None:
+    """One kernel's JSON line: its numbers and the facts beside them."""
+    log(json.dumps({"kernel": name, **extra, **{
+        k: r[k] for k in ("ms", "plain_ms", "replaced_ms", "bytes",
+                          "bound_ms", "max_abs_err", "active_tiles",
+                          "union_blocks", "timing") if k in r}}))
+
+
+def plan_bytes(graph, words, plan) -> int:
+    """Bytes the union planner must move on one layer, each input read
+    once: the planning words of every root; CSR: blk_lo, blk_hi and the
+    degree words; SELL: every slab's row ids; the root masks, the list,
+    its count and the per-root counts written."""
+    from repro_torch.kernels import sell_expand as se
+    n_items = int(plan.ulist.shape[0])
+    if isinstance(graph, se.SellGraph):
+        graph_bytes = 4 * int(graph.slab_rows.numel())
+    else:
+        graph_bytes = 8 * n_items + 4 * int(graph.nz.numel())
+    return (4 * words.numel() + graph_bytes + 4 * plan.rmask.numel()
+            + 4 * n_items + 4 + 4 * plan.na.numel())
+
+
+def replaced_planning(graph, words, complement: bool, dense):
+    """What the union planner replaced on a layer, as the port ran it
+    before the planner: CSR: K2 compacts the planning bitmap, plain
+    torch marks the blocks and folds the lists (`union_worklist`); SELL:
+    plain-torch slab membership (`plan_slabs_plain`) and the fold.
+    Returns the same `UnionPlan`."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import compact as ck
     from repro_torch.kernels import gather_expand as ge
-    wl = cap["worklist"]
-    return int(ge.union_worklist(wl, cap["n_active"], int(wl.shape[1]))[1])
+    from repro_torch.kernels import sell_expand as se
+    active = ~words if complement else words
+    if isinstance(graph, se.SellGraph):
+        wl, na = se.plan_slabs_plain(graph, active)
+        n = graph.n_steps
+    else:
+        n = graph.n_blocks
+        queue, _ = ck.compact_cuda(active, active.shape[1] * 32,
+                                   graph.n_vertices)
+        wl, na = engine.mark_blocks_from_queue(
+            graph.colstarts, queue, graph.n_vertices, graph.tile, n)
+    if dense is not None:
+        full = torch.arange(n, dtype=torch.int32, device=wl.device)
+        wl = torch.where(dense[:, None], full[None], wl)
+        na = torch.where(dense, n, na)
+    return ge.UnionPlan.of_lists(wl, na, n)
+
+
+def plan_row(call, reps: int) -> dict:
+    """The union planner on a captured call (graph, words, complement,
+    dense): bitwise against its plain version, its time, the plain
+    version's, and the time of what it replaced on that layer."""
+    from repro_torch.kernels import plan as pl
+    graph, words = call["graph"], call["words"]
+    kw = dict(complement=call["kw"]["complement"], dense=call["kw"]["dense"])
+    err = plan_gate(graph, words, **kw)
+    plan = pl.plan_union_cuda(graph, words, **kw)
+    r = dict(max_abs_err=err, bytes=plan_bytes(graph, words, plan),
+             union_blocks=int(plan.ucount), timing=KERNEL_ONLY,
+             ms=cuda_ms(lambda: pl.plan_union_cuda(graph, words, **kw),
+                        reps),
+             plain_ms=cuda_ms(lambda: pl.plan_union_plain(graph, words,
+                                                          **kw),
+                              max(3, reps // 4)),
+             replaced_ms=cuda_ms(lambda: replaced_planning(
+                 graph, words, kw["complement"], kw["dense"]),
+                 max(3, reps // 4)))
+    r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    return r
+
+
+def same_as_parent_planning(ct, roots, res) -> None:
+    """The main path once more with the planning it had before the union
+    planner (`replaced_planning`, charged one launch as K2 was): its
+    visited and frontier sets, depths, stats columns 0-7 and direction
+    log must equal ``res``'s bitwise."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch.kernels import ops
+
+    def parent_plan(graph, words, *, complement=False, dense=None):
+        ops._charge_launch()
+        return replaced_planning(graph, words, complement, dense)
+
+    planner = ops.plan_union
+    ops.plan_union = parent_plan
+    try:
+        old = ct.run_batched(roots)
+    finally:
+        ops.plan_union = planner
+    for what, a, b in (("visited", old.state.visited, res.state.visited),
+                       ("frontier", old.state.frontier, res.state.frontier),
+                       ("depths", old.depths, res.depths),
+                       ("stats columns 0-7", old.stats, res.stats)):
+        assert torch.equal(a, b), \
+            f"main path: {what} differ from the parent's planning"
+    assert bfs.direction_log(old) == bfs.direction_log(res)
+    log("main path with the parent's planning (K2 + block marking + "
+        "union_worklist): visited, frontier, depths, stats columns 0-7 and "
+        "direction log bitwise equal")
+
+
+def plan_gate(graph, words, complement: bool = False, dense=None) -> int:
+    """The union planner against its plain version, bitwise: list, count,
+    root masks and per-root counts.  Returns the count of disagreeing
+    entries (0; any other count fails)."""
+    from repro_torch.kernels import plan as pl
+    got = pl.plan_union_cuda(graph, words, complement=complement,
+                             dense=dense)
+    want = pl.plan_union_plain(graph, words, complement=complement,
+                               dense=dense)
+    err = 0
+    for name, a, b in zip(type(got)._fields, got, want):
+        assert a.shape == b.shape, f"plan_union: {name} shape"
+        err += int((a != b).sum())
+    assert err == 0, f"plan_union disagrees with its plain version in " \
+                     f"{err} entries"
+    return err
+
+
+def plan_gates(layers, graphs: dict, label: str = "") -> None:
+    """`plan_gate` on every captured layer (graph, words, complement) for
+    each arm in ``graphs`` ({arm: graph}, None for the layer's own
+    graph), as planned and with the batch's middle root dense."""
+    import torch
+    n = 0
+    for graph, words, complement in layers:
+        dense = torch.zeros((words.shape[0],), dtype=torch.bool,
+                            device=words.device)
+        dense[words.shape[0] // 2] = True
+        for g in graphs.values():
+            for d in (None, dense):
+                plan_gate(graph if g is None else g, words, complement, d)
+                n += 1
+    dirs = sorted({"bottomup" if c else "topdown" for _, _, c in layers})
+    log(f"plan_union gate{label}: {len(layers)} layers ({', '.join(dirs)}),"
+        f" {layers[0][1].shape[0]} roots, arms {sorted(graphs)}: bitwise "
+        f"equal to plan_union_plain as planned and with a dense root "
+        f"({n} checks)")
+
+
+def plan_layers_spy(ops) -> Spy:
+    """A `Spy` whose ``calls`` are every planner call's (graph, words,
+    complement)."""
+    return Spy(ops, {"plan_union": None}, each=lambda c, _: (
+        c["graph"], c["words"], c["kw"]["complement"]))
 
 
 def k3_contract(cap, out_k, p_k) -> int:
@@ -534,9 +736,8 @@ def phase_prefetch(cap, reps: int, k3: dict, label: str = ""):
     for depth in PREFETCH_DEPTHS:
         reset()
         run = lambda: ge.gather_expand_cuda(
-            cap["worklist"], cap["n_active"], cap["rows"], cap["colstarts"],
-            cap["frontier"], cap["visited"], out_buf, p_buf,
-            prefetch_depth=depth, **kw)
+            cap["plan"], cap["rows"], cap["colstarts"], cap["frontier"],
+            cap["visited"], out_buf, p_buf, prefetch_depth=depth, **kw)
         run()
         torch.cuda.synchronize()
         err = k3_contract(cap, out_buf, p_buf)
@@ -547,7 +748,8 @@ def phase_prefetch(cap, reps: int, k3: dict, label: str = ""):
                         "union_blocks": k3["union_blocks"]}))
     return dict(max_abs_err=0, ms=per_depth[2], plain_ms=k3["plain_ms"],
                 bytes=k3["bytes"], bound_ms=k3["bound_ms"],
-                per_depth=per_depth, union_blocks=k3["union_blocks"])
+                per_depth=per_depth, union_blocks=k3["union_blocks"],
+                timing=KERNEL_ONLY)
 
 
 def phase_layer_fused(cap, v_pad: int, reps: int):
@@ -569,7 +771,7 @@ def phase_layer_fused(cap, v_pad: int, reps: int):
                                             bottom_up=bu)
     torch.cuda.synchronize()
     marked_k, marked_p = p_k != cap["p_init"], p_p != cap["p_init"]
-    err = max(int((na_k != na_p).sum()), int((na_k != cap["n_active"]).sum()),
+    err = max(int((na_k != na_p).sum()), int((na_k != cap["plan"].na).sum()),
               int((out_k != out_p).sum()), int((marked_k != marked_p).sum()),
               int(((cap["visited"] | out_k)
                    != (cap["visited"] | out_p)).sum()))
@@ -820,10 +1022,13 @@ def phase_sell_traversal_kernel(ct, roots, layers, reps: int):
     return res
 
 
-def phase_sell(g, roots, base, oracle, edges: int, reps: int):
+def phase_sell(g, roots, base, oracle, edges: int, reps: int,
+               plan_layers):
     """Phase 5b: the SELL-C-σ layout of the main path's graph, built on
-    the card by the autotuner's choice, on its four paths and kernels.
-    Returns ({kernel: results}, {kernel: launches})."""
+    the card by the autotuner's choice, on its four paths and kernels;
+    the union planner's SELL arm on the main path's planning bitmaps
+    (``plan_layers``).  Returns ({kernel: results}, {kernel:
+    launches})."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import formats
@@ -845,6 +1050,8 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int):
         f"{fmt.fill_ratio:.6f}, {fmt.footprint().summary()}; built on the "
         f"card in {build_s:.6f} s, peak device memory during the build "
         f"{peak / 2**30:.3f} GiB")
+    plan_gates(plan_layers, {"sell": fmt.sell_graph(
+        bfs.plan(fmt, bfs.TraversalSpec()).resolved.tile)}, "_sell")
     kres, launches = {}, {}
     for name, (fields, kernels, per_layer) in SELL_PATHS.items():
         ct, launched, _ = run_path(fmt, g, roots, name, fields, kernels,
@@ -886,30 +1093,27 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int):
 def relax_bytes(name, args) -> int:
     """Bytes K11 or K12 must move for a captured layer, each input read
     once: the rows (CSR: with the colstarts entries their owners span)
-    or cols and slab_rows (SELL) of the union of listed blocks or
-    groups, the lists, the frontier words, ``vals`` read and
-    ``out_vals`` and ``p_layer`` written."""
+    or cols and slab_rows (SELL) of the plan's union of blocks or
+    groups, the union list, count and root masks, the frontier words,
+    ``vals`` read and ``out_vals`` and ``p_layer`` written."""
     import torch
     from repro_torch.kernels.sell_expand import SLAB_INTS
     if name == "gather_relax_batched":
-        wl, na, rows, cs, frontier, vals = args
-        tile = int(rows.shape[0]) // int(wl.shape[1])
-        used = torch.zeros((wl.shape[1],), dtype=torch.bool,
-                           device=wl.device)
-        for b in range(wl.shape[0]):
-            used[wl[b, :int(na[b])].long()] = True
-        blocks = torch.nonzero(used).flatten()
+        plan, rows, cs, frontier, vals = args
+        tile = int(rows.shape[0]) // int(plan.ulist.shape[0])
+        n_union = int(plan.ucount)
+        blocks = plan.ulist[:n_union].long()
         first = torch.searchsorted(cs, (blocks * tile).to(cs.dtype),
                                    right=True) - 1
         last = torch.searchsorted(
             cs, (blocks * tile + tile - 1).to(cs.dtype), right=True) - 1
-        graph_bytes = 4 * tile * int(blocks.numel()) \
+        graph_bytes = 4 * tile * n_union \
             + 4 * int((last - first + 2).sum())
     else:
-        graph, wl, na, frontier, vals = args
-        graph_bytes = 4 * graph.spp * SLAB_INTS * sell_groups(graph, wl,
-                                                              na)
-    return (graph_bytes + 4 * (int(wl.shape[0]) + int(na.sum()))
+        graph, plan, frontier, vals = args
+        n_union = int(plan.ucount)
+        graph_bytes = 4 * graph.spp * SLAB_INTS * n_union
+    return (graph_bytes + 4 * (1 + n_union * (1 + int(plan.rmask.shape[1])))
             + 4 * frontier.numel() + 3 * 4 * vals.numel())
 
 
@@ -922,14 +1126,14 @@ def relax_fold_inputs(name, args, kw):
     from repro_torch.kernels import sell_expand as se
     unit, weighted = kw["unit"], kw["weighted"]
     if name == "gather_relax_batched":
-        wl, na, rows, cs, frontier, vals = args
+        plan, rows, cs, frontier, vals = args
         n = kw["n_vertices"]
-        edges = lambda b: ge.worklist_edges(wl[b, :int(na[b])], rows, cs,
+        edges = lambda b: ge.worklist_edges(plan.items_of(b), rows, cs,
                                             kw["tile"])
     else:
-        graph, wl, na, frontier, vals = args
+        graph, plan, frontier, vals = args
         n = graph.n_vertices
-        edges = lambda b: se.slab_edges(graph, wl[b, :int(na[b])])
+        edges = lambda b: se.slab_edges(graph, plan.items_of(b))
     v_pad = vals.shape[1]
     idx, cand = [], []
     for b in range(vals.shape[0]):
@@ -953,22 +1157,61 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def relax_arms() -> dict:
+    """{relax wrapper: (its CUDA arm, its plain version)}."""
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels import sell_expand as se
+    return {"gather_relax_batched": (ge.gather_relax_cuda,
+                                     ge.gather_relax_plain),
+            "sell_relax_batched": (se.sell_relax_cuda, se.sell_relax_plain)}
+
+
+def relax_gate(name, args, kw) -> int:
+    """K11 or K12 against its plain version on one call's arguments:
+    ``out_vals`` and ``p_layer`` bitwise, no negative value.  Returns
+    the count of disagreeing entries (0)."""
+    import torch
+    cuda_fn, plain_fn = relax_arms()[name]
+    got = cuda_fn(*args, **kw)
+    want = plain_fn(*args, **kw)
+    err = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum()) \
+        + int((got[1] != want[1]).sum())
+    assert err == 0, f"{name} disagrees with its plain version in {err} " \
+                     f"entries"
+    assert bool((got[0] >= 0).all()), f"{name}: negative value"
+    return err
+
+
+def first_root(name, args):
+    """A captured relax call's arguments for its first root alone (B = 1),
+    with that root's plan."""
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels.layer_fused import compact_worklist
+    at = 0 if name == "gather_relax_batched" else 1
+    plan = args[at]
+    n_items = int(plan.ulist.shape[0])
+    wl, na = compact_worklist(plan.listed()[:1], n_items)
+    one = list(args)
+    one[at] = ge.UnionPlan.of_lists(wl, na, n_items)
+    one[-2] = args[-2][:1].contiguous()          # frontier
+    one[-1] = args[-1][:1].contiguous()          # vals
+    return tuple(one)
+
+
 def phase_relax_kernels(cap, reps: int, label: str = "",
                         fold: bool = True):
     """K11 and K12 on the largest captured layer of each algorithm
     (``cap``: {algorithm: its `Spy`}), against their plain versions:
-    ``out_vals`` and ``p_layer`` bitwise.  Returns {algorithm: {kernel:
-    results}}; with ``fold`` each result also holds, as
-    ``phase0_fold_ms``, the time of one ``scatter_reduce_(amin)`` fold
-    of the layer's candidates, computed beforehand: phase 0 only, since
-    no one PyTorch call computes the whole function (so the kernel's
-    ``library_ms`` stays null)."""
+    ``out_vals`` and ``p_layer`` bitwise, at the layer's batch and for
+    its first root alone (B = 1).  Each is timed on the layer's plan,
+    built outside the window.  Returns {algorithm: {kernel: results}};
+    with ``fold`` each result also holds, as ``phase0_fold_ms``, the
+    time of one ``scatter_reduce_(amin)`` fold of the layer's
+    candidates, computed beforehand: phase 0 only, since no one PyTorch
+    call computes the whole function (so the kernel's ``library_ms``
+    stays null)."""
     import torch
-    from repro_torch.kernels import gather_expand as ge
-    from repro_torch.kernels import sell_expand as se
-    arms = {"gather_relax_batched": (ge.gather_relax_cuda,
-                                     ge.gather_relax_plain),
-            "sell_relax_batched": (se.sell_relax_cuda, se.sell_relax_plain)}
+    arms = relax_arms()
     out = {}
     for alg, spy in cap.items():
         out[alg] = {}
@@ -984,12 +1227,14 @@ def phase_relax_kernels(cap, reps: int, label: str = "",
             assert err == 0, f"{name} ({alg}) disagrees with its plain " \
                              f"version in {err} entries"
             assert bool((got[0] >= 0).all()), f"{name}: negative value"
-            r = dict(max_abs_err=err, items=items, bytes=relax_bytes(
-                name, args), improved=int((got[0] != vals).sum()),
-                ms=cuda_ms(lambda: cuda_fn(*args, **kw), reps),
-                plain_ms=plain_ms, dtype=str(vals.dtype).split(".")[-1])
-            if name == "gather_relax_batched":
-                r["union_blocks"] = union_blocks(call)
+            err_b1 = relax_gate(name, first_root(name, args), kw)
+            plan = args[0] if name == "gather_relax_batched" else args[1]
+            r = dict(max_abs_err=max(err, err_b1), items=items,
+                     bytes=relax_bytes(name, args),
+                     improved=int((got[0] != vals).sum()),
+                     ms=cuda_ms(lambda: cuda_fn(*args, **kw), reps),
+                     plain_ms=plain_ms, dtype=str(vals.dtype).split(".")[-1],
+                     union_blocks=int(plan.ucount), timing=KERNEL_ONLY)
             if fold:
                 idx, cand = relax_fold_inputs(name, args, kw)
                 flat = vals.reshape(-1).clone()
@@ -1007,7 +1252,8 @@ def phase_relax_kernels(cap, reps: int, label: str = "",
                 k: r[k] for k in ("ms", "plain_ms", "phase0_fold_ms",
                                   "bytes", "bound_ms", "max_abs_err",
                                   "items", "union_blocks",
-                                  "improved", "dtype") if k in r},
+                                  "improved", "dtype", "timing") if k in r},
+                "roots": int(vals.shape[0]), "b1_equal": err_b1 == 0,
                 **({"phase0_fold": "scatter_reduce_(amin) of the "
                                    "candidates, phase 0 only"}
                    if fold else {})}))
@@ -1016,35 +1262,45 @@ def phase_relax_kernels(cap, reps: int, label: str = "",
     return out
 
 
-def phase_wide_batch(g, seed: int, reps: int) -> None:
+def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     """Phase 6b: a batch of `WIDE_BATCH` roots (two root-mask words) on
-    ``g``: K2, K3 (and K4 at each depth) and K1 on the largest layer of
-    its main-path traversal, and K11 on the largest ksource_bfs (int32)
-    and sssp (float32) layers, against their plain versions with the
-    phase-3 and phase-9 contracts."""
+    ``g`` and its SELL layout ``sell``: the union planner (both arms, on
+    every layer of the main-path traversal, as planned and with a dense
+    root), K2, K3 (and K4 at each depth) and K1 on the largest layer,
+    and K11 and K12 on the largest ksource_bfs (int32) and sssp
+    (float32) layers, against their plain versions with the phase-3 and
+    phase-9 contracts."""
     import repro_torch.bfs as bfs
     from repro_torch.kernels import ops
     roots = pick_roots(g, WIDE_BATCH, seed + 3)
     assert len(roots) == WIDE_BATCH
     label = f"_b{WIDE_BATCH}"
-    with Spy(ops, {"frontier_compact_batched": None,
-                   "gather_expand_batched": listed}) as spy:
-        bfs.plan(g, bfs.TraversalSpec()).run_batched(roots)
+    ct = bfs.plan(g, bfs.TraversalSpec())
+    sell_graph = sell.sell_graph(bfs.plan(sell, bfs.TraversalSpec())
+                                 .resolved.tile)
+    with plan_layers_spy(ops) as layers, \
+            Spy(ops, {"plan_union": None,
+                      "gather_expand_batched": listed}) as spy:
+        ct.run_batched(roots)
+    plan_gates(layers.calls, {"csr": None, "sell": sell_graph}, label)
     cap = spy.best["gather_expand_batched"]
     k3 = phase_kernels(cap, g.n_vertices, g.n_vertices_padded, reps,
                        label=label)
     phase_prefetch(cap, reps, k3["gather_expand_batched"], label=label)
-    del cap, spy
+    del cap, spy, layers
     relax = {}
     for alg, fields in (("ksource_bfs", {}),
                         ("sssp", dict(max_layers=512))):
-        relax[alg] = Spy(ops, {"gather_relax_batched": listed})
+        relax[alg] = Spy(ops, {"gather_relax_batched": listed,
+                               "sell_relax_batched": listed})
         with relax[alg]:
-            bfs.plan(g, bfs.TraversalSpec(algorithm=alg, **fields)) \
-                .run_batched(roots)
+            for fmt in (g, sell):
+                bfs.plan(fmt, bfs.TraversalSpec(algorithm=alg, **fields)) \
+                    .run_batched(roots)
     phase_relax_kernels(relax, reps, label=label, fold=False)
     log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
-        f"V={g.n_vertices}: K3, K4 and K11 equal their plain versions")
+        f"V={g.n_vertices}: the planner, K3, K4, K11 and K12 equal their "
+        f"plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1129,9 +1385,10 @@ def phase_portfolio(g, roots, oracle, reps: int):
                                          dict(max_layers=512)),
             ("cc", roots[:1], dict(max_layers=512))):
         # the kernels are compared on the int32 and float32 layers
-        capture = (cap.setdefault(alg, Spy(ops, dict.fromkeys(
-            kernel_of.values(), listed))) if alg != "cc"
-            else contextlib.nullcontext())
+        capture = (cap.setdefault(alg, Spy(ops, {
+            "plan_union": None, **dict.fromkeys(kernel_of.values(),
+                                                listed)}))
+            if alg != "cc" else contextlib.nullcontext())
         for lay, fmt in layouts.items():
             ct = bfs.plan(fmt, bfs.TraversalSpec(algorithm=alg, **fields))
             with capture:                        # warm-up and capture
@@ -1140,22 +1397,28 @@ def phase_portfolio(g, roots, oracle, reps: int):
             errors.DEGRADES.clear()
             ops.reset_kernel_launches()
             times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                res = ct.run_batched(alg_roots)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                if len(times) == 1:
-                    counted = dict(ops.KERNEL_LAUNCHES)
+            with CallCount(PLAIN_PLANNING) as plain:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    res = ct.run_batched(alg_roots)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    if len(times) == 1:
+                        counted = dict(ops.KERNEL_LAUNCHES)
             assert not errors.DEGRADES, errors.DEGRADES
             k = kernel_of[lay]
             assert counted[k] > 0, f"{alg} {lay}: {k} never launched"
+            assert not any(plain.counts.values()), \
+                f"{alg} {lay}: plain planning ran: {plain.counts}"
             per_run[f"{alg} {lay}"] = counted[k]
             if alg == "ksource_bfs":
                 launches[k] = counted[k]
             n_layers = int(res.state.layer)
             assert n_layers < ct.resolved.max_layers, \
                 f"{alg} {lay}: hit max_layers"
+            assert counted["plan_union"] == counted[k] == n_layers, \
+                f"{alg} {lay}: {counted['plan_union']} planner and " \
+                f"{counted[k]} {k} launches for {n_layers} layers"
             assert int(ops.popcount(res.state.frontier)) == 0
             vals = res.values[:, :n]
             if alg == "ksource_bfs":
@@ -1183,8 +1446,9 @@ def phase_portfolio(g, roots, oracle, reps: int):
                 assert n_layers == int(base.state.layer)
             log(f"portfolio {alg} {lay}: {len(alg_roots)} roots, "
                 f"{n_layers} layers, runs {[round(t, 6) for t in times]} s; "
-                f"launches {k}={counted[k]}, popcount="
-                f"{counted['popcount']}" + (
+                f"launches {k}={counted[k]}, plan_union="
+                f"{counted['plan_union']}, popcount={counted['popcount']}, "
+                f"no plain planning" + (
                     "; equals CSR bitwise (values, parents, layers, stats "
                     "0-4)" if lay == "sell" else ""))
             results[(alg, lay)] = times
@@ -1194,10 +1458,13 @@ def phase_portfolio(g, roots, oracle, reps: int):
     del src, dst, w, layouts
     torch.cuda.empty_cache()
     kres = phase_relax_kernels(cap, reps)
+    sell_plan = plan_row(cap["ksource_bfs"].best["sell_relax_batched"]
+                         ["before"]["plan_union"], reps)
+    log_row("plan_union_sell", sell_plan, algorithm="ksource_bfs")
     del cap
     torch.cuda.empty_cache()
     rows = {name: dict(kres["ksource_bfs"][name]) for name in launches}
-    return rows, launches
+    return rows, launches, sell_plan
 
 
 def phase_expand_kernel(cap, g, reps: int):
@@ -1259,8 +1526,9 @@ def phase_materialized(g, roots, base, oracle, edges: int, reps: int):
     timed over 3 runs with its peak device memory, held to the main
     path (`run_path`); K7 against its plain version on the largest
     captured layer.  Returns ({kernel: results}, {kernel: launches}):
-    K7's launches; K8's stay those of phase 5b's work-listed run, whose
-    layer its time is measured on (its full sweep here is printed)."""
+    K7's and K2's launches (K2 plans this path's layers); K8's stay
+    those of phase 5b's work-listed run, whose layer its time is
+    measured on (its full sweep here is printed)."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import formats
@@ -1283,7 +1551,10 @@ def phase_materialized(g, roots, base, oracle, edges: int, reps: int):
         log(f"path {name}: batch {len(roots)}, peak device memory "
             f"{peak / 2**30:.3f} GiB")
         if name == "materialized":
-            launches[kernels[0]] = launched[kernels[0]]
+            # K2 runs here, no longer on the main path
+            for k in (kernels[0], "frontier_compact_batched"):
+                assert launched[k] > 0, f"{name}: {k} never launched"
+                launches[k] = launched[k]
             with Spy(ops, {"expand_batched":
                            lambda a: int(a["valid"].sum())}) as cap:
                 res = ct.run_batched(roots)
@@ -1315,6 +1586,101 @@ def profile_run(ct, roots, label: str = "main path", top: int = 15):
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     return {e.key: e.count for e in events}
+
+
+#: functions whose device time one CSR fused_gather traversal spends in
+#: planning and in the Table-1 counters (module name, function name);
+#: the names of the tree before the union planner are listed too, so
+#: that one split reads both trees (a missing name is skipped)
+SPLIT_RANGES = {
+    "planning": (("repro_torch.kernels.ops", "plan_union"),
+                 ("repro_torch.core.engine", "plan_active_tiles_batched"),
+                 ("repro_torch.kernels.gather_expand", "union_worklist")),
+    "counters": (("repro_torch.core.bitmap", "masked_degree_sum"),
+                 ("repro_torch.core.engine", "row_popcounts")),
+}
+#: the port's own kernels (launched through ctypes, which the profiler
+#: does not tie to the range that launched them) by a part of their
+#: device names: the planning's (the planner; K2 before it) and the
+#: layer's
+SPLIT_KERNELS = {
+    "planning": ("plan_masks", "plan_write", "tile_popcounts_kernel",
+                 "rank_scatter_kernel", "fill_tail_kernel"),
+    "gather_expand (K3)": ("gather_expand_kernel",),
+    "restoration (K1)": ("restoration_kernel",),
+    "popcount (K13)": ("popcount_kernel",),
+}
+
+
+def planning_split(ct, roots) -> dict:
+    """One traversal of ``ct`` under ``torch.profiler``, its device time
+    split into the planning and the Table-1 counters (the device time of
+    the torch kernels launched inside the functions of `SPLIT_RANGES`,
+    wrapped in a ``record_function`` range while the run is traced, plus
+    the port's own kernels of `SPLIT_KERNELS`), the layer's kernels by
+    name, and the rest (policy, stats rows, state updates).  Prints and
+    returns the split in ms."""
+    import importlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    wrapped = []
+    for rng, targets in SPLIT_RANGES.items():
+        for mod_name, fn_name in targets:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, fn_name, None)
+            if fn is None:
+                continue
+
+            def ranged(*a, _fn=fn, _rng=rng, **kw):
+                with record_function(_rng):
+                    return _fn(*a, **kw)
+            setattr(mod, fn_name, ranged)
+            wrapped.append((mod, fn_name, fn))
+    try:
+        ct.run_batched(roots)                   # warm-up, wrappers on
+        torch.cuda.synchronize()
+        for attempt in range(PROFILER_SESSIONS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ct.run_batched(roots)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")
+                       and e.self_device_time_total > 0
+                       and e.key not in SPLIT_RANGES]
+            if kernels:
+                break
+            log(f"profiler session {attempt + 1} recorded no device event; "
+                f"tracing again")
+    finally:
+        for mod, fn_name, fn in wrapped:
+            setattr(mod, fn_name, fn)
+    assert kernels, "the profiler recorded no device event"
+    named = lambda name: any(part in name for parts in SPLIT_KERNELS.values()
+                             for part in parts)
+
+    def torch_kernels(e):        # the kernels tied to e and its children
+        return [k for k in e.kernels if not named(k.name)] + [
+            k for c in e.cpu_children for k in torch_kernels(c)]
+
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {rng: sum(k.duration for e in prof.events()
+                      if e.name == rng and e.device_type == DeviceType.CPU
+                      for k in torch_kernels(e)) / 1e3
+             for rng in SPLIT_RANGES}
+    for label, parts in SPLIT_KERNELS.items():
+        split[label] = split.get(label, 0.0) + sum(
+            e.self_device_time_total for e in kernels
+            if any(part in e.key for part in parts)) / 1e3
+    split["other"] = busy - sum(split.values())
+    log(json.dumps({"profile_split": "csr fused_gather", "wall_ms": wall_ms,
+                    "device_busy_ms": busy,
+                    "idle_share": 1 - busy / wall_ms,
+                    "device_ms": split}))
+    return split
 
 
 def make_graph(scale: int, seed: int, device: str):
@@ -1420,7 +1786,8 @@ def main(argv=None) -> int:
                     help="timed repetitions per kernel")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one main-path run with "
-                         "torch.profiler and print device time by kernel")
+                         "torch.profiler and print device time by kernel "
+                         "and its split into planning and counters")
     args = ap.parse_args(argv)
 
     import torch
@@ -1472,13 +1839,16 @@ def main(argv=None) -> int:
         and r.prefetch_depth == 0, r
     roots = pick_roots(g, BATCH, args.seed)
     log(f"roots: {roots}")
-    with Spy(ops, {"frontier_compact_batched": None,
-                   "gather_expand_batched": listed}) as spy:
+    with plan_layers_spy(ops) as plan_layers, \
+            Spy(ops, {"plan_union": None,
+                      "gather_expand_batched": listed}) as spy:
         ct.run_batched(roots)
     cap = spy.best["gather_expand_batched"]
     torch.cuda.synchronize()
 
-    # 3. kernels vs plain versions; 3b K4; 3c K5; K2/K3 at B = 1
+    # 3. kernels vs plain versions (the planner on every layer); 3b K4;
+    # 3c K5; the planner, K2 and K3 at B = 1
+    plan_gates(plan_layers.calls, {"csr": None})
     kres = phase_kernels(cap, g.n_vertices, g.n_vertices_padded,
                          args.reps)
     kres["gather_expand_prefetch"] = phase_prefetch(
@@ -1487,7 +1857,7 @@ def main(argv=None) -> int:
         cap, g.n_vertices_padded, args.reps)
     del cap, spy
     torch.cuda.empty_cache()
-    with Spy(ops, {"frontier_compact_batched": None,
+    with Spy(ops, {"plan_union": None,
                    "gather_expand_batched": listed}) as cap1:
         ct.run(roots[0])
     torch.cuda.synchronize()
@@ -1500,11 +1870,20 @@ def main(argv=None) -> int:
     # 4. main path (the counted run)
     ops.reset_kernel_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = ct.run_batched(roots)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with CallCount(PLAIN_PLANNING) as plain:
+        t0 = time.perf_counter()
+        res = ct.run_batched(roots)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
+    n_layers = int(res.state.layer)
+    assert launches["plan_union"] == launches["gather_expand_batched"] \
+        == n_layers and launches["frontier_compact_batched"] == 0 \
+        and not any(plain.counts.values()), (launches, plain.counts)
+    log(f"main path planning: {n_layers} plan_union launches for "
+        f"{n_layers} layers; no frontier_compact_batched launch, no call "
+        f"of {', '.join(sorted(plain.counts))}")
+    same_as_parent_planning(ct, roots, res)
     more = []
     for _ in range(2):
         t1 = time.perf_counter()
@@ -1532,6 +1911,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if args.profile:
         profile_run(ct, roots)
+        planning_split(ct, roots)
 
     # 5. the fusion paths at the main path's size
     path_launches = {}
@@ -1567,16 +1947,19 @@ def main(argv=None) -> int:
     # 5b. SELL-C-σ at the main path's size
     sell_kres, sell_launches = phase_sell(g, roots, res,
                                           oracle_depths.__getitem__, edges,
-                                          args.reps)
+                                          args.reps, plan_layers.calls)
+    del plan_layers
     kres.update(sell_kres)
     for name, n in sell_launches.items():
         if not launches.get(name):
             launches[name] = n
 
     # 9. the semiring portfolio at the main path's size
-    port_kres, port_launches = phase_portfolio(
+    port_kres, port_launches, sell_plan = phase_portfolio(
         g, roots, oracle_depths.__getitem__, args.reps)
     kres.update(port_kres)
+    kres["plan_union"]["sell"] = {k: sell_plan[k] for k in (
+        "ms", "plain_ms", "replaced_ms", "bytes", "bound_ms")}
     launches.update(port_launches)
 
     # 10. the materialized pipeline at the main path's size
@@ -1630,8 +2013,8 @@ def main(argv=None) -> int:
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
             f"depths equal bfs_serial, every CSR and SELL pipeline equals "
             f"fused_gather; {bfs.direction_log(base16)}")
-    # 6b. two root-mask words: K3, K4 and K11 at B = 33
-    phase_wide_batch(g16, args.seed, max(3, args.reps // 4))
+    # 6b. two root-mask words: the planner, K3, K4, K11 and K12 at B = 33
+    phase_wide_batch(g16, sell16, args.seed, max(3, args.reps // 4))
     del g16, sell16
     bfs.clear_plan_cache()
 
@@ -1707,8 +2090,8 @@ def main(argv=None) -> int:
             # no kernel has one PyTorch call computing its function; the
             # K11/K12 phase-0 fold is printed on their own lines
             library_ms=None,
-            **({"union_blocks": k["union_blocks"]}
-               if "union_blocks" in k else {})))
+            **{key: k[key] for key in ("union_blocks", "timing",
+                                        "replaced_ms", "sell") if key in k}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,8 +7,8 @@ every state array), writing the SAME (max_layers, 8) stats rows, so
 
 * the per-vertex state is a **value row** (``vals``: depths, distances
   or component labels, int32 or float32); the format's semiring step
-  (``fmt.make_semiring_step``: K2 planning + K11 on CSR, slab planning +
-  K12 on SELL) folds one layer of relaxations into it;
+  (``fmt.make_semiring_step``: the union planner + K11 on CSR, + K12 on
+  SELL) folds one layer of relaxations into it;
 * the next frontier is the **improved** set (strictly decreased values)
   and ``parent = where(improved, p_layer, parent)``;
 * **SSSP** keeps delta-stepping state: a ``pending`` bitmap (improved

@@ -18,12 +18,11 @@ reference's four pipelines: ``fused_gather`` (any ``prefetch_depth``),
   with torch ops on the device.
 * **expand**: the format's step (``fmt.make_steps``).  On CSR a SIMD
   or bottom-up layer is, for ``fused_gather``,
-  `_make_fused_step`: K2 compacts the frontier (or the unvisited set)
-  into a queue, plain torch marks the rows-blocks its adjacency touches
-  and compacts them into a work-list, K3 (K4 at ``prefetch_depth > 0``)
-  gathers and expands those blocks with the racy scatter, and K1
-  restores.  For ``materialized`` it is `_make_simd_step` /
-  `_make_bottomup_step`: K2 compacts the frontier (the unvisited set),
+  `_make_fused_step`: the union planner (`kernels.plan`) lists the
+  rows-blocks the frontier's (or the unvisited set's) adjacency touches,
+  for every root at once, K3 (K4 at ``prefetch_depth > 0``) gathers and
+  expands those blocks with the racy scatter, and K1 restores.  For
+  ``materialized`` it is `_make_simd_step` / `_make_bottomup_step`: K2 compacts the frontier (the unvisited set),
   the plain `apportion` writes the full (u, v, valid) stream of e_pad
   slots per root, K7 expands it and K1 restores.  For ``megakernel``
   it is `_make_megakernel_step`: K5 does all of that in one launch.
@@ -280,8 +279,8 @@ def expand_candidates(u, v, valid, frontier, visited, parent,
 
     ``"simd"``: Algorithm 3 — racy bitmap scatter + restoration;
     ``"nonsimd"``: Algorithm 2 — exact dense updates.  Returns
-    (out, visited, parent).  (The semiring branch arrives with the
-    algorithm portfolio.)"""
+    (out, visited, parent).  (The reference's semiring branch, its
+    pure-jnp relax oracle, waits for ROADMAP.md §1 item 1.)"""
     n_batch, v_pad = parent.shape
     n_words = v_pad // bm.BITS_PER_WORD
     rows_b = torch.arange(n_batch, device=parent.device)[:, None]
@@ -349,7 +348,9 @@ def plan_active_tiles_batched(colstarts, active_words, n_vertices: int,
                               tile: int, n_blocks: int):
     """Batched planning, packed arm: (B, W) active bitmaps -> ((B,
     n_blocks) work-lists, (B,) live counts).  One K2 launch compacts the
-    batch; the block marking is plain torch."""
+    batch; the block marking is plain torch.  The reference's planner,
+    kept as the yardstick of the union planner (`kernels.plan`), which
+    gives the same lists and which the engine runs."""
     v_pad = active_words.shape[1] * bm.BITS_PER_WORD
     queues, _ = ops.frontier_compact_batched(active_words, size=v_pad,
                                              fill=n_vertices)
@@ -455,29 +456,25 @@ def _make_bottomup_step(colstarts, rows, n_vertices: int, v_pad: int,
     return step
 
 
-def _make_fused_step(colstarts, rows_t, n_vertices: int, tile: int,
-                     bottom_up: bool, prefetch_depth: int = 0):
-    """One fused_gather layer, both directions: K2 + plain block
-    marking plan the active rows-blocks of the frontier's adjacency
-    (bottom-up: of the unvisited set's, ``~visited``, exact because
-    padding is premarked), K3 (K4 at ``prefetch_depth > 0``) gathers
-    and expands them, K1 restores.  ``rows_t`` is the tile-padded rows
-    array."""
-    n_blocks = int(rows_t.shape[0]) // tile
+def _make_fused_step(graph: FusedCsr, bottom_up: bool,
+                     prefetch_depth: int = 0):
+    """One fused_gather layer, both directions: the union planner lists
+    the active rows-blocks of the frontier's adjacency (bottom-up: of
+    the unvisited set's, ``~visited``, exact because padding is
+    premarked) with their root masks, K3 (K4 at ``prefetch_depth > 0``)
+    gathers and expands them, K1 restores."""
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
-            active = ~visited if bottom_up else frontier
-            wl, na = plan_active_tiles_batched(colstarts, active,
-                                               n_vertices, tile,
-                                               n_blocks)
+            plan = ops.plan_union(graph, visited if bottom_up else frontier,
+                                  complement=bottom_up)
             out_racy, p_racy = ops.gather_expand_batched(
-                wl, na, rows_t, colstarts, frontier, visited,
+                plan, graph.rows, graph.colstarts, frontier, visited,
                 torch.zeros_like(frontier), parent,
-                n_vertices=n_vertices, tile=tile, bottom_up=bottom_up,
-                prefetch_depth=prefetch_depth)
-            p_fixed, delta = ops.restore(p_racy, n_vertices=n_vertices)
-        aux = StepAux(na.sum(), 0, c.count)
+                n_vertices=graph.n_vertices, tile=graph.tile,
+                bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+            p_fixed, delta = ops.restore(p_racy, n_vertices=graph.n_vertices)
+        aux = StepAux(plan.na.sum(), 0, c.count)
         return out_racy | delta, visited | delta, p_fixed, aux
 
     return step
@@ -544,13 +541,10 @@ def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
                                tile)
         bottomup = _make_bottomup_step(colstarts, rows, n_vertices, v_pad,
                                        e_pad, tile)
-    elif fused:
-        graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
-        simd, bottomup = (_make_megakernel_step(graph, bu, prefetch_depth)
-                          for bu in (False, True))
     else:
-        simd, bottomup = (_make_fused_step(colstarts, rows_t, n_vertices,
-                                           tile, bu, prefetch_depth)
+        graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
+        make = _make_megakernel_step if fused else _make_fused_step
+        simd, bottomup = (make(graph, bu, prefetch_depth)
                           for bu in (False, True))
     return {
         MODE_SCALAR: _make_scalar_step(colstarts, rows, n_vertices,

@@ -1,12 +1,12 @@
 """CsrFormat — the §3.3.1 CSR as a registered `GraphFormat`.
 
 An adapter around `core/csr.py`: geometry, ``degrees``, the CSR tile
-rule (`resolve_tile`), the per-mode steps of `engine._make_steps` (K2,
-K3/K4 and K1 for ``fused_gather``; K2, the apportioned stream, K7 and
-K1 for ``materialized``; K5 for ``megakernel``), the whole-traversal
-kernel K6 (``persistent_graph`` / ``persistent_fits`` /
-``persistent_run``) and the semiring relax step (K2 planning + K11).  The baseline every other layout is measured
-against.
+rule (`resolve_tile`), the per-mode steps of `engine._make_steps` (the
+union planner, K3/K4 and K1 for ``fused_gather``; K2, the apportioned
+stream, K7 and K1 for ``materialized``; K5 for ``megakernel``), the
+whole-traversal kernel K6 (``persistent_graph`` / ``persistent_fits`` /
+``persistent_run``) and the semiring relax step (the union planner +
+K11).  The baseline every other layout is measured against.
 """
 from __future__ import annotations
 
@@ -103,30 +103,23 @@ class CsrFormat(GraphFormat):
                                   prefetch_depth=spec.prefetch_depth)
 
     def _build_semiring_step(self, spec, semiring):
-        """K2 plans the frontier's rows-blocks (`plan_active_tiles_batched`),
-        K11 relaxes them.  Dense arm (the CC endgame): a root whose
-        ``dense`` flag is set sweeps every block — the planner still
-        runs and is charged, as in the reference."""
+        """The union planner lists the frontier's rows-blocks, K11 relaxes
+        them.  Dense arm (the CC endgame): a root whose ``dense`` flag is
+        set lists every block — the planner still runs and is charged, as
+        in the reference."""
         from repro_torch.core import engine
         from repro_torch.kernels import ops
-        tile, v = spec.tile, self._n_vertices
-        colstarts = self.colstarts.contiguous()
-        rows_t = engine._pad_rows_to_tile(self.rows.contiguous(), v, tile)
-        n_blocks = int(rows_t.shape[0]) // tile
-        full_wl = torch.arange(n_blocks, dtype=torch.int32,
-                               device=rows_t.device)
+        graph = self.fused_graph(spec)
 
         def step(frontier, vals, dense):
             with ops.count_launches() as c:
-                wl, na = engine.plan_active_tiles_batched(
-                    colstarts, frontier, v, tile, n_blocks)
-                wl = torch.where(dense[:, None], full_wl[None], wl)
-                na = torch.where(dense, n_blocks, na)
+                plan = ops.plan_union(graph, frontier, dense=dense)
                 new_vals, p_layer = ops.gather_relax_batched(
-                    wl, na, rows_t, colstarts, frontier, vals,
-                    n_vertices=v, tile=tile, unit=semiring.unit,
-                    weighted=semiring.weighted)
-            return new_vals, p_layer, engine.StepAux(na.sum(), 0, c.count)
+                    plan, graph.rows, graph.colstarts, frontier, vals,
+                    n_vertices=graph.n_vertices, tile=graph.tile,
+                    unit=semiring.unit, weighted=semiring.weighted)
+            return new_vals, p_layer, engine.StepAux(
+                plan.na.sum(), 0, c.count)
 
         return step
 

@@ -28,7 +28,9 @@ Steps (``make_steps``):
   ``prefetch_depth > 0``) and K1 — two launches per layer;
 * ``materialized``: K8 over every slab group (no plan) and K1;
 * ``megakernel``: K9, one launch per layer;
-* ``persistent``: K10, one launch per traversal (``persistent_run``).
+* ``persistent``: K10, one launch per traversal (``persistent_run``);
+* the semiring portfolio's step: the union planner (`kernels.plan`)
+  and K12 over its union of slab groups.
 
 Every mode maps onto the slab sweep (SIMD top-down; bottom-up swaps
 the gate and the discovered side), except the scalar layers of
@@ -344,23 +346,19 @@ class SellFormat(GraphFormat):
                 engine.MODE_BOTTOMUP: make_step(bottom_up=True)}
 
     def _build_semiring_step(self, spec, semiring):
-        """Plain-torch slab planning over the frontier, K12 over the
-        listed groups; a ``dense`` root sweeps every group (the CC
-        endgame)."""
+        """The union planner lists the frontier's slab groups, K12 relaxes
+        them; a ``dense`` root lists every group (the CC endgame)."""
         from repro_torch.core import engine
         g = self.sell_graph(spec.tile)
-        full_wl = torch.arange(g.n_steps, dtype=torch.int32,
-                               device=g.cols.device)
 
         def step(frontier, vals, dense):
             with ops.count_launches() as c:
-                wl, na = se.plan_slabs_plain(g, frontier)
-                wl = torch.where(dense[:, None], full_wl[None], wl)
-                na = torch.where(dense, g.n_steps, na)
+                plan = ops.plan_union(g, frontier, dense=dense)
                 new_vals, p_layer = ops.sell_relax_batched(
-                    g, wl, na, frontier, vals, unit=semiring.unit,
+                    g, plan, frontier, vals, unit=semiring.unit,
                     weighted=semiring.weighted)
-            return new_vals, p_layer, engine.StepAux(na.sum(), 0, c.count)
+            return new_vals, p_layer, engine.StepAux(plan.na.sum(), 0,
+                                                     c.count)
 
         return step
 

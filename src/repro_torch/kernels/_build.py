@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
            "layer_fused.cu", "traversal_fused.cu", "sell_expand.cu",
            "sell_layer_fused.cu", "sell_traversal_fused.cu", "popcount.cu",
-           "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu")
+           "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu",
+           "plan_union.cu")
 HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
            "traversal_loop.cuh", "relax_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -57,8 +58,10 @@ SIGNATURES = {
     + (_I, _P),
     "repro_popcount": (_P, _P, _LL, _I, _P),
     "repro_gather_relax": (_P,) * 9 + (_I,) * 11 + (_P,),
-    "repro_sell_relax": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "repro_sell_relax": (_P,) * 9 + (_I,) * 9 + (_P,),
     "repro_frontier_expand": (_P,) * 7 + (_I, _LL) + (_I,) * 5 + (_P,),
+    "repro_plan_union_csr": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "repro_plan_union_sell": (_P,) * 8 + (_I,) * 7 + (_P,),
 }
 
 _LIB = None

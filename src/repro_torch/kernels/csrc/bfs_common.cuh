@@ -13,9 +13,9 @@
 //
 // Also here: `sweep_items`, the walk with `depth` items in flight into
 // a (depth + 1)-stage ring of shared memory (`cp.async`), or read
-// straight from device memory at depth 0, which the SELL kernels (K8-K10,
-// K12) use with their own stage; block-wide sums and an exclusive scan
-// of one flag per thread.
+// straight from device memory at depth 0, which the SELL kernels use
+// with their own stage (K8-K10 over each root's list, K12 over the
+// union); block-wide sums and an exclusive scan of one flag per thread.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -36,10 +36,10 @@
 // block's rows, and searches its slots' owners, once per root that
 // lists it.
 //
-// The design: the wrapper builds the union of the lists (`ulist`, the
-// blocks any root lists, with `ucount` read here on the device) and a
-// root mask per block (`rmask`, bit b of word b / 32 set when root b
-// lists it); a 1-D grid strides over the union, so each block's rows
+// The design: the union planner (plan_union.cu) builds the union of the
+// lists (`ulist`, the blocks any root lists, with `ucount` read here on
+// the device) and a root mask per block (`rmask`, bit b of word b / 32
+// set when root b lists it); a 1-D grid strides over the union, so each block's rows
 // are read once and its owners found once for all its roots
 // (`bfs::owners_by_scan`: one warp-parallel search per end of the
 // block, then every owner put in shared memory by a coalesced scan of

@@ -1,7 +1,7 @@
 // Device code shared by the semiring relax kernels (K11, gather_relax.cu;
 // K12, sell_relax.cu): the synthetic edge weight, the candidate formula
-// and the two phases of one edge's relaxation (`relax_edge` for K12's
-// (B, v_pad) rows, `relax_at` for K11's layouts).
+// and the two phases of one edge's relaxation (`relax_at`, on pointers
+// to the edge's entries in the root-interleaved layouts of both).
 //
 // Values travel as 32-bit patterns: int32 values as they are, float32
 // values as their bits.  Every value the portfolio produces is >= 0
@@ -53,23 +53,11 @@ __device__ __forceinline__ int candidate(int val_u, int u, int v, int unit,
   }
 }
 
-// Relax edge (u, v) of one root, both ends real vertices.  Phase 0 folds
-// the candidate into out[v]; phase 1 (after every phase-0 atomic has
-// landed: the next launch) offers u as v's parent when the candidate
-// equals v's final value and improved on the layer-start value.
-__device__ __forceinline__ void relax_edge(int phase, int u, int v,
-                                           int cand, const int* vals,
-                                           int* out, int* pl) {
-  if (phase == 0) {
-    if (cand < __ldg(vals + v)) atomicMin(out + v, cand);
-  } else {
-    const int cur = __ldg(out + v);
-    if (cand == cur && cur < __ldg(vals + v)) atomicMin(pl + v, u);
-  }
-}
-
-// relax_edge on pointers to v's entries (K11's strided layouts): the
-// same tests, loads and atomics.
+// Relax edge (u, v) of one root, both ends real vertices, on pointers to
+// v's entries: phase 0 folds the candidate into out[v]; phase 1 (after
+// every phase-0 atomic has landed: the next launch) offers u as v's
+// parent when the candidate equals v's final value and improved on the
+// layer-start value.
 __device__ __forceinline__ void relax_at(int phase, int u, int cand,
                                          const int* val_v, int* out_v,
                                          int* pl_v) {
@@ -79,10 +67,6 @@ __device__ __forceinline__ void relax_at(int phase, int u, int cand,
     const int cur = __ldg(out_v);
     if (cand == cur && cur < __ldg(val_v)) atomicMin(pl_v, u);
   }
-}
-
-__device__ __forceinline__ bool in_frontier(const unsigned* fr, int u) {
-  return (__ldg(fr + (u >> 5)) >> (u & 31)) & 1u;
 }
 
 }  // namespace relax

@@ -2,7 +2,7 @@
 and K11, the semiring relax over the same work-lists: CUDA kernels and
 their plain torch versions.
 
-For each root b and each of its first ``n_active[b]`` work-list entries
+For each root b and each rows-block that the layer's plan lists for it
 (a ``tile``-sized block of the tile-padded ``rows``), every edge finds
 its owner by a binary search over ``colstarts``; top-down gates on the
 owner being in the frontier and discovers the neighbour, bottom-up
@@ -20,16 +20,20 @@ from device memory, at ``prefetch_depth > 0`` (K4) each CTA keeps that
 many blocks' rows in flight into a shared-memory ring.  K4 computes
 K3's function, so K3's plain version is K4's.
 
-**The union.**  The CUDA kernels (K3, K4 and K11) do not walk each
-root's list: `union_worklist` (plain torch, no host sync) turns the
-(B, n_blocks) lists into the blocks any root lists and a root mask per
-block, and one CTA serves every root of a block's mask, reading the
-block's rows and finding its owners once (`owners_by_scan_plain` is
-that owner scan's plain counterpart).  The wrappers hand the kernels
-the per-root state root-interleaved, (n_words, B) bitmaps and (v_pad,
-B) values, so that the B words of one vertex share a sector, and copy
-``out`` back to (B, ...); at B = 1 the two layouts are one.  The
-wrappers' arguments are the plain versions'.
+**The union.**  The kernels (K3, K4 and K11) do not walk each root's
+list: they take the layer's `UnionPlan` from the union planner
+(`kernels.plan.plan_union`, two launches on the card): the items any root
+lists, a device count, a root mask per item and each root's count.  One
+CTA serves every root of a block's mask, reading the block's rows and
+finding its owners once (`owners_by_scan_plain` is that owner scan's
+plain counterpart).  The wrappers hand the kernels the per-root state
+root-interleaved, (n_words, B) bitmaps and (v_pad, B) values, so that
+the B words of one vertex share a sector, and copy ``out`` back to
+(B, ...); at B = 1 the two layouts are one.  Both arms take the plan;
+the plain versions walk, for each root, the blocks whose mask has its
+bit, in ascending order: that root's own list.  `union_worklist` folds
+per-root lists into a plan's first three fields (the plain planner's
+second half, `UnionPlan.of_lists`).
 
 ``scalar=True`` (plain version only) tests the pre-layer ``visited``
 alone, as the whole-traversal kernel's scalar-mode layers do.
@@ -47,6 +51,7 @@ Replaces ``repro.kernels.gather_expand.gather_relax_batched``.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -125,8 +130,8 @@ def union_worklist(wl: torch.Tensor, na: torch.Tensor, n_blocks: int):
     int32; rmask (n_blocks, ceil(B / 32)) int32, bit ``b % 32`` of word
     ``b // 32`` set when root b lists the block).  Entries of ``wl[b]``
     at or past ``na[b]`` (the clamped tail) set no bit.  Any B; no host
-    sync, no ``nonzero``; few and large torch ops, since on the card it
-    runs before every K3/K11 launch."""
+    sync, no ``nonzero``.  The plain planner's second half
+    (`UnionPlan.of_lists`)."""
     n_batch, n_list = wl.shape
     dev = wl.device
     ids, bit, word = _union_constants(n_batch, max(n_list, n_blocks), dev)
@@ -153,6 +158,52 @@ def union_worklist(wl: torch.Tensor, na: torch.Tensor, n_blocks: int):
     return ulist[:n_blocks], ucount, words.t().contiguous()
 
 
+class UnionPlan(NamedTuple):
+    """One layer's plan of the items (CSR rows-blocks, SELL slab groups)
+    that the work-listed kernels walk: `union_worklist`'s output plus
+    each root's count."""
+    ulist: torch.Tensor   # (n_items,) int32: listed items ascending, zeros
+    ucount: torch.Tensor  # (1,) int32: how many items any root lists
+    rmask: torch.Tensor   # (n_items, ceil(B / 32)) int32 root masks
+    na: torch.Tensor      # (B,) int32: the items each root lists
+
+    @classmethod
+    def of_lists(cls, wl: torch.Tensor, na: torch.Tensor,
+                 n_items: int) -> "UnionPlan":
+        """The plan of (B, L) per-root work-lists and their (B,) counts."""
+        return cls(*union_worklist(wl, na, n_items), na.to(torch.int32))
+
+    def listed(self) -> torch.Tensor:
+        """(B, n_items) bool: root b lists item i."""
+        n_batch = int(self.na.shape[0])
+        root = torch.arange(n_batch, device=self.rmask.device)
+        words = self.rmask[:, root // 32].t()
+        return ((words >> (root % 32).to(torch.int32)[:, None]) & 1) != 0
+
+    def items_of(self, b: int) -> torch.Tensor:
+        """Root b's items, ascending (int64): its own work-list."""
+        words = self.rmask[:, b // 32]
+        return torch.nonzero((words >> (b % 32)) & 1).flatten()
+
+
+def check_plan(kernel: str, plan: UnionPlan, n_items: int, n_batch: int,
+               device) -> None:
+    """The CUDA wrappers' checks of a plan: contiguous int32 tensors on
+    ``device`` of the shapes ``n_items`` and ``n_batch`` give."""
+    shapes = dict(ulist=(n_items,), ucount=(1,),
+                  rmask=(n_items, -(-n_batch // 32)), na=(n_batch,))
+    for name, t in plan._asdict().items():
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(
+                f"{kernel}: plan.{name} must be a contiguous int32 tensor "
+                f"on {device}, got {t.dtype} on {t.device}, "
+                f"contiguous={t.is_contiguous()}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{kernel}: plan.{name} has shape "
+                             f"{tuple(t.shape)}, expected {shapes[name]}")
+
+
 def owner_sub(tile: int, depth: int) -> int:
     """Slots per owner scan of the CUDA kernels: `OWNER_SUB` (or the
     tile), fewer where a K4 ring leaves less room; refused below one
@@ -167,7 +218,7 @@ def owner_sub(tile: int, depth: int) -> int:
     return sub
 
 
-def _interleaved(t: torch.Tensor) -> torch.Tensor:
+def interleaved(t: torch.Tensor) -> torch.Tensor:
     """(B, n) -> its root-interleaved (n, B) layout (a copy where B > 1;
     at B = 1 the two layouts are one)."""
     return t.t().contiguous() if t.shape[0] > 1 else t
@@ -195,17 +246,18 @@ def _expand_edges(n_vertices: int, gate, cand, valid, frontier, vis, out,
     out[word[mask]] = (out_words | bits)[mask]      # racy word writes
 
 
-def gather_expand_plain(wl, na, rows, colstarts, frontier, visited, out,
-                        p, *, n_vertices: int, tile: int,
+def gather_expand_plain(plan: UnionPlan, rows, colstarts, frontier,
+                        visited, out, p, *, n_vertices: int, tile: int,
                         bottom_up: bool = False, scalar: bool = False):
-    """Plain torch K3 over (B, ...) arrays; updates ``out``/``p`` in
-    place and returns them."""
+    """Plain torch K3 over (B, ...) arrays, each root's blocks of the
+    plan in ascending order; updates ``out``/``p`` in place and returns
+    them."""
     n_cs = colstarts.shape[0]
     lane = torch.arange(tile, dtype=torch.int64, device=rows.device)
     per_chunk = max(1, CHUNK_EDGES // tile)
-    for b, n_act in enumerate(na.tolist()):
-        blocks = wl[b, :n_act].to(torch.int64)
-        for s in range(0, int(n_act), per_chunk):
+    for b in range(int(plan.na.shape[0])):
+        blocks = plan.items_of(b)
+        for s in range(0, int(blocks.shape[0]), per_chunk):
             e = (blocks[s:s + per_chunk, None] * tile + lane).reshape(-1)
             u = _owner_search(colstarts, e, n_cs)
             v = rows[e].to(torch.int64)
@@ -221,19 +273,19 @@ def stage_bytes(tile: int, depth: int) -> int:
     return (depth + 1) * tile * 4 if depth > 0 else 0
 
 
-def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
-                       p, *, n_vertices: int, tile: int,
+def gather_expand_cuda(plan: UnionPlan, rows, colstarts, frontier,
+                       visited, out, p, *, n_vertices: int, tile: int,
                        bottom_up: bool = False, prefetch_depth: int = 0):
     """Launch the CUDA kernel (K3, or K4 at ``prefetch_depth > 0``,
     clamped to the block count as the reference clamps it) over the
-    union of the lists, on root-interleaved bitmaps; ``out``/``p`` are
-    updated in place."""
+    plan's union, on root-interleaved bitmaps; ``out``/``p`` are updated
+    in place."""
     from repro_torch.kernels import _build
-    n_batch, n_blocks = wl.shape
-    n_words = visited.shape[1]
+    n_batch, n_words = visited.shape
+    n_blocks = int(rows.shape[0]) // tile
     v_pad = p.shape[1]
-    named = dict(wl=wl, na=na, rows=rows, colstarts=colstarts,
-                 frontier=frontier, visited=visited, out=out, p=p)
+    named = dict(rows=rows, colstarts=colstarts, frontier=frontier,
+                 visited=visited, out=out, p=p)
     for name, t in named.items():
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != rows.device:
@@ -242,16 +294,16 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
                 f"on {rows.device}, got {t.dtype} on {t.device}, "
                 f"contiguous={t.is_contiguous()}")
     if rows.shape[0] != n_blocks * tile:
-        raise ValueError(f"rows has {rows.shape[0]} slots, expected "
-                         f"n_blocks * tile = {n_blocks * tile}; pad rows "
-                         f"to the tile once at build")
-    for name, t, shape in (("na", na, (n_batch,)),
-                           ("frontier", frontier, (n_batch, n_words)),
+        raise ValueError(f"rows has {rows.shape[0]} slots, expected a "
+                         f"multiple of tile = {tile}; pad rows to the tile "
+                         f"once at build")
+    for name, t, shape in (("frontier", frontier, (n_batch, n_words)),
                            ("out", out, (n_batch, n_words)),
                            ("p", p, (n_batch, v_pad))):
         if tuple(t.shape) != shape:
             raise ValueError(f"gather_expand: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
+    check_plan("gather_expand", plan, n_blocks, n_batch, rows.device)
     depth = min(max(int(prefetch_depth), 0), n_blocks)
     if stage_bytes(tile, depth) > SMEM_OPTIN_BYTES:
         raise ValueError(
@@ -259,16 +311,15 @@ def gather_expand_cuda(wl, na, rows, colstarts, frontier, visited, out,
             f"{stage_bytes(tile, depth)} bytes of shared memory per CTA; "
             f"the card allows {SMEM_OPTIN_BYTES}")
     sub = owner_sub(tile, depth)
-    ulist, ucount, rmask = union_worklist(wl, na, n_blocks)
-    fr, vis, ob = (_interleaved(frontier), _interleaved(visited),
-                   _interleaved(out))
+    fr, vis, ob = (interleaved(frontier), interleaved(visited),
+                   interleaved(out))
     lib = _build.load()
     _build.check(lib.repro_gather_expand(
-        ulist.data_ptr(), ucount.data_ptr(), rmask.data_ptr(),
-        rows.data_ptr(), colstarts.data_ptr(), fr.data_ptr(),
-        vis.data_ptr(), ob.data_ptr(), p.data_ptr(), n_batch,
-        rmask.shape[1], int(tile), sub, colstarts.shape[0], v_pad,
-        int(n_vertices), int(bool(bottom_up)), depth, n_blocks,
+        plan.ulist.data_ptr(), plan.ucount.data_ptr(),
+        plan.rmask.data_ptr(), rows.data_ptr(), colstarts.data_ptr(),
+        fr.data_ptr(), vis.data_ptr(), ob.data_ptr(), p.data_ptr(),
+        n_batch, plan.rmask.shape[1], int(tile), sub, colstarts.shape[0],
+        v_pad, int(n_vertices), int(bool(bottom_up)), depth, n_blocks,
         _build.stream_of(rows)), "gather_expand")
     if ob is not out:
         out.copy_(ob.t())
@@ -325,18 +376,19 @@ def worklist_edges(blocks, rows, colstarts, tile: int):
                rows[e].to(torch.int64))
 
 
-def gather_relax_plain(wl, na, rows, colstarts, frontier, vals, *,
-                       n_vertices: int, tile: int, unit: int = 0,
+def gather_relax_plain(plan: UnionPlan, rows, colstarts, frontier, vals,
+                       *, n_vertices: int, tile: int, unit: int = 0,
                        weighted: bool = False):
-    """Plain torch K11 over (B, ...) arrays: returns (out_vals, p_layer),
-    new tensors; ``vals`` is int32 or float32."""
+    """Plain torch K11 over (B, ...) arrays, each root's blocks of the
+    plan: returns (out_vals, p_layer), new tensors; ``vals`` is int32 or
+    float32."""
     out = vals.clone()
     p = torch.full(vals.shape, P_UNSET, dtype=torch.int32,
                    device=vals.device)
-    for b, n_act in enumerate(na.tolist()):
+    for b in range(int(plan.na.shape[0])):
+        blocks = plan.items_of(b)
         for phase in (0, 1):
-            for u, v in worklist_edges(wl[b, :n_act], rows, colstarts,
-                                       tile):
+            for u, v in worklist_edges(blocks, rows, colstarts, tile):
                 relax_edges(n_vertices, u, v, frontier[b], vals[b], out[b],
                             p[b], unit=unit, weighted=weighted,
                             phase=phase)
@@ -366,36 +418,34 @@ def check_relax_args(kernel: str, device, vals, shapes: dict,
                              f"{shape}")
 
 
-def gather_relax_cuda(wl, na, rows, colstarts, frontier, vals, *,
-                      n_vertices: int, tile: int, unit: int = 0,
+def gather_relax_cuda(plan: UnionPlan, rows, colstarts, frontier, vals,
+                      *, n_vertices: int, tile: int, unit: int = 0,
                       weighted: bool = False):
-    """Launch K11 (two launches: phase 0, then phase 1) over the union of
-    the lists into a fresh ``out_vals`` (a copy of ``vals``) and
-    ``p_layer`` (`P_UNSET`), on root-interleaved values and frontier."""
+    """Launch K11 (two launches: phase 0, then phase 1) over the plan's
+    union into a fresh ``out_vals`` (a copy of ``vals``) and ``p_layer``
+    (`P_UNSET`), on root-interleaved values and frontier."""
     from repro_torch.kernels import _build
-    n_batch, n_blocks = wl.shape
-    n_words = frontier.shape[1]
-    v_pad = vals.shape[1]
+    n_batch, v_pad = vals.shape
+    n_blocks = int(rows.shape[0]) // tile
     if weighted and vals.dtype != torch.float32:
         raise ValueError("gather_relax: weighted needs float32 vals")
     check_relax_args(
         "gather_relax", rows.device, vals,
-        dict(na=(n_batch,), rows=(n_blocks * tile,),
-             frontier=(n_batch, n_words), vals=(n_batch, 32 * n_words)),
-        wl=wl, na=na, rows=rows, colstarts=colstarts, frontier=frontier)
+        dict(rows=(n_blocks * tile,), frontier=(n_batch, v_pad // 32)),
+        rows=rows, colstarts=colstarts, frontier=frontier)
+    check_plan("gather_relax", plan, n_blocks, n_batch, rows.device)
     sub = owner_sub(tile, 0)
-    ulist, ucount, rmask = union_worklist(wl, na, n_blocks)
-    fr, vk = _interleaved(frontier), _interleaved(vals)
+    fr, vk = interleaved(frontier), interleaved(vals)
     out = vk.clone()
     p = torch.full(vals.shape, P_UNSET, dtype=torch.int32,
                    device=vals.device)
     lib = _build.load()
     _build.check(lib.repro_gather_relax(
-        ulist.data_ptr(), ucount.data_ptr(), rmask.data_ptr(),
-        rows.data_ptr(), colstarts.data_ptr(), fr.data_ptr(),
-        vk.data_ptr(), out.data_ptr(), p.data_ptr(), n_batch,
-        rmask.shape[1], int(tile), sub, colstarts.shape[0], v_pad,
-        int(n_vertices), int(unit), int(bool(weighted)),
+        plan.ulist.data_ptr(), plan.ucount.data_ptr(),
+        plan.rmask.data_ptr(), rows.data_ptr(), colstarts.data_ptr(),
+        fr.data_ptr(), vk.data_ptr(), out.data_ptr(), p.data_ptr(),
+        n_batch, plan.rmask.shape[1], int(tile), sub, colstarts.shape[0],
+        v_pad, int(n_vertices), int(unit), int(bool(weighted)),
         int(vals.dtype == torch.float32), n_blocks,
         _build.stream_of(rows)), "gather_relax")
     return (out.t().contiguous() if n_batch > 1 else out), p

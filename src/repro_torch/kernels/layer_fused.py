@@ -113,9 +113,10 @@ def layer_fused_plain(g: FusedCsr, frontier, visited, parent, *,
     wl, na = plan_blocks_plain(g, visited if bottom_up else frontier,
                                bottom_up)
     out = torch.zeros_like(frontier)
-    ge.gather_expand_plain(wl, na, g.rows, g.colstarts, frontier, visited,
-                           out, parent, n_vertices=g.n_vertices,
-                           tile=g.tile, bottom_up=bottom_up, scalar=scalar)
+    ge.gather_expand_plain(ge.UnionPlan.of_lists(wl, na, g.n_blocks),
+                           g.rows, g.colstarts, frontier, visited, out,
+                           parent, n_vertices=g.n_vertices, tile=g.tile,
+                           bottom_up=bottom_up, scalar=scalar)
     fixed, delta = restoration_plain(parent, g.n_vertices)
     parent.copy_(fixed)
     return out | delta, parent, na

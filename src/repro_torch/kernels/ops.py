@@ -38,6 +38,7 @@ from repro_torch.kernels import compact as ck
 from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
+from repro_torch.kernels import plan as pl
 from repro_torch.kernels import restoration as rest
 from repro_torch.kernels import sell_expand as se
 from repro_torch.kernels import traversal_fused as tf
@@ -52,7 +53,8 @@ KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
                    "sell_layer_fused_batched": 0,
                    "sell_traversal_fused_batched": 0, "popcount": 0,
                    "frontier_expand_batched": 0,
-                   "gather_relax_batched": 0, "sell_relax_batched": 0}
+                   "gather_relax_batched": 0, "sell_relax_batched": 0,
+                   "plan_union": 0}
 
 #: dynamic shared memory one CTA can opt into on the H100
 SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
@@ -122,12 +124,30 @@ def frontier_compact(words: torch.Tensor, *, size: int, fill: int):
     return queue[0], total[0]
 
 
-def gather_expand_batched(worklist, n_active, rows, colstarts, frontier,
+def plan_union(graph, words: torch.Tensor, *, complement: bool = False,
+               dense: torch.Tensor | None = None) -> ge.UnionPlan:
+    """The union planner: the `gather_expand.UnionPlan` of (B, W)
+    planning bitmaps ``words`` over a `layer_fused.FusedCsr`'s
+    rows-blocks or a `sell_expand.SellGraph`'s slab groups (see
+    `kernels.plan`).  Charged one launch on CSR, where it stands in the
+    reference's K2 planning call, and none on SELL, where the reference
+    plans in jnp; `KERNEL_LAUNCHES` counts both."""
+    if not isinstance(graph, se.SellGraph):
+        _charge_launch()
+    if _arm(words, "plan_union"):
+        KERNEL_LAUNCHES["plan_union"] += 1
+        return pl.plan_union_cuda(graph, words, complement=complement,
+                                  dense=dense)
+    return pl.plan_union_plain(graph, words, complement=complement,
+                               dense=dense)
+
+
+def gather_expand_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
                           visited, out_init, p_init, *, n_vertices: int,
                           tile: int, bottom_up: bool = False,
                           prefetch_depth: int = 0):
-    """K3 (K4 at ``prefetch_depth > 0``) over (B, ...) state:
-    ``worklist`` (B, n_blocks), ``n_active`` (B,), ``rows`` tile-padded
+    """K3 (K4 at ``prefetch_depth > 0``) over (B, ...) state: the
+    rows-blocks of ``plan`` (`plan_union`), ``rows`` tile-padded
     (n_blocks * tile,), ``colstarts`` (V+1,), bitmaps (B, W), P
     (B, V_pad).  Updates ``out_init`` and ``p_init`` in place and
     returns them as (out, parent) — restoration NOT applied."""
@@ -137,26 +157,29 @@ def gather_expand_batched(worklist, n_active, rows, colstarts, frontier,
                 else "gather_expand_batched")
         KERNEL_LAUNCHES[name] += 1
         return ge.gather_expand_cuda(
-            worklist, n_active, rows, colstarts, frontier, visited,
-            out_init, p_init, n_vertices=n_vertices, tile=tile,
-            bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+            plan, rows, colstarts, frontier, visited, out_init, p_init,
+            n_vertices=n_vertices, tile=tile, bottom_up=bottom_up,
+            prefetch_depth=prefetch_depth)
     return ge.gather_expand_plain(
-        worklist, n_active, rows, colstarts, frontier, visited, out_init,
-        p_init, n_vertices=n_vertices, tile=tile, bottom_up=bottom_up)
+        plan, rows, colstarts, frontier, visited, out_init, p_init,
+        n_vertices=n_vertices, tile=tile, bottom_up=bottom_up)
 
 
 def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
                   out_init, p_init, *, n_vertices: int, tile: int,
                   bottom_up: bool = False, prefetch_depth: int = 0):
-    """K3/K4 for one root: the batched call at B = 1.  ``out_init`` and
+    """K3/K4 for one root's (n_blocks,) work-list and its count: the
+    batched call at B = 1, on the list's plan.  ``out_init`` and
     ``p_init`` ((W,), (V_pad,)) are updated in place."""
     na = torch.as_tensor(n_active, dtype=torch.int32,
                          device=rows.device).reshape(1)
+    plan = ge.UnionPlan.of_lists(worklist[None], na,
+                                 int(rows.shape[0]) // tile)
     gather_expand_batched(
-        worklist[None].contiguous(), na, rows, colstarts,
-        frontier[None].contiguous(), visited[None].contiguous(),
-        out_init[None], p_init[None], n_vertices=n_vertices, tile=tile,
-        bottom_up=bottom_up, prefetch_depth=prefetch_depth)
+        plan, rows, colstarts, frontier[None].contiguous(),
+        visited[None].contiguous(), out_init[None], p_init[None],
+        n_vertices=n_vertices, tile=tile, bottom_up=bottom_up,
+        prefetch_depth=prefetch_depth)
     return out_init, p_init
 
 
@@ -189,36 +212,37 @@ def expand(nbr, cand, valid, frontier, visited, out_init, p_init, *,
     return out_init, p_init
 
 
-def gather_relax_batched(worklist, n_active, rows, colstarts, frontier,
+def gather_relax_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
                          vals, *, n_vertices: int, tile: int,
                          unit: int = 0, weighted: bool = False):
-    """K11: the semiring relax over (B, n_blocks) work-lists of the
-    tile-padded ``rows``; ``vals`` (B, V_pad) int32 or float32.  Returns
-    (out_vals, p_layer), ``p_layer`` `gather_expand.P_UNSET` where no
-    edge won.  One launch charged, as the reference's one Pallas call
-    (the CUDA arm is two launches, one per phase)."""
+    """K11: the semiring relax over the rows-blocks of ``plan``
+    (`plan_union`) of the tile-padded ``rows``; ``vals`` (B, V_pad)
+    int32 or float32.  Returns (out_vals, p_layer), ``p_layer``
+    `gather_expand.P_UNSET` where no edge won.  One launch charged, as
+    the reference's one Pallas call (the CUDA arm is two launches, one
+    per phase)."""
     _charge_launch()
     if _arm(rows, "gather_relax_batched"):
         KERNEL_LAUNCHES["gather_relax_batched"] += 1
         return ge.gather_relax_cuda(
-            worklist, n_active, rows, colstarts, frontier, vals,
-            n_vertices=n_vertices, tile=tile, unit=unit, weighted=weighted)
+            plan, rows, colstarts, frontier, vals, n_vertices=n_vertices,
+            tile=tile, unit=unit, weighted=weighted)
     return ge.gather_relax_plain(
-        worklist, n_active, rows, colstarts, frontier, vals,
-        n_vertices=n_vertices, tile=tile, unit=unit, weighted=weighted)
+        plan, rows, colstarts, frontier, vals, n_vertices=n_vertices,
+        tile=tile, unit=unit, weighted=weighted)
 
 
-def sell_relax_batched(graph: se.SellGraph, worklist, n_active, frontier,
+def sell_relax_batched(graph: se.SellGraph, plan: ge.UnionPlan, frontier,
                        vals, *, unit: int = 0, weighted: bool = False):
-    """K12: the semiring relax over (B, n_steps) slab-group work-lists;
-    the contract of `gather_relax_batched`."""
+    """K12: the semiring relax over the slab groups of ``plan``
+    (`plan_union`); the contract of `gather_relax_batched`."""
     _charge_launch()
     if _arm(vals, "sell_relax_batched"):
         KERNEL_LAUNCHES["sell_relax_batched"] += 1
-        return se.sell_relax_cuda(graph, worklist, n_active, frontier,
-                                  vals, unit=unit, weighted=weighted)
-    return se.sell_relax_plain(graph, worklist, n_active, frontier, vals,
-                               unit=unit, weighted=weighted)
+        return se.sell_relax_cuda(graph, plan, frontier, vals, unit=unit,
+                                  weighted=weighted)
+    return se.sell_relax_plain(graph, plan, frontier, vals, unit=unit,
+                               weighted=weighted)
 
 
 def layer_fused_batched(graph: lf.FusedCsr, frontier, visited, parent, *,

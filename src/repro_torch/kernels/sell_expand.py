@@ -31,9 +31,12 @@ bottom-up), K8's sweep into a zeroed ``out``, restoration.  Returns
 
 **K12** (`sell_relax_plain` / `sell_relax_cuda`): K11's two-phase
 scatter-min relax (`gather_expand.gather_relax_plain`) over the edges
-of the listed slab groups, src = ``slab_rows[s, lane]`` and nbr =
-``cols[s, q, lane]``.  Deterministic: both arms and the reference agree
-bitwise.  Replaces ``sell_relax_batched``.
+of the slab groups of a `gather_expand.UnionPlan` (`kernels.plan`), src
+= ``slab_rows[s, lane]`` and nbr = ``cols[s, q, lane]``.  The kernel
+walks the plan's union, one CTA per group for every root of its mask,
+on root-interleaved values and frontier (K11's design); the plain
+version walks each root's groups.  Deterministic: both arms and the
+reference agree bitwise.  Replaces ``sell_relax_batched``.
 
 The plain versions process a root's active groups a chunk at a time,
 so their racy writes collide differently from the kernels'; after
@@ -277,48 +280,50 @@ def slab_edges(g: SellGraph, groups):
         yield src, nbr
 
 
-def sell_relax_plain(g: SellGraph, wl, na, frontier, vals, *,
+def sell_relax_plain(g: SellGraph, plan: ge.UnionPlan, frontier, vals, *,
                      unit: int = 0, weighted: bool = False):
-    """Plain torch K12 over (B, ...) arrays: returns (out_vals, p_layer),
-    new tensors; ``vals`` is int32 or float32."""
+    """Plain torch K12 over (B, ...) arrays, each root's groups of the
+    plan: returns (out_vals, p_layer), new tensors; ``vals`` is int32 or
+    float32."""
     out = vals.clone()
     p = torch.full(vals.shape, ge.P_UNSET, dtype=torch.int32,
                    device=vals.device)
-    for b, n_act in enumerate(na.tolist()):
+    for b in range(int(plan.na.shape[0])):
+        groups = plan.items_of(b)
         for phase in (0, 1):
-            for src, nbr in slab_edges(g, wl[b, :n_act]):
+            for src, nbr in slab_edges(g, groups):
                 ge.relax_edges(g.n_vertices, src, nbr, frontier[b],
                                vals[b], out[b], p[b], unit=unit,
                                weighted=weighted, phase=phase)
     return out, p
 
 
-def sell_relax_cuda(g: SellGraph, wl, na, frontier, vals, *,
+def sell_relax_cuda(g: SellGraph, plan: ge.UnionPlan, frontier, vals, *,
                     unit: int = 0, weighted: bool = False):
-    """Launch K12 (two launches: phase 0, then phase 1) into a fresh
-    ``out_vals`` (a copy of ``vals``) and ``p_layer`` (`P_UNSET`)."""
+    """Launch K12 (two launches: phase 0, then phase 1) over the plan's
+    union into a fresh ``out_vals`` (a copy of ``vals``) and ``p_layer``
+    (`P_UNSET`), on root-interleaved values and frontier."""
     from repro_torch.kernels import _build
     n_batch = int(frontier.shape[0])
     if weighted and vals.dtype != torch.float32:
         raise ValueError("sell_relax: weighted needs float32 vals")
     ge.check_relax_args(
         "sell_relax", g.cols.device, vals,
-        dict(wl=(n_batch, g.n_steps), na=(n_batch,),
-             frontier=(n_batch, g.n_words),
+        dict(frontier=(n_batch, g.n_words),
              vals=(n_batch, int(g.deg.shape[0]))),
-        wl=wl, na=na, frontier=frontier)
-    out = vals.clone()
+        frontier=frontier)
+    ge.check_plan("sell_relax", plan, g.n_steps, n_batch, g.cols.device)
+    fr, vk = ge.interleaved(frontier), ge.interleaved(vals)
+    out = vk.clone()
     p = torch.full(vals.shape, ge.P_UNSET, dtype=torch.int32,
                    device=vals.device)
-    sms = torch.cuda.get_device_properties(g.cols.device) \
-        .multi_processor_count
-    grid_x = max(1, min(g.n_steps, CTAS_PER_SM * sms))
     lib = _build.load()
     _build.check(lib.repro_sell_relax(
-        wl.data_ptr(), na.data_ptr(), g.cols.data_ptr(),
-        g.slab_rows.data_ptr(), frontier.data_ptr(), vals.data_ptr(),
-        out.data_ptr(), p.data_ptr(), n_batch, g.n_steps, g.spp, g.n_words,
-        int(g.deg.shape[0]), g.n_vertices, int(unit), int(bool(weighted)),
-        int(vals.dtype == torch.float32), grid_x, _build.stream_of(vals)),
-        "sell_relax")
-    return out, p
+        plan.ulist.data_ptr(), plan.ucount.data_ptr(),
+        plan.rmask.data_ptr(), g.cols.data_ptr(), g.slab_rows.data_ptr(),
+        fr.data_ptr(), vk.data_ptr(), out.data_ptr(), p.data_ptr(),
+        n_batch, plan.rmask.shape[1], g.spp, int(g.deg.shape[0]),
+        g.n_vertices, int(unit), int(bool(weighted)),
+        int(vals.dtype == torch.float32), g.n_steps,
+        _build.stream_of(vals)), "sell_relax")
+    return (out.t().contiguous() if n_batch > 1 else out), p

@@ -351,9 +351,11 @@ def test_budgets_clamp_depth_to_the_block_count():
 def _to(c, device):
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
     w = lambda a: interop.words_to_torch(a, device)
-    return dict(wl=t(c["wl"]), na=t(c["na"]), rows=t(c["rows_t"]),
-                cs=t(c["cs"]), frontier=w(c["frontier"]),
-                visited=w(c["visited"]), p=t(c["p0"]))
+    plan = t_ge.UnionPlan.of_lists(t(c["wl"]), t(c["na"]),
+                                   int(c["wl"].shape[1]))
+    return dict(plan=plan, rows=t(c["rows_t"]), cs=t(c["cs"]),
+                frontier=w(c["frontier"]), visited=w(c["visited"]),
+                p=t(c["p0"]))
 
 
 @pytest.mark.cuda
@@ -364,7 +366,7 @@ def test_cuda_prefetch_matches_plain(cuda_device, bottom_up, depth):
     c = _layer_case(6, bottom_up)
     d = _to(c, cuda_device)
     out = torch.zeros_like(d["frontier"])
-    t_ge.gather_expand_cuda(d["wl"], d["na"], d["rows"], d["cs"],
+    t_ge.gather_expand_cuda(d["plan"], d["rows"], d["cs"],
                             d["frontier"], d["visited"], out, d["p"],
                             n_vertices=c["n"], tile=c["tile"],
                             bottom_up=bottom_up, prefetch_depth=depth)

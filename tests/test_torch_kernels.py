@@ -169,9 +169,11 @@ def _run_port(c, bottom_up, fn=t_ge.gather_expand_plain, device="cpu"):
     out = torch.zeros(c["frontier"].shape, dtype=torch.int32,
                       device=device)
     p = t(c["p0"])
-    fn(t(c["wl"]), t(c["na"]), t(c["rows_t"]), t(c["cs"]),
-       w(c["frontier"]), w(c["visited"]), out, p, n_vertices=c["n"],
-       tile=c["tile"], bottom_up=bottom_up)
+    plan = t_ge.UnionPlan.of_lists(t(c["wl"]), t(c["na"]),
+                                   int(c["wl"].shape[1]))
+    fn(plan, t(c["rows_t"]), t(c["cs"]), w(c["frontier"]),
+       w(c["visited"]), out, p, n_vertices=c["n"], tile=c["tile"],
+       bottom_up=bottom_up)
     return words_np(out), p.cpu().numpy()
 
 

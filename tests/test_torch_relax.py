@@ -29,6 +29,7 @@ from repro_torch.algorithms import semiring as sr
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import sell_expand as se
+from repro_torch.kernels.layer_fused import compact_worklist
 
 ALGORITHMS = ("ksource_bfs", "cc", "sssp")    # i32/1, i32/0, f32/weighted
 CSR_TILE = 256       # several rows-blocks on rmat9
@@ -46,14 +47,14 @@ def layers():
     out = {}
     for alg in ALGORITHMS:
         spec = dict(algorithm=alg, max_layers=512)
-        for fmt_name, fmt, tile, na_at in (
-                ("csr", g, CSR_TILE, 1), ("sell", sell, SELL_SPP, 2)):
+        for fmt_name, fmt, tile, plan_at in (
+                ("csr", g, CSR_TILE, 0), ("sell", sell, SELL_SPP, 1)):
             name = ("gather_relax_batched" if fmt_name == "csr"
                     else "sell_relax_batched")
             with recorded_calls(ops, name) as calls:
                 tbfs.plan(fmt, tbfs.TraversalSpec(tile=tile, **spec),
                           device="cpu").run_batched(roots)
-            best = max(calls, key=lambda c: int(c[0][na_at].sum()))
+            best = max(calls, key=lambda c: int(c[0][plan_at].na.sum()))
             out[(alg, fmt_name)] = best, calls
     return out
 
@@ -72,25 +73,28 @@ def test_relax_plain_equals_the_reference_kernel(layers, algorithm,
     assert (kw["unit"], kw["weighted"]) == (semiring.unit,
                                             semiring.weighted)
     if fmt_name == "csr":
-        wl, na, rows, colstarts, frontier, vals = args
-        n_list, n = wl.shape[1], kw["n_vertices"]
+        plan, rows, colstarts, frontier, vals = args
+        n_list, n = plan.ulist.shape[0], kw["n_vertices"]
     else:
-        graph, wl, na, frontier, vals = args
+        graph, plan, frontier, vals = args
         n_list, n = graph.n_steps, graph.n_vertices
+    # the reference takes the per-root lists the plan folds
+    wl, na = compact_worklist(plan.listed(), n_list)
     if dense:      # every block / group, for every root
         wl = torch.arange(n_list, dtype=torch.int32) \
             .expand(wl.shape[0], -1).contiguous()
         na = torch.full_like(na, n_list)
+        plan = ge.UnionPlan.of_lists(wl, na, n_list)
     assert int(na.sum()) > 0
     if fmt_name == "csr":
-        got = ge.gather_relax_plain(wl, na, rows, colstarts, frontier,
-                                    vals, **kw)
+        got = ge.gather_relax_plain(plan, rows, colstarts, frontier, vals,
+                                    **kw)
         want = ref_ge.gather_relax_batched(
             _jnp(wl), _jnp(na), _jnp(rows), _jnp(colstarts),
             jnp.asarray(words_np(frontier)), _jnp(vals), **kw,
             interpret=True)
     else:
-        got = se.sell_relax_plain(graph, wl, na, frontier, vals,
+        got = se.sell_relax_plain(graph, plan, frontier, vals,
                                   unit=kw["unit"], weighted=kw["weighted"])
         want = ref_se.sell_relax_batched(
             _jnp(graph.cols), _jnp(graph.slab_rows), _jnp(wl), _jnp(na),
@@ -115,7 +119,7 @@ def test_values_are_nonnegative_and_never_nan(layers, algorithm):
     +inf), never NaN or -0.0."""
     for fmt_name in ("csr", "sell"):
         _, calls = layers[(algorithm, fmt_name)]
-        vals_arg = 5 if fmt_name == "csr" else 4
+        vals_arg = 4 if fmt_name == "csr" else 3
         for args, _, (out_vals, _) in calls:
             for t in (args[vals_arg], out_vals):
                 assert bool((t >= 0).all())     # NaN fails this too
@@ -143,19 +147,19 @@ def test_wrappers_charge_one_launch_and_no_cuda_launch_on_cpu(layers):
 def test_cuda_wrappers_refuse_bad_arguments(layers):
     """The checks run before anything touches the card."""
     (args, kw, _), _ = layers[("cc", "csr")]
-    wl, na, rows, colstarts, frontier, vals = args
+    plan, rows, colstarts, frontier, vals = args
     with pytest.raises(ValueError, match="int32 or float32"):
-        ge.gather_relax_cuda(wl, na, rows, colstarts, frontier,
+        ge.gather_relax_cuda(plan, rows, colstarts, frontier,
                              vals.to(torch.int64), **kw)
     with pytest.raises(ValueError, match="weighted needs float32"):
-        ge.gather_relax_cuda(wl, na, rows, colstarts, frontier, vals,
+        ge.gather_relax_cuda(plan, rows, colstarts, frontier, vals,
                              n_vertices=kw["n_vertices"], tile=kw["tile"],
                              weighted=True)
     with pytest.raises(ValueError, match="frontier has shape"):
-        ge.gather_relax_cuda(wl, na, rows, colstarts, frontier[:1], vals,
+        ge.gather_relax_cuda(plan, rows, colstarts, frontier[:1], vals,
                              **kw)
     (sargs, skw, _), _ = layers[("cc", "sell")]
-    graph, swl, sna, sfr, svals = sargs
-    with pytest.raises(ValueError, match="wl has shape"):
-        se.sell_relax_cuda(graph, swl[:, :1].contiguous(), sna, sfr,
-                           svals, **skw)
+    graph, splan, sfr, svals = sargs
+    with pytest.raises(ValueError, match="plan.ulist has shape"):
+        se.sell_relax_cuda(graph, splan._replace(
+            ulist=splan.ulist[:1].contiguous()), sfr, svals, **skw)

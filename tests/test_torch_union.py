@@ -10,7 +10,8 @@ reference's owner search on R-MAT graphs and on graphs made to stress
 it (a hub spanning several tiles, a run of isolated vertices longer
 than a tile, the sentinel tail).  On the card (tests marked ``cuda``):
 K3 at depths 0 and 2 under its restoration contract and K11 bitwise,
-against their plain versions at B = 1, 8 and 33.
+against their plain versions at B = 1, 8 and 33, on the layer's plan
+(the union planner and K12 are in ``test_torch_plan.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -220,21 +221,21 @@ def _layer(n_batch, bottom_up, seed=0, tile=256):
         g.colstarts, ~visited if bottom_up else frontier, n, tile, n_blocks)
     return dict(n=n, tile=tile, rows=rows_t, cs=g.colstarts.contiguous(),
                 frontier=frontier, visited=visited, wl=wl, na=na,
-                v_pad=v_pad)
+                plan=ge.UnionPlan.of_lists(wl, na, n_blocks), v_pad=v_pad)
 
 
 def _on(c, device):
-    return {k: v.to(device) if torch.is_tensor(v) else v
-            for k, v in c.items()}
+    return {k: v.to(device) if torch.is_tensor(v)
+            else ge.UnionPlan(*(x.to(device) for x in v))
+            if isinstance(v, ge.UnionPlan) else v for k, v in c.items()}
 
 
 def _k3(c, fn, bottom_up, **extra):
     out = torch.zeros_like(c["frontier"])
     p = torch.full((c["frontier"].shape[0], c["v_pad"]), c["n"],
                    dtype=torch.int32, device=out.device)
-    fn(c["wl"], c["na"], c["rows"], c["cs"], c["frontier"], c["visited"],
-       out, p, n_vertices=c["n"], tile=c["tile"], bottom_up=bottom_up,
-       **extra)
+    fn(c["plan"], c["rows"], c["cs"], c["frontier"], c["visited"], out, p,
+       n_vertices=c["n"], tile=c["tile"], bottom_up=bottom_up, **extra)
     return out, p
 
 
@@ -279,7 +280,7 @@ def test_cuda_gather_relax_union_matches_plain(cuda_device, n_batch, dtype):
         kw = dict(unit=0, weighted=True)
     c["vals"] = torch.from_numpy(vals)
     c = _on(c, cuda_device)
-    args = (c["wl"], c["na"], c["rows"], c["cs"], c["frontier"], c["vals"])
+    args = (c["plan"], c["rows"], c["cs"], c["frontier"], c["vals"])
     got = ge.gather_relax_cuda(*args, n_vertices=c["n"], tile=c["tile"],
                                **kw)
     want = ge.gather_relax_plain(*args, n_vertices=c["n"], tile=c["tile"],
