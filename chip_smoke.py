@@ -16,9 +16,13 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    kernel's median time (the plan built outside the timed window), its
    plain version's, and its bound.  The same on that layer for K4 (the
    prefetch ring, depths 1, 2, 4: K3's contract) and K5 (one layer in
-   one launch: n_active, ``out`` and the marked set bitwise, exactly
-   one CUDA launch per call by the profiler), and for the planner, K2
-   and K3 at B = 1 from a ``run(root)`` traversal;
+   one launch, also on the largest layer of the other direction, at
+   depths 0 and 2: n_active, ``out`` and the marked set bitwise, P restored, exactly
+   one CUDA launch per call by the profiler; its co-resident grid
+   printed), K9 the same on the autotuner's SELL layout of the graph
+   (phase 3d: its largest ``fused_gather`` layer of each direction),
+   and for the planner, K2 and K3 at B = 1 from a ``run(root)``
+   traversal;
 4. main path: Graph500 R-MAT SCALE 22 / edgefactor 16 from ``--seed``,
    an all-auto plan (must resolve to BeamerHybrid + fused_gather), a
    batch of 8 roots with degree > 0, timed; one planner launch per
@@ -43,14 +47,15 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    0-4 and 6 and the direction log equal to the CSR main path's, the
    launches column as contracted, no degrade, one K9 launch per layer
    and one K10 launch per traversal by the profiler; K8 (depths 0, 1,
-   2, 4), K9 and K13 against their plain versions on the largest
-   captured SELL layer, K10 on the batch's initial state;
+   2, 4) and K13 against their plain versions on the largest captured
+   SELL layer, K10 on the batch's initial state;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
 6b. at SCALE 16 with 33 roots (two root-mask words): the planner
    (both arms, every layer, with a dense root), K3 (and K4 at each
-   depth), K11 and K12 (int32 and float32 layers) against their plain
-   versions on their contracts;
+   depth), K5 and K9 (both directions, depths 0 and 2),
+   K11 and K12 (int32 and float32 layers) against their plain versions
+   on their contracts;
 7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
    layout built on the card equals the CPU build bitwise): visited,
    depths, the stats buffer and the direction log must be identical on
@@ -170,9 +175,12 @@ PREFETCH_DEPTHS = (1, 2, 4)
 #: included): the kernels that walk the union of the lists, and the
 #: planner that builds it
 UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
-                 "== sell_relax.cu", "== plan_union.cu")
+                 "== sell_relax.cu", "== plan_union.cu",
+                 "== layer_fused.cu", "== sell_layer_fused.cu")
 WIDE_BATCH = 33               # two root-mask words
 SELL_DEPTHS = (0, 1, 2, 4)
+#: K5 and K9 on a captured layer: the depths each is held and timed at
+LAYER_DEPTHS = (0, 2)
 
 
 def log(msg: str) -> None:
@@ -226,6 +234,27 @@ def listed(args) -> int:
     list (from its plan, or K8's per-root counts)."""
     plan = args.get("plan")
     return int((plan.na if plan is not None else args["n_active"]).sum())
+
+
+def listed_in(bottom_up: bool):
+    """A `Spy` key: `listed` for a call in the ``bottom_up`` direction,
+    -1 for a call in the other."""
+    return lambda a: listed(a) if bool(a["bottom_up"]) == bottom_up else -1
+
+
+def direction_spies(ops, name: str) -> dict:
+    """{bottom_up: a `Spy` of ``name`` keeping the largest call in that
+    direction}; enter them with an `contextlib.ExitStack`."""
+    return {bu: Spy(ops, {name: listed_in(bu)}) for bu in (False, True)}
+
+
+def in_direction(spies: dict, name: str, bottom_up: bool):
+    """The largest captured call of ``name`` in a direction; the run must
+    have had one."""
+    call = spies[bottom_up].best.get(name)
+    assert call is not None and call["key"] >= 0, \
+        f"{name}: no {'bottom-up' if bottom_up else 'top-down'} layer ran"
+    return call
 
 
 class Spy:
@@ -420,10 +449,12 @@ def traced_device_events(fn, activities):
 
 
 def device_kernels(fn):
-    """Run ``fn`` under the profiler: {kernel name: launches} of the
-    device-side events (kernels and copies)."""
+    """Run ``fn`` under the profiler (host and device traced, as in
+    `profile_run`): {kernel name: launches} of the device-side events
+    (kernels and copies)."""
     from torch.profiler import ProfilerActivity
-    events, _ = traced_device_events(fn, [ProfilerActivity.CUDA])
+    events, _ = traced_device_events(
+        fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     return {e.key: e.count for e in events}
 
 
@@ -752,54 +783,112 @@ def phase_prefetch(cap, reps: int, k3: dict, label: str = ""):
                 timing=KERNEL_ONLY)
 
 
-def phase_layer_fused(cap, v_pad: int, reps: int):
-    """Phase 3c: K5 on the captured layer against its plain version:
-    n_active, ``out`` and the marked set bitwise, every parent a
-    frontier neighbour, one CUDA launch per call."""
+def layer_contract(name: str, got, want, p_init, n_active) -> int:
+    """K5's or K9's contract on one layer against its plain version:
+    n_active (also equal to the layer's own plan), ``out`` and the
+    marked set bitwise, P restored (no negative mark left).  Returns the
+    count of disagreeing entries (0; any other count fails)."""
+    (out_k, p_k, na_k), (out_p, p_p, na_p) = got, want
+    err = max(int((na_k != na_p).sum()), int((na_k != n_active).sum()),
+              int((out_k != out_p).sum()),
+              int(((p_k != p_init) != (p_p != p_init)).sum()),
+              int((p_k < 0).sum()))
+    assert err == 0, f"{name} disagrees with its plain version"
+    return err
+
+
+def phase_layer_kernel(kind: str, cap, reps: int, label: str = "",
+                       g=None):
+    """K5 (``kind`` "csr", on a captured K3 layer) or K9 ("sell", on a
+    captured K8 layer, ``g`` the CSR graph for the marks) against its
+    plain version at each depth of `LAYER_DEPTHS`: `layer_contract`,
+    every parent a frontier neighbour, one CUDA launch per call by the
+    profiler, each timed beside the plain version.  Returns the
+    kernels-line numbers (depth 0)."""
     import torch
     from repro_torch.kernels import layer_fused as lf
-    kw, n = cap["kw"], cap["kw"]["n_vertices"]
-    fg = lf.fused_csr(cap["colstarts"], cap["rows"], n, kw["tile"], v_pad)
-    bu = kw["bottom_up"]
-    p_buf = cap["p_init"].clone()
-    run = lambda: lf.layer_fused_cuda(fg, cap["frontier"], cap["visited"],
-                                      p_buf, bottom_up=bu)
-    out_k, p_k, na_k = run()
-    p_plain = cap["p_init"].clone()
-    out_p, p_p, na_p = lf.layer_fused_plain(fg, cap["frontier"],
-                                            cap["visited"], p_plain,
-                                            bottom_up=bu)
-    torch.cuda.synchronize()
-    marked_k, marked_p = p_k != cap["p_init"], p_p != cap["p_init"]
-    err = max(int((na_k != na_p).sum()), int((na_k != cap["plan"].na).sum()),
-              int((out_k != out_p).sum()), int((marked_k != marked_p).sum()),
-              int(((cap["visited"] | out_k)
-                   != (cap["visited"] | out_p)).sum()))
-    assert err == 0, "layer_fused disagrees with its plain version"
-    check_marks(cap, torch.where(marked_k, p_k - n, cap["p_init"]),
-                cap["frontier"])
-    n_marked = int(marked_k.sum())
+    from repro_torch.kernels import sell_expand as se
+    bu, p_init = cap["kw"]["bottom_up"], cap["p_init"]
+    fr, vis = cap["frontier"], cap["visited"]
+    if kind == "csr":
+        name, device_name = "layer_fused_batched", "layer_fused_kernel"
+        n = cap["kw"]["n_vertices"]
+        graph = lf.fused_csr(cap["colstarts"], cap["rows"], n,
+                             cap["kw"]["tile"], int(p_init.shape[1]))
+        cuda, plain, n_active = (lf.layer_fused_cuda, lf.layer_fused_plain,
+                                 cap["plan"].na)
+        grid_of = lambda d: lf.layer_fused_grid(graph, d)[0]
+        marks = lambda p: check_marks(cap, p, fr)
+        bytes_of = lambda m: fused_layer_bytes(graph, fr, vis, bu, m)
+    else:
+        name = "sell_layer_fused_batched"
+        device_name = "sell_layer_fused_kernel"
+        graph = cap["graph"]
+        n = graph.n_vertices
+        cuda, plain, n_active = (se.sell_layer_fused_cuda,
+                                 se.sell_layer_fused_plain, cap["n_active"])
+        grid_of = lambda d: se.sell_layer_fused_grid(graph, d)
+        marks = lambda p: sell_check_marks(cap, p, g)
+        bytes_of = lambda m: sell_layer_bytes(graph, fr, vis, bu, m)
+    p_plain = p_init.clone()
+    want = tuple(t.clone() for t in plain(graph, fr, vis, p_plain,
+                                          bottom_up=bu))
+    p_buf = p_init.clone()
 
     def reset():
-        p_buf.copy_(cap["p_init"])
+        p_buf.copy_(p_init)
 
-    reset()
-    kernels = device_kernels(run)
-    assert sum(kernels.values()) == 1 \
-        and launches_of(kernels, "layer_fused_kernel") == 1, \
-        f"K5 must be one CUDA launch per call, profiler saw {kernels}"
-    res = dict(max_abs_err=err, n_marked=n_marked,
-               bytes=fused_layer_bytes(fg, cap["frontier"], cap["visited"],
-                                       bu, n_marked),
-               ms=cuda_ms(run, reps, setup=reset),
-               plain_ms=cuda_ms(lambda: lf.layer_fused_plain(
-                   fg, cap["frontier"], cap["visited"], p_plain,
-                   bottom_up=bu), 3, setup=lambda: p_plain.copy_(cap["p_init"])))
+    runs = {depth: functools.partial(cuda, graph, fr, vis, p_buf,
+                                     bottom_up=bu, prefetch_depth=depth)
+            for depth in LAYER_DEPTHS}
+    # one launch per call, by the profiler, on the main path's layer (no
+    # label), one call per session: CUPTI
+    # on the card's machine dropped events of sessions that held several
+    # calls and, once long traversals had been profiled, returned three
+    # empty sessions in a row (phases 5b and 6b of four runs)
+    for depth in () if label else LAYER_DEPTHS:
+        reset()
+        kernels = device_kernels(runs[depth])
+        assert sum(kernels.values()) == 1 \
+            and launches_of(kernels, device_name) == 1, \
+            f"{name} must be one CUDA launch per call, profiler saw " \
+            f"{kernels}"
+    per = {}
+    for depth, run in runs.items():
+        reset()
+        got = run()
+        torch.cuda.synchronize()
+        err = layer_contract(f"{name}{label} (depth {depth})", got, want,
+                             p_init, n_active)
+        marked = got[1] != p_init
+        marks(torch.where(marked, got[1] - n, p_init))
+        n_marked = int(marked.sum())
+        per[depth] = ms = cuda_ms(run, reps, setup=reset)
+        log(json.dumps({"kernel": name + label, "prefetch_depth": depth,
+                        "ms": ms, "grid": grid_of(depth),
+                        "max_abs_err": err, "bottom_up": bu,
+                        "marked": n_marked, "cuda_launches_per_call": 1}))
+    res = dict(max_abs_err=0, n_marked=n_marked, bytes=bytes_of(n_marked),
+               ms=per[0], per_depth=per,
+               plain_ms=cuda_ms(lambda: plain(graph, fr, vis, p_plain,
+                                              bottom_up=bu), 3,
+                                setup=lambda: p_plain.copy_(p_init)))
     res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
-    log(json.dumps({"kernel": "layer_fused_batched", "ms": res["ms"],
-                    "plain_ms": res["plain_ms"], "bytes": res["bytes"],
-                    "bound_ms": res["bound_ms"], "max_abs_err": err,
-                    "cuda_launches_per_call": 1}))
+    log_row(name + label, res, bottom_up=bu)
+    return res
+
+
+def layer_kernel_both_ways(kind: str, cap, dirs: dict, reps: int,
+                           label: str = "", g=None):
+    """`phase_layer_kernel` on the captured largest layer ``cap`` and on
+    the largest layer of the other direction (``dirs``: the run's
+    `direction_spies`); returns the numbers of the first."""
+    res = phase_layer_kernel(kind, cap, reps, label, g)
+    bu = not cap["kw"]["bottom_up"]
+    name = "gather_expand_batched" if kind == "csr" else "sell_batched"
+    phase_layer_kernel(kind, in_direction(dirs, name, bu),
+                       max(3, reps // 4),
+                       label + ("_bottomup" if bu else "_topdown"), g)
     return res
 
 
@@ -888,8 +977,8 @@ def sell_check_marks(cap, p_racy, g):
 
 
 def phase_sell_kernels(cap, g, reps: int):
-    """K8 (depths 0, 1, 2, 4) and K9 on the captured SELL layer, K13 on
-    its frontier words, each against its plain version on the card."""
+    """K8 (depths 0, 1, 2, 4) on the captured SELL layer and K13 on its
+    frontier words, each against its plain version on the card."""
     import torch
     from repro_torch.kernels import bitmap_kernels as bk
     from repro_torch.kernels import restoration as rest
@@ -941,29 +1030,6 @@ def phase_sell_kernels(cap, g, reps: int):
         max_abs_err=0, ms=per_depth[2], plain_ms=plain_ms, bytes=bytes_k8,
         per_depth=per_depth)
 
-    # K9 on the same state
-    p9 = cap["p_init"].clone()
-    run9 = lambda: se.sell_layer_fused_cuda(graph, cap["frontier"],
-                                            cap["visited"], p9, bottom_up=bu)
-    out_k, p_k, na_k = run9()
-    p9_plain = cap["p_init"].clone()
-    out_q, p_q, na_q = se.sell_layer_fused_plain(
-        graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu)
-    torch.cuda.synchronize()
-    marked_k, marked_q = p_k != cap["p_init"], p_q != cap["p_init"]
-    err = max(int((na_k != na_q).sum()), int((na_k != cap["n_active"]).sum()),
-              int((out_k != out_q).sum()), int((marked_k != marked_q).sum()))
-    assert err == 0, "sell_layer_fused disagrees with its plain version"
-    sell_check_marks(cap, torch.where(marked_k, p_k - n, cap["p_init"]), g)
-    bytes_k9 = sell_layer_bytes(graph, cap["frontier"], cap["visited"], bu,
-                                int(marked_k.sum()))
-    res["sell_layer_fused_batched"] = dict(
-        max_abs_err=err, bytes=bytes_k9,
-        ms=cuda_ms(run9, reps, setup=lambda: p9.copy_(cap["p_init"])),
-        plain_ms=cuda_ms(lambda: se.sell_layer_fused_plain(
-            graph, cap["frontier"], cap["visited"], p9_plain, bottom_up=bu),
-            3, setup=lambda: p9_plain.copy_(cap["p_init"])))
-
     # K13 on the layer's frontier words
     words = cap["frontier"]
     got, want = bk.popcount_cuda(words), bk.popcount_plain(words)
@@ -982,6 +1048,27 @@ def phase_sell_kernels(cap, g, reps: int):
     log(f"K8 layer: {cap['key']} active slab groups (all roots), "
         f"{n_marked} marked, bottom_up={bu}")
     return res
+
+
+def phase_sell_layer(g, roots, reps: int, label: str = ""):
+    """Phase 3d (and 6b): K9 (`layer_kernel_both_ways`) on the largest
+    SELL layer of each direction of a ``fused_gather`` run of ``roots``
+    on the autotuner's SELL layout of ``g``.  On the main path it runs
+    before any long traversal is profiled: after those, the card's
+    CUPTI returned empty sessions."""
+    import repro_torch.bfs as bfs
+    from repro_torch import formats
+    from repro_torch.kernels import ops
+    fmt = formats.build(g, "auto")
+    assert isinstance(fmt, formats.SellFormat), type(fmt)
+    dirs = direction_spies(ops, "sell_batched")
+    with Spy(ops, {"sell_batched": listed}) as spy, \
+            contextlib.ExitStack() as stack:
+        for d in dirs.values():
+            stack.enter_context(d)
+        bfs.plan(fmt, bfs.TraversalSpec()).run_batched(roots)
+    return layer_kernel_both_ways("sell", spy.best["sell_batched"], dirs,
+                                  reps, label, g)
 
 
 def phase_sell_traversal_kernel(ct, roots, layers, reps: int):
@@ -1267,9 +1354,10 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     ``g`` and its SELL layout ``sell``: the union planner (both arms, on
     every layer of the main-path traversal, as planned and with a dense
     root), K2, K3 (and K4 at each depth) and K1 on the largest layer,
-    and K11 and K12 on the largest ksource_bfs (int32) and sssp
-    (float32) layers, against their plain versions with the phase-3 and
-    phase-9 contracts."""
+    K5 and K9 on the largest layer of each direction (depths 0 and 2),
+    and K11 and K12 on the largest ksource_bfs (int32)
+    and sssp (float32) layers, against their plain versions with the
+    phase-3 and phase-9 contracts."""
     import repro_torch.bfs as bfs
     from repro_torch.kernels import ops
     roots = pick_roots(g, WIDE_BATCH, seed + 3)
@@ -1278,16 +1366,22 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     ct = bfs.plan(g, bfs.TraversalSpec())
     sell_graph = sell.sell_graph(bfs.plan(sell, bfs.TraversalSpec())
                                  .resolved.tile)
+    dirs = direction_spies(ops, "gather_expand_batched")
     with plan_layers_spy(ops) as layers, \
             Spy(ops, {"plan_union": None,
-                      "gather_expand_batched": listed}) as spy:
+                      "gather_expand_batched": listed}) as spy, \
+            contextlib.ExitStack() as stack:
+        for d in dirs.values():
+            stack.enter_context(d)
         ct.run_batched(roots)
     plan_gates(layers.calls, {"csr": None, "sell": sell_graph}, label)
     cap = spy.best["gather_expand_batched"]
     k3 = phase_kernels(cap, g.n_vertices, g.n_vertices_padded, reps,
                        label=label)
     phase_prefetch(cap, reps, k3["gather_expand_batched"], label=label)
-    del cap, spy, layers
+    layer_kernel_both_ways("csr", cap, dirs, reps, label)
+    del cap, spy, layers, dirs
+    phase_sell_layer(g, roots, reps, label)
     relax = {}
     for alg, fields in (("ksource_bfs", {}),
                         ("sssp", dict(max_layers=512))):
@@ -1299,8 +1393,8 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
                     .run_batched(roots)
     phase_relax_kernels(relax, reps, label=label, fold=False)
     log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
-        f"V={g.n_vertices}: the planner, K3, K4, K11 and K12 equal their "
-        f"plain versions")
+        f"V={g.n_vertices}: the planner, K3, K4, K5, K9, K11 and K12 equal "
+        f"their plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1839,23 +1933,30 @@ def main(argv=None) -> int:
         and r.prefetch_depth == 0, r
     roots = pick_roots(g, BATCH, args.seed)
     log(f"roots: {roots}")
+    dirs = direction_spies(ops, "gather_expand_batched")
     with plan_layers_spy(ops) as plan_layers, \
             Spy(ops, {"plan_union": None,
-                      "gather_expand_batched": listed}) as spy:
+                      "gather_expand_batched": listed}) as spy, \
+            contextlib.ExitStack() as stack:
+        for d in dirs.values():
+            stack.enter_context(d)
         ct.run_batched(roots)
     cap = spy.best["gather_expand_batched"]
     torch.cuda.synchronize()
 
     # 3. kernels vs plain versions (the planner on every layer); 3b K4;
-    # 3c K5; the planner, K2 and K3 at B = 1
+    # 3c K5 and 3d K9 (both directions, depths 0 and 2);
+    # the planner, K2 and K3 at B = 1
     plan_gates(plan_layers.calls, {"csr": None})
     kres = phase_kernels(cap, g.n_vertices, g.n_vertices_padded,
                          args.reps)
     kres["gather_expand_prefetch"] = phase_prefetch(
         cap, args.reps, kres["gather_expand_batched"])
-    kres["layer_fused_batched"] = phase_layer_fused(
-        cap, g.n_vertices_padded, args.reps)
-    del cap, spy
+    kres["layer_fused_batched"] = layer_kernel_both_ways(
+        "csr", cap, dirs, args.reps)
+    del cap, spy, dirs
+    kres["sell_layer_fused_batched"] = phase_sell_layer(g, roots, args.reps)
+    bfs.clear_plan_cache()
     torch.cuda.empty_cache()
     with Spy(ops, {"plan_union": None,
                    "gather_expand_batched": listed}) as cap1:
@@ -2013,7 +2114,8 @@ def main(argv=None) -> int:
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
             f"depths equal bfs_serial, every CSR and SELL pipeline equals "
             f"fused_gather; {bfs.direction_log(base16)}")
-    # 6b. two root-mask words: the planner, K3, K4, K11 and K12 at B = 33
+    # 6b. two root-mask words: the planner, K3, K4, K5, K9, K11 and K12
+    # at B = 33
     phase_wide_batch(g16, sell16, args.seed, max(3, args.reps // 4))
     del g16, sell16
     bfs.clear_plan_cache()

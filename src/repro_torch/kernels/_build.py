@@ -32,7 +32,7 @@ SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
            "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu",
            "plan_union.cu")
 HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
-           "traversal_loop.cuh", "relax_common.cuh")
+           "traversal_loop.cuh", "relax_common.cuh", "union_phases.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -45,14 +45,14 @@ SIGNATURES = {
     "repro_tile_popcounts": (_P, _P, _I, _I, _I, _P),
     "repro_rank_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_gather_expand": (_P,) * 9 + (_I,) * 10 + (_P,),
-    "repro_layer_fused_grid": (_I, _I, _I, _P),
-    "repro_layer_fused": (_P,) * 12 + (_I,) * 10 + (_P,),
+    "repro_layer_fused_grid": (_I,) * 4 + (_P,),
+    "repro_layer_fused": (_P,) * 17 + (_I,) * 11 + (_P,),
     "repro_traversal_fused_grid": (_I, _I, _I, _P),
     "repro_traversal_fused": (_P,) * 21 + (_I,) * 10 + (_F,) * 3
     + (_I, _P),
     "repro_sell_expand": (_P,) * 8 + (_I,) * 9 + (_P,),
-    "repro_sell_layer_fused_grid": (_I, _I, _I, _P),
-    "repro_sell_layer_fused": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "repro_sell_layer_fused_grid": (_I,) * 3 + (_P,),
+    "repro_sell_layer_fused": (_P,) * 14 + (_I,) * 9 + (_P,),
     "repro_sell_traversal_fused_grid": (_I, _I, _I, _P),
     "repro_sell_traversal_fused": (_P,) * 19 + (_I,) * 9 + (_F,) * 3
     + (_I, _P),

@@ -3,19 +3,21 @@
 //
 // * the per-root body, `expand_block` over `sweep` (a CTA walks one
 //   root's work-list and searches each slot's owner with `owner_in`):
-//   the fused layer and traversal kernels K5 and K6 (fused_phases.cuh);
+//   the whole-traversal kernel K6 (fused_phases.cuh);
 // * the union body, `owners_by_scan` + `expand_roots` over
 //   `sweep_union` (a CTA walks the union of the batch's work-lists and
 //   serves every root whose bit is set in the block's root mask, the
 //   owners of a block put in shared memory by one scan): K3 and K4
 //   (gather_expand.cu) and K11 (gather_relax.cu, with its own per-root
-//   step in relax_common.cuh).
+//   step in relax_common.cuh); K5 runs the same pair over a union it
+//   plans in the launch (union_phases.cuh).
 //
 // Also here: `sweep_items`, the walk with `depth` items in flight into
 // a (depth + 1)-stage ring of shared memory (`cp.async`), or read
 // straight from device memory at depth 0, which the SELL kernels use
-// with their own stage (K8-K10 over each root's list, K12 over the
-// union); block-wide sums and an exclusive scan of one flag per thread.
+// with their own stage (K8 and K10 over each root's list, K9 and K12
+// over the union); block-wide sums and an exclusive scan of one flag per
+// thread.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,7 +41,7 @@ __device__ __forceinline__ int owner_in(const int* __restrict__ cs, int lo,
 }
 
 // A load of a word that another CTA of the same launch may write.
-// kCoherent (K5, K6: state rewritten between grid barriers) reads
+// kCoherent (K6, K10: state rewritten between grid barriers) reads
 // through L2 only (ld.global.cg); never the non-coherent path.
 template <bool kCoherent>
 __device__ __forceinline__ unsigned load_word(const unsigned* p) {
@@ -398,6 +400,21 @@ __device__ __forceinline__ void owners_by_scan(const int* __restrict__ cs,
   block_prefix_max(own, n);
 }
 
+// A word of the state a union walk reads and no CTA writes during it:
+// kReadOnly, state the launch never writes (K3's inputs), by the
+// non-coherent path; else state an earlier phase of the same launch
+// wrote before a grid barrier (K5's and K9's masks and interleaved
+// copies) by a plain load, which may hit L1 and which the barrier
+// orders after those writes.  The launch writes that state, so nvcc
+// keeps the plain load off the non-coherent path (ld.global, LDG.E);
+// `__ldca` would give a strong SM-scope load (LDG.E.STRONG.SM), which
+// ran K9 2.2 times slower.
+template <bool kReadOnly>
+__device__ __forceinline__ unsigned ld_walk(const unsigned* p) {
+  if constexpr (kReadOnly) return __ldg(p);
+  return *p;
+}
+
 // The racy gather-expand over n slots of one block for every root whose
 // bit is set in `mask` (n_mask_words words): slot i has owner own[i] and
 // neighbour rows_sub[i].  Per root, the body of `expand_block`: the
@@ -407,7 +424,10 @@ __device__ __forceinline__ void owners_by_scan(const int* __restrict__ cs,
 // so the B words of one vertex share a sector.  The owner side of each
 // test goes first (the gate top-down, the candidate bottom-up): it is
 // the same word for a run of slots, so a root it rules out costs no
-// load of the random side.  P stays (B, v_pad).
+// load of the random side.  P stays (B, v_pad).  mask, fr and vis are
+// read by `ld_walk<kReadOnly>` (K3: read-only inputs; K5: written in
+// the launch before its walk).
+template <bool kReadOnly = true>
 __device__ __forceinline__ void expand_roots(
     const int* rows_sub, const int* own, int n,
     const unsigned* __restrict__ mask, int n_mask_words,
@@ -425,12 +445,12 @@ __device__ __forceinline__ void expand_roots(
     unsigned* oc = out + (cand >> 5) * n_batch;
     const unsigned gbit = 1u << (gate & 31), cbit = 1u << (cand & 31);
     for (int k = 0; k < n_mask_words; ++k) {
-      for (unsigned m = __ldg(mask + k); m; m &= m - 1) {
+      for (unsigned m = ld_walk<kReadOnly>(mask + k); m; m &= m - 1) {
         const int b = 32 * k + __ffs(m) - 1;
-        if (!bottom_up && !(__ldg(fg + b) & gbit)) continue;
+        if (!bottom_up && !(ld_walk<kReadOnly>(fg + b) & gbit)) continue;
         const unsigned ow = oc[b];                         // racy read
-        if ((__ldg(vc + b) | ow) & cbit) continue;
-        if (bottom_up && !(__ldg(fg + b) & gbit)) continue;
+        if ((ld_walk<kReadOnly>(vc + b) | ow) & cbit) continue;
+        if (bottom_up && !(ld_walk<kReadOnly>(fg + b) & gbit)) continue;
         p[b * v_pad + cand] = gate - n_vertices;           // negative mark
         oc[b] = ow | cbit;                                 // racy write
       }

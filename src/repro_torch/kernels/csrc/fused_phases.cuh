@@ -1,24 +1,33 @@
-// The grid-wide phases of one BFS layer, shared by the whole-layer
-// kernel (K5, layer_fused.cu) and the whole-traversal kernel (K6,
-// traversal_fused.cu).  Every function here is called by every thread
-// of every CTA of a cooperative launch, between grid barriers:
+// The grid-wide phases of one BFS layer that walk each root's own
+// work-list, run by the whole-traversal kernel (K6, traversal_fused.cu,
+// through traversal_loop.cuh).  Every function here is called by every
+// thread of every CTA of a cooperative launch, between grid barriers:
 //
-//   plan_count  | plan_write  | gather  | restore (K5) / restore_update (K6)
+//   plan_count  | plan_write  | gather  | restore_update (K6)
 //
 // * plan: rows-block blk is covered iff some vertex whose adjacency
 //   intersects it is active and has degree > 0.  Those vertices are
 //   exactly the ids in [blk_lo[blk], blk_hi[blk]] (the owners of the
 //   block's first and last slot, loop constants built once per plan)
-//   that have degree > 0, so the test is an OR over a few words of
-//   `active & nz`.  That is the reference's difference-scatter plan
-//   (`layer_fused._plan_in_kernel`) without the scatter.  Each CTA
+//   that have degree > 0, so the test (`covered`) is an OR over a few
+//   words of `active & nz`.  That is the reference's difference-scatter
+//   plan (`layer_fused._plan_in_kernel`) without the scatter.  Each CTA
 //   counts the covered blocks of its contiguous chunk; after a barrier
 //   each CTA sums the counts of the CTAs before it and writes its
 //   chunk's block ids there, so the work-list is ascending, as the
 //   reference's.  n_active[b] is its length.
-// * gather: the CTAs stride over every root's work-list (`bfs::sweep`).
-// * restore: one warp per 32 vertices; a ballot of the negative P marks
-//   is the delta word, ORed into `out`.
+// * gather: the CTAs stride over every root's work-list (`bfs::sweep`),
+//   so a block that r roots list is read, and its owners searched, r
+//   times.
+// * restore (`restore_word`, traversal_loop.cuh's `restore_update`): one
+//   warp per 32 vertices; a ballot of the negative P marks is the delta
+//   word, ORed into `out`.
+//
+// The whole-layer kernels K5 and K9 no longer walk per root: they plan
+// the union of the lists with the same `covered` (and K9's
+// `group_roots`) and walk it with one CTA per item for every root
+// (union_phases.cuh), which K6's loop could adopt the same way.  Also
+// here: the host side of a cooperative launch (the co-resident grid).
 //
 // State that CTAs rewrite inside the launch (bitmaps, P, work-lists,
 // counts) is read with ld.global.cg, never the non-coherent path.
@@ -155,21 +164,6 @@ __device__ __forceinline__ unsigned restore_word(int* p_word, int lane,
   const bool marked = v < 0;
   if (marked) p_word[lane] = v + n_vertices;
   return __ballot_sync(0xffffffffu, marked);
-}
-
-// Phase 4 of K5 (and K9): restore P and OR the delta into out.  G has
-// n_words, v_pad and n_vertices.
-template <class G>
-__device__ inline void restore(const G& g, int* p, unsigned* out,
-                               int n_batch) {
-  const int lane = threadIdx.x & 31;
-  const long long total = static_cast<long long>(n_batch) * g.n_words;
-  for (long long q = grid_warp(); q < total; q += grid_warps()) {
-    const long long b = q / g.n_words, w = q - b * g.n_words;
-    const unsigned delta =
-        restore_word(p + b * g.v_pad + w * 32, lane, g.n_vertices);
-    if (lane == 0 && delta) out[q] = __ldcg(out + q) | delta;
-  }
 }
 
 // ---------------------------------------------------------------------------

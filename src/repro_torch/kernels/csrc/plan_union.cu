@@ -29,7 +29,9 @@
 // on the same grid, sums the counts of the CTAs before it, ranks its
 // chunk's listed items by a block scan and writes them at that offset,
 // zeroes the list's tail, and CTA 0 sums each root's count.  No host
-// sync, no atomics on the outputs: the result is deterministic.
+// sync, no atomics on the outputs: the result is deterministic.  The
+// device code of both launches lives in union_phases.cuh, where K5 and
+// K9 run it in-kernel between grid barriers.
 //
 // What bounds it on this card: bytes.  CSR: blk_lo and blk_hi (8 bytes
 // an item), the planning words of each root over the owner ranges and
@@ -39,7 +41,7 @@
 // microseconds against the tens of milliseconds of launches it replaces.
 #include <cuda_runtime.h>
 
-#include "sell_phases.cuh"
+#include "union_phases.cuh"
 
 namespace {
 
@@ -52,28 +54,6 @@ __device__ void dense_words(const unsigned char* __restrict__ dense,
     for (int b = threadIdx.x; b < n_batch; b += blockDim.x)
       if (dense[b]) atomicOr(s + (b >> 5), 1u << (b & 31));
   __syncthreads();
-}
-
-// The chunk's counts from the masks it just wrote: cnt[b * grid + cta]
-// for each root b, cnt[B * grid + cta] for the items any root lists.
-__device__ void chunk_counts(const unsigned* rmask, int n_mask_words,
-                             int n_batch, int begin, int end, int* cnt) {
-  __syncthreads();                  // this CTA's masks are visible to it
-  for (int b = 0; b <= n_batch; ++b) {
-    long long s[1] = {0};
-    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-      const unsigned* m = rmask + static_cast<long long>(i) * n_mask_words;
-      if (b < n_batch) {
-        s[0] += (__ldcg(m + (b >> 5)) >> (b & 31)) & 1u;
-      } else {
-        unsigned any = 0;
-        for (int k = 0; k < n_mask_words; ++k) any |= __ldcg(m + k);
-        s[0] += any != 0;
-      }
-    }
-    bfs::block_sum(s);
-    if (threadIdx.x == 0) cnt[b * gridDim.x + blockIdx.x] = int(s[0]);
-  }
 }
 
 // Launch 1, CSR arm: one thread per rows-block of the chunk.
@@ -95,20 +75,9 @@ __global__ void __launch_bounds__(bfs::kThreads) plan_masks_csr(
   g.n_vertices = n_vertices;
   int begin, end;
   bfs::chunk_of_cta(n_blocks, &begin, &end);
-  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    for (int k = 0; k < n_mask_words; ++k) {
-      unsigned m = s_dense[k];
-      const int nb = min(32, n_batch - 32 * k);
-      for (int j = 0; j < nb; ++j) {
-        if ((m >> j) & 1u) continue;
-        const unsigned* act =
-            words + static_cast<long long>(32 * k + j) * n_words;
-        if (bfs::covered(g, act, complement != 0, i)) m |= 1u << j;
-      }
-      rmask[static_cast<long long>(i) * n_mask_words + k] = m;
-    }
-  }
-  chunk_counts(rmask, n_mask_words, n_batch, begin, end, cnt);
+  bfs::union_masks_csr<true>(g, words, complement != 0, n_batch, s_dense,
+                             rmask, begin, end);
+  bfs::union_counts(rmask, n_mask_words, n_batch, begin, end, cnt);
 }
 
 // Launch 1, SELL arm: one warp per slab group of the chunk, reading the
@@ -130,17 +99,9 @@ __global__ void __launch_bounds__(bfs::kThreads) plan_masks_sell(
   g.n_vertices = n_vertices;
   int begin, end;
   bfs::chunk_of_cta(n_steps, &begin, &end);
-  for (int grp = begin + (threadIdx.x >> 5); grp < end; grp += bfs::kWarps) {
-    for (int k = 0; k < n_mask_words; ++k) {
-      const int b0 = 32 * k, nb = min(32, n_batch - b0);
-      const unsigned m = s_dense[k] | bfs::group_roots<false>(
-                                          g, words, complement != 0, b0,
-                                          nb, grp);
-      if ((threadIdx.x & 31) == 0)
-        rmask[static_cast<long long>(grp) * n_mask_words + k] = m;
-    }
-  }
-  chunk_counts(rmask, n_mask_words, n_batch, begin, end, cnt);
+  bfs::union_masks_sell<true>(g, words, complement != 0, n_batch, s_dense,
+                              rmask, begin, end);
+  bfs::union_counts(rmask, n_mask_words, n_batch, begin, end, cnt);
 }
 
 // Launch 2 (both arms): the ascending union list, its count, the tail's
@@ -148,45 +109,7 @@ __global__ void __launch_bounds__(bfs::kThreads) plan_masks_sell(
 __global__ void __launch_bounds__(bfs::kThreads) plan_write(
     const unsigned* __restrict__ rmask, const int* __restrict__ cnt,
     int* ulist, int* ucount, int* na, int n_items, int n_batch) {
-  const int n_mask_words = (n_batch + 31) >> 5;
-  const int grid = gridDim.x;
-  if (blockIdx.x == 0) {            // each root's count, a warp per root
-    const int lane = threadIdx.x & 31;
-    for (int b = threadIdx.x >> 5; b < n_batch; b += bfs::kWarps) {
-      int s = 0;
-      for (int c = lane; c < grid; c += 32) s += __ldg(cnt + b * grid + c);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) na[b] = s;
-    }
-  }
-  long long s[2] = {0, 0};          // CTAs before this one, all CTAs
-  for (int c = threadIdx.x; c < grid; c += blockDim.x) {
-    const int v = __ldg(cnt + n_batch * grid + c);
-    s[1] += v;
-    if (c < static_cast<int>(blockIdx.x)) s[0] += v;
-  }
-  bfs::block_sum(s);
-  const int total = int(s[1]);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *ucount = total;
-  int begin, end;
-  bfs::chunk_of_cta(n_items, &begin, &end);
-  int off = int(s[0]);
-  for (int base = begin; base < end; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    bool listed = false;
-    if (i < end)
-      for (int k = 0; k < n_mask_words; ++k)
-        listed |= __ldg(rmask + static_cast<long long>(i) * n_mask_words +
-                        k) != 0;
-    int chunk_total;
-    const int r = bfs::block_rank(listed, &chunk_total);
-    if (listed) ulist[off + r] = i;
-    off += chunk_total;
-  }
-  for (int p = begin + threadIdx.x; p < end; p += blockDim.x)
-    if (p >= total) ulist[p] = 0;
+  bfs::union_write<false>(rmask, cnt, ulist, ucount, na, n_items, n_batch);
 }
 
 int launch_write(const void* rmask, void* cnt, void* ulist, void* ucount,

@@ -1,5 +1,5 @@
 // K9: one SELL-C-σ BFS layer of a root batch in ONE cooperative launch,
-// for Hopper.
+// for Hopper, walking the union of the roots' work-lists.
 //
 // Replaces: src/repro/kernels/sell_expand.py, `sell_layer_fused_batched`
 // (Pallas body `_sell_layer_batched_kernel`: `_plan_slabs_in_kernel`,
@@ -15,22 +15,37 @@
 // non-negative.  The engine ORs `out` into visited.
 //
 // The TPU kernel plans at grid step 0, sweeps, and restores at the
-// last step.  Here the four phases (plan count, plan write, sweep,
-// restore; sell_phases.cuh and fused_phases.cuh) are separated by grid
+// last step.  Here four phases (union_phases.cuh) are separated by grid
 // barriers of a cooperative launch whose grid is sized from the
-// occupancy API, so every CTA is resident.  The plan reads each
-// group's slab_rows once for all roots (32 roots per mask word, kept in
-// `gmask`); the work-lists and counts are scratch the wrapper
-// allocates.
+// occupancy API, so every CTA is resident:
+//   1. frontier and visited copied root-interleaved, (n_words, B), and
+//      per contiguous chunk of groups one
+//      root-mask word per (group, 32 roots), one warp reading a group's
+//      slab_rows once for 32 roots (`bfs::group_roots`), with per-root
+//      and "any root" counts per CTA — the union planner's launch 1;
+//   2. the ascending union of the listed groups, its count and each
+//      root's n_active — its launch 2;
+//   3. one CTA per union group for every root of its mask
+//      (`bfs::sell_group_union`): each lane reads its row and its 8
+//      columns once (from a cp.async ring of cols and slab_rows at
+//      depth > 0), and the roots whose owner side passes run inside
+//      the neighbour loop, so a random neighbour's words serve them
+//      all (K12's loop order); bottom-up a root stops at the row's
+//      first frontier neighbour, which P names;
+//   4. restoration of P, `out` written back to rows from the
+//      interleaved discoveries with the delta ORed in.
 //
-// What bounds it on this card: the sweep, as K8 (bytes: the active
-// groups' cols and slab_rows per root), plus one pass over slab_rows
-// for the plan (n_slabs * 512 B) and one over P for restoration
-// ((4 + 4) * B * V_pad bytes).
+// What bounds it on this card: bytes, in practice the latency of the
+// random neighbour words of phase 3.  Each input once: every slab's row
+// ids (the plan), the planning words, the union's cols, one P word per
+// discovery, P read and written by restoration ((4 + 4) * B * V_pad
+// bytes), `out` written.  The per-root design it replaces read a
+// group's cols and slab_rows once per root that listed it, and each
+// root fetched a random neighbour's sector again.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "sell_phases.cuh"
+#include "union_phases.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -38,23 +53,54 @@ namespace {
 
 __global__ void __launch_bounds__(bfs::kThreads) sell_layer_fused_kernel(
     bfs::SellGraph g, const unsigned* frontier, const unsigned* visited,
-    int* p, bfs::LayerBuffers buf, unsigned* gmask, int n_batch,
-    int bottom_up, int depth) {
+    int* p, bfs::UnionBuffers buf, int n_batch, int bottom_up, int depth) {
   extern __shared__ __align__(16) int ring[];
   cg::grid_group grid = cg::this_grid();
-  const unsigned* plan_words = bottom_up ? visited : frontier;
-  const long long n_out = static_cast<long long>(n_batch) * g.n_words;
-  for (long long i = grid.thread_rank(); i < n_out; i += grid.size())
-    buf.out[i] = 0u;
-  bfs::sell_plan_count<true>(g, plan_words, bottom_up != 0, n_batch, gmask,
-                             buf.cnt);
+  const bool bu = bottom_up != 0;
+  const int n_mask_words = (n_batch + 31) >> 5;
+
+  // 1. state, root masks, per-CTA counts
+  bfs::stage_state(frontier, visited, buf, n_batch, g.n_words);
+  int begin, end;
+  bfs::chunk_of_cta(g.n_steps, &begin, &end);
+  bfs::union_masks_sell<false>(g, bu ? visited : frontier, bu, n_batch,
+                               nullptr, buf.rmask, begin, end);
+  bfs::union_counts(buf.rmask, n_mask_words, n_batch, begin, end, buf.cnt);
   grid.sync();
-  bfs::sell_plan_write(g, n_batch, gmask, buf);
+  // 2. the union list, its count, each root's count
+  bfs::union_write<true>(buf.rmask, buf.cnt, buf.ulist, buf.ucount, buf.na,
+                         g.n_steps, n_batch);
   grid.sync();
-  bfs::sell_gather(g, frontier, visited, p, buf, n_batch, bottom_up != 0,
-                   depth, ring);
+  // 3. one CTA per union group for every root of its mask
+  const bfs::LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
+  const int cols_ints = g.spp * bfs::kSlabInts;
+  const int rows_ints = g.spp * bfs::kSliceC;
+  bfs::sweep_items(
+      items, 0, depth, cols_ints + rows_ints, ring,
+      [&](int* dst, int grp) {
+        bfs::stage_block(dst,
+                         g.cols + static_cast<long long>(grp) * cols_ints,
+                         cols_ints);
+        bfs::stage_block(
+            dst + cols_ints,
+            g.slab_rows + static_cast<long long>(grp) * rows_ints,
+            rows_ints);
+      },
+      [&](int, int grp, const int* slot) {
+        const int* cols_g =
+            slot ? slot : g.cols + static_cast<long long>(grp) * cols_ints;
+        const int* rows_g =
+            slot ? slot + cols_ints
+                 : g.slab_rows + static_cast<long long>(grp) * rows_ints;
+        bfs::sell_group_union(
+            cols_g, rows_g, g.spp,
+            buf.rmask + static_cast<long long>(grp) * n_mask_words,
+            n_mask_words, buf.fi, buf.vi, buf.oi, p, n_batch, g.v_pad,
+            g.n_vertices, bu);
+      });
   grid.sync();
-  bfs::restore(g, p, buf.out, n_batch);
+  // 4. restoration
+  bfs::restore_union(g, p, buf, n_batch);
 }
 
 size_t ring_bytes(int depth, int spp) {
@@ -74,27 +120,31 @@ extern "C" int repro_sell_layer_fused_grid(int depth, int spp,
 }
 
 // frontier, visited: (B, n_words) words; p: (B, v_pad) int32, restored
-// in place.  out (B, n_words), wl (B, n_steps), cnt (B, grid), na (B,)
-// and gmask (n_steps * ceil(B / 32)) are written.  `grid` must come
-// from repro_sell_layer_fused_grid with the same depth and spp.
+// in place.  out (B, n_words), rmask (n_steps, ceil(B / 32)), ulist
+// (n_steps,), ucount (1,), cnt (B + 1, grid) and na (B,) are written;
+// fi, vi, oi ((n_words, B) each) are scratch.  `grid` must come from
+// repro_sell_layer_fused_grid with the same depth and spp.
 extern "C" int repro_sell_layer_fused(
     const void* cols, const void* slab_rows, const void* frontier,
-    const void* visited, void* p, void* out, void* wl, void* cnt, void* na,
-    void* gmask, int n_batch, int n_steps, int spp, int n_words, int v_pad,
+    const void* visited, void* p, void* out, void* rmask, void* ulist,
+    void* ucount, void* cnt, void* na, void* fi, void* vi, void* oi,
+    int n_batch, int n_steps, int spp, int n_words, int v_pad,
     int n_vertices, int bottom_up, int depth, int grid, void* stream) {
   if (n_batch == 0) return 0;
   bfs::SellGraph g{static_cast<const int*>(cols),
                    static_cast<const int*>(slab_rows),
                    nullptr,
                    n_steps, spp, n_words, v_pad, n_vertices};
-  bfs::LayerBuffers buf{static_cast<unsigned*>(out), static_cast<int*>(wl),
-                        static_cast<int*>(cnt), static_cast<int*>(na)};
+  bfs::UnionBuffers buf{
+      static_cast<unsigned*>(out), static_cast<unsigned*>(rmask),
+      static_cast<int*>(ulist),    static_cast<int*>(ucount),
+      static_cast<int*>(cnt),      static_cast<int*>(na),
+      static_cast<unsigned*>(fi),  static_cast<unsigned*>(vi),
+      static_cast<unsigned*>(oi)};
   const unsigned* fr = static_cast<const unsigned*>(frontier);
   const unsigned* vis = static_cast<const unsigned*>(visited);
   int* pp = static_cast<int*>(p);
-  unsigned* gm = static_cast<unsigned*>(gmask);
-  void* args[] = {&g, &fr, &vis, &pp, &buf, &gm, &n_batch, &bottom_up,
-                  &depth};
+  void* args[] = {&g, &fr, &vis, &pp, &buf, &n_batch, &bottom_up, &depth};
   return bfs::launch_cooperative(sell_layer_fused_kernel, grid,
                                  ring_bytes(depth, spp), stream, args);
 }

@@ -1,35 +1,39 @@
-// The SELL-C-σ slab sweep and its grid-wide plan, shared by the slab
-// kernel (K8, sell_expand.cu), the whole-layer kernel (K9,
-// sell_layer_fused.cu) and the whole-traversal kernel (K10,
-// sell_traversal_fused.cu).
+// The SELL-C-σ slab sweep over each root's work-list and its grid-wide
+// plan, shared by the slab kernel (K8, sell_expand.cu) and the
+// whole-traversal kernel (K10, sell_traversal_fused.cu); the planner
+// (plan_union.cu) and the whole-layer kernel (K9, sell_layer_fused.cu)
+// take `group_roots` and the layout from here and walk the union of
+// the lists instead (union_phases.cuh).
 //
 // Layout (formats/sell.py): a slab is an (8, 128) int32 block;
 // cols[slab][q][lane] is neighbour q of the virtual row in `lane`
 // (sentinel V pads), slab_rows[slab][lane] the vertex owning that row.
 // A work-list item is a group of `spp` consecutive slabs.
 //
-// * sell_group: one thread per lane (thread i: slab i >> 7, lane
-//   i & 127), W_QUANT column loads each, coalesced across the lanes of
-//   a warp.  Top-down gates on the row being in the frontier and
-//   discovers each neighbour; bottom-up discovers the row, gated on a
-//   neighbour in the frontier, and stops at the row's first discovery.
-//   The `out` update is the paper's non-atomic read-OR-write (§3.3.2):
-//   bits can be dropped, every passing lane writes its negative P
-//   mark, and restoration repairs `out` from those marks.  Sentinel
-//   rows and neighbours (== V) never index P or a bitmap.
+// * sell_group: one root's sweep of one group, one thread per lane
+//   (thread i: slab i >> 7, lane i & 127), W_QUANT column loads each,
+//   coalesced across the lanes of a warp.  Top-down gates on the row
+//   being in the frontier and discovers each neighbour; bottom-up
+//   discovers the row, gated on a neighbour in the frontier, and stops
+//   at the row's first discovery.  The `out` update is the paper's
+//   non-atomic read-OR-write (§3.3.2): bits can be dropped, every
+//   passing lane writes its negative P mark, and restoration repairs
+//   `out` from those marks.  Sentinel rows and neighbours (== V) never
+//   index P or a bitmap.
 // * sell_sweep: a CTA's walk over its share of the work-lists
 //   (`bfs::sweep_items`), each group's cols and slab_rows staged
-//   together in one ring slot at depth > 0.
-// * sell_plan_count / sell_plan_write: slab group `grp` is active for
-//   root b iff one of its lanes owns a row below V that is a member of
-//   the planning bitmap (the frontier, or the unvisited set bottom-up:
-//   the reference's `_plan_slabs_in_kernel`).  One warp reads a
-//   group's slab_rows once and tests them against up to 32 roots'
-//   bitmaps, giving one root-mask word per (group, 32 roots), kept in
-//   `gmask`; each CTA counts its contiguous chunk of groups per root,
-//   and after a grid barrier writes its active groups at the offset
-//   summed from the CTAs before it: an ascending work-list and its
-//   length, exactly the reference's.
+//   together in one ring slot at depth > 0; a group that r roots list
+//   is read r times.
+// * sell_plan_count / sell_plan_write (K10): slab group `grp` is active
+//   for root b iff one of its lanes owns a row below V that is a member
+//   of the planning bitmap (the frontier, or the unvisited set
+//   bottom-up: the reference's `_plan_slabs_in_kernel`).  One warp
+//   reads a group's slab_rows once and tests them against up to 32
+//   roots' bitmaps (`group_roots`), giving one root-mask word per
+//   (group, 32 roots), kept in `gmask`; each CTA counts its contiguous
+//   chunk of groups per root, and after a grid barrier writes its
+//   active groups at the offset summed from the CTAs before it: an
+//   ascending work-list and its length, exactly the reference's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -229,7 +233,7 @@ __device__ inline void sell_plan_write(const SellGraph& g, int n_batch,
   }
 }
 
-// Phase 3 of K9 and K10: every root's listed groups into buf.out and P.
+// Phase 3 of K10: every root's listed groups into buf.out and P.
 __device__ __forceinline__ void sell_gather(const SellGraph& g,
                                    const unsigned* frontier,
                                    const unsigned* visited, int* p,

@@ -7,19 +7,19 @@
 // `_decide`, `_plan_slabs_in_kernel` and the `_sell_tile_dyn` sweep).
 //
 // What it computes: K6's in-kernel layer loop (traversal_loop.cuh) with
-// K9's phases as the layer's sweep (sell_phases.cuh): the slab plan of
-// the frontier (or, bottom-up, of the unvisited set), the slab sweep
-// with the layer's direction, restoration.  The Table 1 counters come
-// from the padded degree array, SELL having no colstarts.  SELL runs
-// the SIMD algorithm only, so every mode is the slab sweep with the
-// accumulating `visited | out` test; a scalar-mode layer is the
-// top-down sweep (the reference's `_sell_tile_dyn` has no scalar
-// blend).
+// the per-root slab phases (sell_phases.cuh) as the layer's sweep: the
+// slab plan of the frontier (or, bottom-up, of the unvisited set), the
+// slab sweep with the layer's direction, restoration.  The Table 1
+// counters come from the padded degree array, SELL having no
+// colstarts.  SELL runs the SIMD algorithm only, so every mode is the
+// slab sweep with the accumulating `visited | out` test; a scalar-mode
+// layer is the top-down sweep (the reference's `_sell_tile_dyn` has no
+// scalar blend).
 //
 // Every read of state rewritten between layers (frontier, visited, P,
 // out, the work-lists, counts and root masks) is ld.global.cg.
 //
-// What bounds it on this card: the sweeps, as K9; plus per layer one
+// What bounds it on this card: the sweeps, as K8; plus per layer one
 // pass over slab_rows (the plan), over P (restoration) and over the
 // bitmaps and degrees (counters).
 #include <cooperative_groups.h>
@@ -30,7 +30,7 @@
 
 namespace {
 
-// K9's phases as the loop's layer sweep.
+// The per-root slab phases as the loop's layer sweep.
 struct SellLayer {
   bfs::SellGraph g;
   unsigned* gmask;       // (n_steps, ceil(B / 32)) root masks

@@ -9,8 +9,8 @@
 // two share the layer loop of traversal_loop.cuh.
 //
 // What it computes: the engine's layer loop over a root batch
-// (traversal_loop.cuh) with K5's phases (fused_phases.cuh) as the
-// layer's sweep: the owner-range plan, the rows-block gather and, at
+// (traversal_loop.cuh) with the per-root phases of fused_phases.cuh as
+// the layer's sweep: the owner-range plan, the rows-block gather and, at
 // the layer's end, restoration; a scalar-mode layer tests the
 // pre-layer visited only (`_gather_tile_dyn`).
 //
@@ -18,7 +18,7 @@
 // device memory (and mostly L2) and the layers' phases are separated by
 // grid barriers of a cooperative launch.
 //
-// What bounds it on this card: the gathers, as K5; plus per layer one
+// What bounds it on this card: the gathers, as K3; plus per layer one
 // pass over P (restoration) and over the bitmaps and degrees (counters).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -27,7 +27,7 @@
 
 namespace {
 
-// K5's phases as the loop's layer sweep.
+// The per-root phases as the loop's layer sweep.
 struct CsrLayer {
   bfs::FusedGraph g;
 

@@ -1,0 +1,346 @@
+// The union of a batch's work-lists, planned and walked on the card,
+// shared by the union planner (plan_union.cu, two launches) and the
+// one-launch layer kernels K5 (layer_fused.cu, CSR rows-blocks) and K9
+// (sell_layer_fused.cu, SELL-C-σ slab groups), so that the planner and
+// the kernels cannot drift apart.
+//
+// Planning, in a CTA's contiguous chunk of items (`chunk_of_cta`):
+//
+// * union_masks_csr / union_masks_sell: one root-mask word per (item,
+//   32 roots), bit j of word k set when root 32 k + j lists the item:
+//   CSR, `covered` (an active vertex of degree > 0 in the block's owner
+//   range, fused_phases.cuh); SELL, `group_roots` (one warp reads a
+//   group's slab_rows once for 32 roots, sell_phases.cuh).
+// * union_counts: the chunk's listed items per root and for "any root"
+//   (row B of `cnt`).
+// * union_write, after a grid barrier (K5, K9) or in a second launch
+//   (the planner): each CTA sums the "any root" counts of the CTAs
+//   before it and writes its chunk's listed items there, ranked by a
+//   block scan, so the list is ascending; the tail is zeroed and CTA 0
+//   sums each root's count.  No atomics on the outputs: deterministic.
+//
+// The walk (K5, K9): a CTA per union item for every root of its mask,
+// over `sweep_items` (a cp.async ring at depth > 0).
+//
+// * K5: per slot of a rows-block, with its owner from the block's
+//   shared-memory owner scan (`owners_by_scan`), K3's `expand_roots`
+//   for each root of the mask (bfs_common.cuh).
+// * sell_group_union (K9): per lane of a slab group, its row and 8
+//   neighbours read once; the roots of the mask whose owner side
+//   passes (the row in the frontier top-down, the row unvisited
+//   bottom-up) run inside the neighbour loop, so a random neighbour's
+//   word serves every root.  Bottom-up, a root is done with the row at
+//   its first frontier neighbour, whose id P takes (`sell_group`'s
+//   per-root break).
+//
+// The walk's per-root state is root-interleaved, (n_words, B) (root b's
+// word w at w * B + b: the B words of one vertex share a sector): the
+// first phase copies frontier and visited from their (B, n_words) rows
+// into scratch, the restore phase copies the discoveries back to rows
+// (`stage_state`, `restore_union`).  Loads: the planning phases read
+// what other CTAs wrote in the same phase or the one before through L2
+// only (ld.global.cg); the walk reads the state that no CTA writes
+// during it (the masks, the list and the interleaved copies, written
+// before its grid barrier) with loads that may hit L1 (`ld_walk<false>`,
+// which the barrier orders), so that the B roots of one vertex's sector
+// miss once; and the racy `out` as K3 does, with plain loads: a stale
+// word only costs a duplicate mark, which restoration absorbs.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "sell_phases.cuh"
+
+namespace bfs {
+
+// A load of data the calling kernel may have written earlier in the same
+// launch (kCoherent: ld.global.cg) or never writes (the non-coherent
+// path).
+template <bool kCoherent, class T>
+__device__ __forceinline__ T ld_state(const T* p) {
+  if constexpr (kCoherent) return __ldcg(p);
+  return __ldg(p);
+}
+
+// ---------------------------------------------------------------------------
+// Planning
+// ---------------------------------------------------------------------------
+
+// Root masks of the CSR rows-blocks [begin, end), one thread per block.
+// `words`: (B, n_words) planning bitmaps (complemented when
+// `complement`); kSeeded: every block starts from the n_mask_words
+// words of m0 (the planner's dense roots, in shared memory), else from
+// none (m0 unused).
+template <bool kSeeded>
+__device__ __forceinline__ void union_masks_csr(
+    const FusedGraph& g, const unsigned* __restrict__ words,
+    bool complement, int n_batch, const unsigned* __restrict__ m0,
+    unsigned* rmask, int begin, int end) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
+    for (int k = 0; k < n_mask_words; ++k) {
+      unsigned m = kSeeded ? m0[k] : 0u;
+      const int nb = min(32, n_batch - 32 * k);
+      for (int j = 0; j < nb; ++j) {
+        if ((m >> j) & 1u) continue;
+        const unsigned* act =
+            words + static_cast<long long>(32 * k + j) * g.n_words;
+        if (covered(g, act, complement, i)) m |= 1u << j;
+      }
+      rmask[static_cast<long long>(i) * n_mask_words + k] = m;
+    }
+  }
+}
+
+// Root masks of the slab groups [begin, end), one warp per group.
+template <bool kSeeded>
+__device__ __forceinline__ void union_masks_sell(
+    const SellGraph& g, const unsigned* __restrict__ words,
+    bool complement, int n_batch, const unsigned* __restrict__ m0,
+    unsigned* rmask, int begin, int end) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  for (int grp = begin + (threadIdx.x >> 5); grp < end; grp += kWarps) {
+    for (int k = 0; k < n_mask_words; ++k) {
+      const int b0 = 32 * k, nb = min(32, n_batch - b0);
+      const unsigned m = (kSeeded ? m0[k] : 0u) |
+                         group_roots<false>(g, words, complement, b0, nb,
+                                            grp);
+      if ((threadIdx.x & 31) == 0)
+        rmask[static_cast<long long>(grp) * n_mask_words + k] = m;
+    }
+  }
+}
+
+// The chunk's counts from the masks this CTA just wrote: cnt[b * grid +
+// cta] for each root b, cnt[B * grid + cta] for the items any root
+// lists.
+__device__ __forceinline__ void union_counts(const unsigned* rmask,
+                                             int n_mask_words, int n_batch,
+                                             int begin, int end, int* cnt) {
+  __syncthreads();                  // this CTA's masks are visible to it
+  for (int b = 0; b <= n_batch; ++b) {
+    long long s[1] = {0};
+    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
+      const unsigned* m = rmask + static_cast<long long>(i) * n_mask_words;
+      if (b < n_batch) {
+        s[0] += (__ldcg(m + (b >> 5)) >> (b & 31)) & 1u;
+      } else {
+        unsigned any = 0;
+        for (int k = 0; k < n_mask_words; ++k) any |= __ldcg(m + k);
+        s[0] += any != 0;
+      }
+    }
+    block_sum(s);
+    if (threadIdx.x == 0) cnt[b * gridDim.x + blockIdx.x] = int(s[0]);
+  }
+}
+
+// The ascending union list, its count, the tail's zeros and each root's
+// count, on the grid that wrote `cnt` (kCoherent: in the same launch).
+template <bool kCoherent>
+__device__ __forceinline__ void union_write(
+    const unsigned* __restrict__ rmask, const int* __restrict__ cnt,
+    int* ulist, int* ucount, int* na, int n_items, int n_batch) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  const int grid = gridDim.x;
+  if (blockIdx.x == 0) {            // each root's count, a warp per root
+    const int lane = threadIdx.x & 31;
+    for (int b = threadIdx.x >> 5; b < n_batch; b += kWarps) {
+      int s = 0;
+      for (int c = lane; c < grid; c += 32)
+        s += ld_state<kCoherent>(cnt + b * grid + c);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_down_sync(0xffffffffu, s, off);
+      if (lane == 0) na[b] = s;
+    }
+  }
+  long long s[2] = {0, 0};          // CTAs before this one, all CTAs
+  for (int c = threadIdx.x; c < grid; c += blockDim.x) {
+    const int v = ld_state<kCoherent>(cnt + n_batch * grid + c);
+    s[1] += v;
+    if (c < static_cast<int>(blockIdx.x)) s[0] += v;
+  }
+  block_sum(s);
+  const int total = int(s[1]);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *ucount = total;
+  int begin, end;
+  chunk_of_cta(n_items, &begin, &end);
+  int off = int(s[0]);
+  for (int base = begin; base < end; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    bool listed = false;
+    if (i < end)
+      for (int k = 0; k < n_mask_words; ++k)
+        listed |= ld_state<kCoherent>(
+                      rmask + static_cast<long long>(i) * n_mask_words +
+                      k) != 0;
+    int chunk_total;
+    const int r = block_rank(listed, &chunk_total);
+    if (listed) ulist[off + r] = i;
+    off += chunk_total;
+  }
+  for (int q = begin + threadIdx.x; q < end; q += blockDim.x)
+    if (q >= total) ulist[q] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// The walk of the union (K5, K9)
+// ---------------------------------------------------------------------------
+
+// The scratch of a one-launch layer over the union.
+struct UnionBuffers {
+  unsigned* out;    // (B, n_words): the layer's discoveries, repaired
+  unsigned* rmask;  // (n_items, ceil(B / 32)) root masks
+  int* ulist;       // (n_items,) the union, ascending, then zeros
+  int* ucount;      // (1,) its length
+  int* cnt;         // (B + 1, gridDim.x) per-CTA counts
+  int* na;          // (B,) each root's count
+  unsigned* fi;     // (n_words, B) interleaved frontier, visited and
+  unsigned* vi;     // racy discoveries
+  unsigned* oi;
+};
+
+// `UnionItems` over a list written earlier in the same launch, before a
+// grid barrier.
+struct LaunchUnionItems {
+  const int* ulist;
+  int count;
+
+  using Cursor = UnionItems::Cursor;
+
+  __device__ Cursor first(int) const {
+    return Cursor{0, static_cast<int>(blockIdx.x)};
+  }
+  __device__ void next(Cursor& c) const { c.t += gridDim.x; }
+  __device__ bool valid(const Cursor& c) const { return c.t < count; }
+  __device__ int blk(const Cursor& c) const { return ulist[c.t]; }
+};
+
+// The first phase's state: frontier and visited copied from (B, n_words)
+// to (n_words, B), the interleaved discoveries zeroed.
+__device__ __forceinline__ void stage_state(const unsigned* frontier,
+                                            const unsigned* visited,
+                                            const UnionBuffers& buf,
+                                            int n_batch, int n_words) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < n_words;
+       w += stride) {
+    for (int b = 0; b < n_batch; ++b) {
+      const long long r = static_cast<long long>(b) * n_words + w;
+      const long long i = static_cast<long long>(w) * n_batch + b;
+      buf.fi[i] = __ldg(frontier + r);
+      buf.vi[i] = __ldg(visited + r);
+      buf.oi[i] = 0u;
+    }
+  }
+}
+
+// K9's body over one slab group for every root of `mask`.  cols_g /
+// rows_g point at the group's cols and slab_rows, in device or shared
+// memory; mask, fr and vis were written in the launch before its walk,
+// and the bitmaps are root-interleaved as in `expand_roots`.  Sentinel
+// rows and columns (== V) never index P or a bitmap.
+__device__ __forceinline__ void sell_group_union(
+    const int* cols_g, const int* rows_g, int spp, const unsigned* mask,
+    int n_mask_words, const unsigned* fr, const unsigned* vis,
+    unsigned* out, int* p, long long n_batch, long long v_pad,
+    int n_vertices, bool bottom_up) {
+  const int n_lanes = spp * kSliceC;
+  for (int i = threadIdx.x; i < n_lanes; i += blockDim.x) {
+    const int row = rows_g[i];
+    if (row >= n_vertices) continue;                  // sentinel row
+    const int* c = cols_g + (i >> 7) * kSlabInts + (i & (kSliceC - 1));
+    const long long rw = (row >> 5) * n_batch;
+    const unsigned rbit = 1u << (row & 31);
+    int nbr[kWQuant];
+    bool loaded = false;
+    for (int k = 0; k < n_mask_words; ++k) {
+      // the roots of the mask whose owner side passes: the row in the
+      // frontier top-down, the row unvisited bottom-up
+      unsigned live = 0;
+      for (unsigned m = ld_walk<false>(mask + k); m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        const long long ri = rw + 32 * k + j;
+        const bool pass = bottom_up
+                              ? !(ld_walk<false>(vis + ri) & rbit)
+                              : (ld_walk<false>(fr + ri) & rbit) != 0;
+        if (pass) live |= 1u << j;
+      }
+      if (!live) continue;
+      if (!loaded) {
+#pragma unroll
+        for (int q = 0; q < kWQuant; ++q) nbr[q] = c[q * kSliceC];
+        loaded = true;
+      }
+      // neighbour-major: a neighbour's words serve every live root
+#pragma unroll
+      for (int q = 0; q < kWQuant; ++q) {
+        const int nb = nbr[q];
+        if (nb >= n_vertices || !live) continue;      // sentinel column
+        const long long nw = (nb >> 5) * n_batch;
+        const unsigned nbit = 1u << (nb & 31);
+        for (unsigned m = live; m; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          const int b = 32 * k + j;
+          if (!bottom_up) {
+            const unsigned ow = out[nw + b];              // racy read
+            if ((ld_walk<false>(vis + nw + b) | ow) & nbit) continue;
+            p[b * v_pad + nb] = row - n_vertices;         // negative mark
+            out[nw + b] = ow | nbit;                      // racy write
+          } else {
+            if (!(ld_walk<false>(fr + nw + b) & nbit)) continue;
+            const unsigned ow = out[rw + b];
+            if (!(ow & rbit)) {
+              p[b * v_pad + row] = nb - n_vertices;
+              out[rw + b] = ow | rbit;
+            }
+            live &= ~(1u << j);  // root b's row is discovered: stop
+          }
+        }
+      }
+    }
+  }
+}
+
+// The last phase: restore P and write `out` (rows) from the interleaved
+// discoveries with the delta ORed in.  A
+// warp restores 4 words (128 P entries) of a root per step, 4 entries a
+// lane by one 16-byte load, so that each warp keeps 512 bytes in
+// flight; the 8 lanes of a word OR their 4-bit pieces of its delta
+// together.  G has n_words, v_pad and n_vertices (v_pad = 32 n_words).
+template <class G>
+__device__ __forceinline__ void restore_union(const G& g, int* p,
+                                              const UnionBuffers& buf,
+                                              int n_batch) {
+  const int lane = threadIdx.x & 31;
+  const int piece = lane & 7;           // the lane's 4 entries of its word
+  const long long n_steps = (g.n_words + 3) / 4;
+  for (int b = 0; b < n_batch; ++b) {
+    int* pb = p + static_cast<long long>(b) * g.v_pad;
+    const long long ob = static_cast<long long>(b) * g.n_words;
+    for (long long s = grid_warp(); s < n_steps; s += grid_warps()) {
+      const long long w = 4 * s + (lane >> 3);
+      const bool live = w < g.n_words;
+      int4* at = reinterpret_cast<int4*>(pb + w * 32 + 4 * piece);
+      int4 v = live ? __ldcg(at) : make_int4(0, 0, 0, 0);
+      const unsigned m = (v.x < 0) | (v.y < 0) << 1 | (v.z < 0) << 2 |
+                         (v.w < 0) << 3;
+      if (m) {
+        if (v.x < 0) v.x += g.n_vertices;
+        if (v.y < 0) v.y += g.n_vertices;
+        if (v.z < 0) v.z += g.n_vertices;
+        if (v.w < 0) v.w += g.n_vertices;
+        *at = v;
+      }
+      unsigned delta = m << (4 * piece);
+      delta |= __shfl_xor_sync(0xffffffffu, delta, 1);
+      delta |= __shfl_xor_sync(0xffffffffu, delta, 2);
+      delta |= __shfl_xor_sync(0xffffffffu, delta, 4);
+      if (piece == 0 && live)
+        buf.out[ob + w] = __ldcg(buf.oi + w * n_batch + b) | delta;
+    }
+  }
+}
+
+}  // namespace bfs

@@ -204,17 +204,17 @@ def check_plan(kernel: str, plan: UnionPlan, n_items: int, n_batch: int,
                              f"{tuple(t.shape)}, expected {shapes[name]}")
 
 
-def owner_sub(tile: int, depth: int) -> int:
-    """Slots per owner scan of the CUDA kernels: `OWNER_SUB` (or the
-    tile), fewer where a K4 ring leaves less room; refused below one
-    warp's worth."""
+def owner_sub(tile: int, depth: int, kernel: str = "gather_expand") -> int:
+    """Slots per owner scan of the CUDA kernels (K3, K4, K5, K11):
+    `OWNER_SUB` (or the tile), fewer where a rows ring leaves less room;
+    refused below one warp's worth (or the tile)."""
     room = (SMEM_OPTIN_BYTES - stage_bytes(tile, depth) - SMEM_RESERVE) // 4
     sub = min(tile, OWNER_SUB, room)
-    if sub < 32:
+    if sub < min(tile, 32):
         raise ValueError(
-            f"gather_expand: prefetch_depth={depth} at tile={tile} leaves "
+            f"{kernel}: prefetch_depth={depth} at tile={tile} leaves "
             f"{max(room, 0) * 4} bytes of shared memory per CTA for the "
-            f"owner scan; it needs 128")
+            f"owner scan; it needs {4 * min(tile, 32)}")
     return sub
 
 

@@ -3,12 +3,17 @@ version.
 
 For each root of a batch: plan the rows-blocks that the active
 vertices' adjacency covers (the frontier top-down, the unvisited set
-``~visited`` bottom-up), gather-expand them (K3's body) into a zeroed
+``~visited`` bottom-up), gather-expand them (K3's function) into a zeroed
 ``out`` and, in place, P, then restore — so the returned ``out`` holds
 every vertex discovered this layer and P is non-negative.  Returns
 (out, P, n_active).  The CUDA kernel (``csrc/layer_fused.cu``) replaces
 ``repro.kernels.layer_fused``'s Pallas kernels; it runs its phases in one
-cooperative launch.
+cooperative launch: it plans the union of the roots' lists (the union
+planner's two launches, `kernels.plan`, run in-kernel between grid
+barriers) and walks it with one CTA per block for every root that lists
+it, on root-interleaved (n_words, B) copies of the bitmaps made in the
+launch.  The plain version walks each root's own list; after
+restoration both give the same ``out``, marked set and ``n_active``.
 
 **The plan.**  A block is covered iff an active vertex with degree > 0
 has an edge slot in it.  Those vertices are the ids in
@@ -22,6 +27,7 @@ keeps no copy.
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -33,7 +39,16 @@ from repro_torch.kernels.restoration import restoration_plain
 #: shared memory of the kernels' own reductions (block sums and ranks),
 #: an upper bound of what ``nvcc -Xptxas -v`` reports for K5 and K6
 FUSED_STATIC_SMEM = 1024
-CTAS_PER_SM = 4            # cooperative grid: at most this many per SM
+#: K6's and K10's cooperative grid: at most this many CTAs per SM.  Each
+#: layer of their in-kernel loop crosses several grid barriers, whose
+#: cost grows with the grid; they keep the count they were ported with.
+CTAS_PER_SM = 4
+#: K5's and K9's grid: at most this many CTAs per SM (an SM holds 2048
+#: threads, 8 CTAs of 256); the occupancy at the kernel's shared memory
+#: decides.  They cross three barriers per launch, and their union walk
+#: waits on one random bitmap word per (slot, root), which more resident
+#: warps hide.
+LAYER_CTAS_PER_SM = 8
 
 
 class FusedCsr(NamedTuple):
@@ -141,15 +156,51 @@ def check_args(g: FusedCsr, kernel: str, frontier, visited, parent):
                              f"{(n_batch, width)}")
 
 
-def cooperative_grid(lib_fn, depth: int, tile: int) -> int:
-    """CTAs of a fully co-resident grid for a fused kernel."""
+def cooperative_grid(lib_fn, *args, ctas_per_sm: int = CTAS_PER_SM) -> int:
+    """CTAs of a fully co-resident grid for K6 or K10 (K5, K9:
+    ``ctas_per_sm`` `LAYER_CTAS_PER_SM`); ``args``: the C grid function's
+    own, before the CTAs per SM."""
     import ctypes
 
     from repro_torch.kernels import _build
     grid = ctypes.c_int(0)
-    _build.check(lib_fn(int(depth), int(tile), CTAS_PER_SM,
-                        ctypes.byref(grid)), "cooperative grid")
+    _build.check(lib_fn(*map(int, args), ctas_per_sm, ctypes.byref(grid)),
+                 "cooperative grid")
     return grid.value
+
+
+def check_p_aligned(kernel: str, parent) -> None:
+    """K5 and K9 restore P with 16-byte loads: its rows must start on
+    16 bytes (a tensor's own storage does; a slice at an odd offset may
+    not)."""
+    if parent.data_ptr() % 16:
+        raise ValueError(f"{kernel}: parent must start on a 16-byte "
+                         f"boundary, got address {parent.data_ptr():#x}")
+
+
+def union_scratch(n_items: int, n_batch: int, n_words: int, grid: int,
+                  device):
+    """K5's and K9's scratch in one ``torch.empty``: (n_active (B,),
+    the buffer, pointers to rmask, ulist, ucount, cnt, then the
+    interleaved fi, vi, oi).  The kernel writes every word before it
+    reads it."""
+    n_mask_words = -(-n_batch // 32)
+    sizes = (n_items * n_mask_words, n_items, 1, (n_batch + 1) * grid) \
+        + (n_words * n_batch,) * 3
+    buf = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
+    ptrs = [buf.data_ptr() + 4 * o
+            for o in itertools.accumulate((0,) + sizes[:-1])]
+    na = torch.empty((n_batch,), dtype=torch.int32, device=device)
+    return na, buf, ptrs
+
+
+def layer_fused_grid(g: FusedCsr, depth: int):
+    """K5's co-resident grid and owner slots at ``depth``."""
+    from repro_torch.kernels import _build
+    sub = ge.owner_sub(g.tile, depth, "layer_fused")
+    return cooperative_grid(_build.load().repro_layer_fused_grid, depth,
+                            g.tile, sub,
+                            ctas_per_sm=LAYER_CTAS_PER_SM), sub
 
 
 def layer_fused_cuda(g: FusedCsr, frontier, visited, parent, *,
@@ -158,26 +209,28 @@ def layer_fused_cuda(g: FusedCsr, frontier, visited, parent, *,
     from repro_torch.kernels import _build
     n_batch = int(frontier.shape[0])
     check_args(g, "layer_fused", frontier, visited, parent)
+    check_p_aligned("layer_fused", parent)
     depth = min(max(int(prefetch_depth), 0), g.n_blocks)
-    lib = _build.load()
-    grid = cooperative_grid(lib.repro_layer_fused_grid, depth, g.tile)
-    dev = g.rows.device
+    grid, sub = layer_fused_grid(g, depth)
+    n_words = int(g.nz.shape[0])
     out = torch.empty_like(frontier)
-    wl = torch.empty((n_batch, g.n_blocks), dtype=torch.int32, device=dev)
-    cnt = torch.empty((n_batch, grid), dtype=torch.int32, device=dev)
-    na = torch.empty((n_batch,), dtype=torch.int32, device=dev)
-    _build.check(lib.repro_layer_fused(
+    # ``scratch`` keeps the memory behind ``ptrs`` alive for the launch
+    na, scratch, ptrs = union_scratch(g.n_blocks, n_batch, n_words, grid,
+                                      g.rows.device)
+    _build.check(_build.load().repro_layer_fused(
         g.rows.data_ptr(), g.colstarts.data_ptr(), g.blk_lo.data_ptr(),
         g.blk_hi.data_ptr(), g.nz.data_ptr(), frontier.data_ptr(),
-        visited.data_ptr(), parent.data_ptr(), out.data_ptr(),
-        wl.data_ptr(), cnt.data_ptr(), na.data_ptr(), n_batch, g.n_blocks,
-        g.tile, int(g.colstarts.shape[0]), int(g.nz.shape[0]),
-        int(g.deg.shape[0]), g.n_vertices, int(bool(bottom_up)), depth,
-        grid, _build.stream_of(parent)), "layer_fused")
+        visited.data_ptr(), parent.data_ptr(), out.data_ptr(), *ptrs[:4],
+        na.data_ptr(), *ptrs[4:], n_batch, g.n_blocks, g.tile,
+        int(g.colstarts.shape[0]), n_words, int(g.deg.shape[0]),
+        g.n_vertices, int(bool(bottom_up)), depth, sub, grid,
+        _build.stream_of(parent)),
+        "layer_fused")
     return out, parent, na
 
 
 def smem_budget(tile: int, depth: int) -> int:
     """Shared memory one CTA of K5 or K6 needs: the rows ring plus the
-    reductions' scratch."""
+    reductions' scratch.  K5's owner scan takes `gather_expand.owner_sub`
+    ints of what is left (a tile's worth, up to `OWNER_SUB`)."""
     return ge.stage_bytes(tile, depth) + FUSED_STATIC_SMEM

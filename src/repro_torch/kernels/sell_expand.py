@@ -27,7 +27,11 @@ layer per launch — plan (a group is active iff one of its lanes owns a
 row below V that is in ``words``: the frontier top-down, ``~visited``
 bottom-up), K8's sweep into a zeroed ``out``, restoration.  Returns
 (out restored, P restored in place, n_active).  Replaces
-``sell_layer_fused[_batched]``.
+``sell_layer_fused[_batched]``.  The kernel plans the union of the
+roots' lists in the launch and walks it with one CTA per group for
+every root of its mask, neighbour-major with the roots inside (K12's
+design), on root-interleaved copies of the bitmaps; the plain version
+walks each root's list with K8's plain sweep.
 
 **K12** (`sell_relax_plain` / `sell_relax_cuda`): K11's two-phase
 scatter-min relax (`gather_expand.gather_relax_plain`) over the edges
@@ -220,20 +224,17 @@ def sell_expand_cuda(g: SellGraph, wl, na, frontier, visited, out, p, *,
     return out, p
 
 
-def cooperative_grid(lib_fn, depth: int, spp: int) -> int:
-    """CTAs of a fully co-resident grid for K9 or K10."""
-    import ctypes
-
-    from repro_torch.kernels import _build
-    grid = ctypes.c_int(0)
-    _build.check(lib_fn(int(depth), int(spp), lf.CTAS_PER_SM,
-                        ctypes.byref(grid)), "cooperative grid")
-    return grid.value
-
-
 def n_root_chunks(n_batch: int) -> int:
-    """The plan's root masks cover 32 roots per word."""
+    """K10's plan keeps root masks of 32 roots per word."""
     return -(-int(n_batch) // 32)
+
+
+def sell_layer_fused_grid(g: SellGraph, depth: int) -> int:
+    """K9's co-resident grid at ``depth``."""
+    from repro_torch.kernels import _build
+    return lf.cooperative_grid(_build.load().repro_sell_layer_fused_grid,
+                               depth, g.spp,
+                               ctas_per_sm=lf.LAYER_CTAS_PER_SM)
 
 
 def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,
@@ -242,23 +243,21 @@ def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,
     from repro_torch.kernels import _build
     check_args(g, "sell_layer_fused", frontier=frontier, visited=visited,
                parent=parent)
+    lf.check_p_aligned("sell_layer_fused", parent)
     n_batch = int(frontier.shape[0])
     depth = _depth(prefetch_depth, g.n_steps)
-    lib = _build.load()
-    grid = cooperative_grid(lib.repro_sell_layer_fused_grid, depth, g.spp)
-    i32 = dict(dtype=torch.int32, device=g.cols.device)
+    grid = sell_layer_fused_grid(g, depth)
     out = torch.empty_like(frontier)
-    wl = torch.empty((n_batch, g.n_steps), **i32)
-    cnt = torch.empty((n_batch, grid), **i32)
-    na = torch.empty((n_batch,), **i32)
-    gmask = torch.empty((g.n_steps * n_root_chunks(n_batch),), **i32)
-    _build.check(lib.repro_sell_layer_fused(
+    # ``scratch`` keeps the memory behind ``ptrs`` alive for the launch
+    na, scratch, ptrs = lf.union_scratch(g.n_steps, n_batch, g.n_words,
+                                         grid, g.cols.device)
+    _build.check(_build.load().repro_sell_layer_fused(
         g.cols.data_ptr(), g.slab_rows.data_ptr(), frontier.data_ptr(),
-        visited.data_ptr(), parent.data_ptr(), out.data_ptr(),
-        wl.data_ptr(), cnt.data_ptr(), na.data_ptr(), gmask.data_ptr(),
-        n_batch, g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]),
-        g.n_vertices, int(bool(bottom_up)), depth, grid,
-        _build.stream_of(parent)), "sell_layer_fused")
+        visited.data_ptr(), parent.data_ptr(), out.data_ptr(), *ptrs[:4],
+        na.data_ptr(), *ptrs[4:], n_batch, g.n_steps, g.spp, g.n_words,
+        int(g.deg.shape[0]), g.n_vertices, int(bool(bottom_up)), depth,
+        grid, _build.stream_of(parent)),
+        "sell_layer_fused")
     return out, parent, na
 
 

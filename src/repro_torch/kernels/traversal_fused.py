@@ -198,7 +198,7 @@ def sell_traversal_fused_cuda(g: se.SellGraph, frontier, visited, parent,
     n_batch = int(frontier.shape[0])
     depth = se._depth(prefetch_depth, g.n_steps)
     lib = _build.load()
-    grid = se.cooperative_grid(lib.repro_sell_traversal_fused_grid, depth,
+    grid = lf.cooperative_grid(lib.repro_sell_traversal_fused_grid, depth,
                                g.spp)
     dev = g.cols.device
     i32 = dict(dtype=torch.int32, device=dev)

@@ -185,7 +185,7 @@ def test_owners_by_scan_plain_on_a_block_subset():
 
 @pytest.mark.parametrize("tile,depth,sub", [
     (1024, 0, 1024), (128, 0, 128), (4096, 0, 1024), (1024, 2, 1024),
-    (1024, 55, 512)])
+    (1024, 55, 512), (16, 0, 16)])
 def test_owner_sub_fits_beside_the_ring(tile, depth, sub):
     assert ge.owner_sub(tile, depth) == sub
     assert ge.stage_bytes(tile, depth) + 4 * sub + ge.SMEM_RESERVE \
