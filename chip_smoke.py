@@ -4,7 +4,12 @@
 Drives ``repro_torch`` only (never ``jax``, never ``repro``):
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (ptxas' registers and spills printed; every line for the kernels
+   that walk a union); count, in ``cuobjdump -sass`` of K5, K6, K9 and
+   K10, the L1 invalidations (``CCTL.IVALL``), fences and load kinds:
+   K6 and K10 must invalidate L1 at their grid barriers, since their
+   walks read state rewritten between layers by plain loads;
 3. kernels vs plain versions on the card, at the main path's shapes,
    with inputs captured from a real layer of the main path: the union
    planner (not a TPU kernel) bitwise on every layer, as planned and
@@ -37,7 +42,9 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    equal to the main path's, the launches column as contracted, no
    degrade, and by the profiler one K5 launch per layer and one K6
    launch per traversal; K6 against its plain version on the batch's
-   initial state;
+   initial state (frontier, visited, depths, layers, stats bitwise, P
+   restored where the plain version's is), timed at 4 and 8 CTAs per
+   SM in turns, its grid and state layout printed;
 5b. SELL-C-σ at the same size: the autotuner must pick ``sell`` for the
    graph; ``formats.build(g, "auto")`` builds the layout on the card
    (slabs, fill, bytes, build seconds and peak memory printed); the
@@ -48,14 +55,15 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    launches column as contracted, no degrade, one K9 launch per layer
    and one K10 launch per traversal by the profiler; K8 (depths 0, 1,
    2, 4) and K13 against their plain versions on the largest captured
-   SELL layer, K10 on the batch's initial state;
+   SELL layer, K10 on the batch's initial state as K6;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
 6b. at SCALE 16 with 33 roots (two root-mask words): the planner
    (both arms, every layer, with a dense root), K3 (and K4 at each
    depth), K5 and K9 (both directions, depths 0 and 2),
-   K11 and K12 (int32 and float32 layers) against their plain versions
-   on their contracts;
+   K11 and K12 (int32 and float32 layers), and K6 and K10 (the four
+   policies, depths 0 and 2) against their plain versions on their
+   contracts;
 7. GPU vs the port's CPU path at SCALE 12 for CSR and SELL (the SELL
    layout built on the card equals the CPU build bitwise): visited,
    depths, the stats buffer and the direction log must be identical on
@@ -176,11 +184,21 @@ PREFETCH_DEPTHS = (1, 2, 4)
 #: planner that builds it
 UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
                  "== sell_relax.cu", "== plan_union.cu",
-                 "== layer_fused.cu", "== sell_layer_fused.cu")
+                 "== layer_fused.cu", "== sell_layer_fused.cu",
+                 "== traversal_fused.cu", "== sell_traversal_fused.cu")
 WIDE_BATCH = 33               # two root-mask words
 SELL_DEPTHS = (0, 1, 2, 4)
-#: K5 and K9 on a captured layer: the depths each is held and timed at
+#: K5 and K9 on a captured layer, K6 and K10 at 33 roots: the depths
+#: each is held at (K5, K9: and timed at)
 LAYER_DEPTHS = (0, 2)
+#: K6 and K10: the CTAs per SM each is held and timed at on the main
+#: path's batch (`layer_fused.CTAS_PER_SM` is the kept one)
+CTAS_PER_SM_TRIED = (4, 8)
+#: how K6 and K10 keep their state across layers
+TRAVERSAL_LAYOUT = ("rows (B, n_words) for the planning, root-interleaved "
+                    "(n_words, B) for the walk, both written by each "
+                    "layer's update pass; the walk reads them by plain "
+                    "loads after the grid barrier")
 
 
 def log(msg: str) -> None:
@@ -892,42 +910,161 @@ def layer_kernel_both_ways(kind: str, cap, dirs: dict, reps: int,
     return res
 
 
-def phase_persistent_kernel(ct, roots, layers, reps: int):
-    """K6 against its plain version on the batch's initial state; bytes
-    = the per-layer K5 bytes of the same traversal (``layers`` from a
-    `layer_spy`) plus one read of the degrees."""
+@contextlib.contextmanager
+def ctas_per_sm(n: int):
+    """K6's and K10's grid at ``n`` CTAs per SM while the block runs
+    (their wrappers read `layer_fused.CTAS_PER_SM` at each launch)."""
+    from repro_torch.kernels import layer_fused as lf
+    kept, lf.CTAS_PER_SM = lf.CTAS_PER_SM, n
+    try:
+        yield
+    finally:
+        lf.CTAS_PER_SM = kept
+
+
+def traversal_case(kind: str, fmt, spec, roots):
+    """K6 (``kind`` "csr") or K10 ("sell") on ``fmt`` under the resolved
+    ``spec``: (kernel name, CUDA wrapper, plain version, grid function
+    of the depth, graph, the batch's initial state, keyword
+    arguments)."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels import traversal_fused as tf
-    fmt, spec = ct.fmt, ct.resolved
-    fg = fmt.fused_graph(spec)
+    if kind == "csr":
+        graph = fmt.fused_graph(spec)
+        case = ("traversal_fused_batched", tf.traversal_fused_cuda,
+                tf.traversal_fused_plain,
+                lambda d: tf.traversal_fused_grid(graph, d)[0])
+    else:
+        graph = fmt.sell_graph(spec.tile)
+        case = ("sell_traversal_fused_batched",
+                tf.sell_traversal_fused_cuda, tf.sell_traversal_fused_plain,
+                lambda d: tf.sell_traversal_fused_grid(graph, d))
     r = torch.as_tensor(roots, dtype=torch.int32, device=fmt.device)
     state = engine._init_batched(r, fmt.n_vertices, fmt.n_vertices_padded)
-    code = engine.encode_policy(spec.policy, fmt.n_vertices, len(roots),
-                                spec.max_layers)
-    kw = dict(code=code, max_layers=spec.max_layers)
-    got = tf.traversal_fused_cuda(fg, *state, **kw)
-    want = tf.traversal_fused_plain(fg, *state, **kw)
+    kw = dict(code=engine.encode_policy(spec.policy, fmt.n_vertices,
+                                        len(roots), spec.max_layers),
+              max_layers=spec.max_layers)
+    return (*case, graph, state, kw)
+
+
+def traversal_gate(name: str, cuda, graph, state, kw, want,
+                   depth: int = 0) -> int:
+    """K6's or K10's contract against its plain version's outputs
+    ``want``: frontier, visited, depths, layers and stats bitwise, P
+    restored and set where the plain version's is (parents race).
+    Returns the count of disagreeing entries (0; any other fails)."""
+    import torch
+    got = cuda(graph, *state, **kw, prefetch_depth=depth)
     torch.cuda.synchronize()
-    err = 0
-    for i, name in ((0, "frontier"), (1, "visited"), (3, "depths"),
+    p0 = state[2]
+    for i, what in ((0, "frontier"), (1, "visited"), (3, "depths"),
                     (4, "layers"), (5, "stats")):
-        err = max(err, int((got[i] != want[i]).sum()))
         assert torch.equal(got[i], want[i]), \
-            f"traversal_fused: {name} disagrees with its plain version"
-    bytes_ = sum(fused_layer_bytes(g, f, v, bu, m)
-                 for g, f, v, bu, m in layers) + 4 * int(fg.deg.shape[0])
-    res = dict(max_abs_err=err, bytes=bytes_,
+            f"{name} (depth {depth}): {what} disagrees with its plain " \
+            f"version"
+    assert int(got[2].min()) >= 0 \
+        and torch.equal(got[2] != p0, want[2] != p0), \
+        f"{name} (depth {depth}): P is not restored as its plain version's"
+    return 0
+
+
+def phase_traversal_kernel(kind: str, ct, roots, layers, reps: int):
+    """K6 (``kind`` "csr", ``ct`` a CSR ``persistent`` plan) or K10
+    ("sell") on the batch's initial state: `traversal_gate` and timing
+    at each of `CTAS_PER_SM_TRIED` CTAs per SM, in turns (the kept
+    count, the other, the other, the kept); bytes = the per-layer K5
+    (K9) bytes of the same traversal (``layers`` from a `layer_spy` of a
+    megakernel run) plus one read of the degrees."""
+    from repro_torch.kernels import layer_fused as lf
+    name, cuda, plain, grid_of, graph, state, kw = traversal_case(
+        kind, ct.fmt, ct.resolved, roots)
+    layer_bytes = fused_layer_bytes if kind == "csr" else sell_layer_bytes
+    want = plain(graph, *state, **kw)
+    kept = lf.CTAS_PER_SM
+    order = [kept] + [n for n in CTAS_PER_SM_TRIED if n != kept]
+    times, grids = {n: [] for n in order}, {}
+    for n in order + order[::-1]:
+        with ctas_per_sm(n):
+            if n not in grids:
+                traversal_gate(name, cuda, graph, state, kw, want)
+                grids[n] = grid_of(0)
+            times[n].append(cuda_ms(lambda: cuda(graph, *state, **kw),
+                                    reps))
+    bytes_ = sum(layer_bytes(gr, f, v, bu, m)
+                 for gr, f, v, bu, m in layers) + 4 * int(graph.deg.shape[0])
+    res = dict(max_abs_err=0, bytes=bytes_,
                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
-               ms=cuda_ms(lambda: tf.traversal_fused_cuda(fg, *state, **kw),
-                          reps),
-               plain_ms=cuda_ms(lambda: tf.traversal_fused_plain(
-                   fg, *state, **kw), 1))
-    log(json.dumps({"kernel": "traversal_fused_batched", "ms": res["ms"],
+               ms=statistics.mean(times[kept]),
+               plain_ms=cuda_ms(lambda: plain(graph, *state, **kw), 1))
+    log(json.dumps({"kernel": name, "ms": res["ms"],
                     "plain_ms": res["plain_ms"], "bytes": bytes_,
-                    "bound_ms": res["bound_ms"], "max_abs_err": err,
-                    "layers": int(got[4][0])}))
+                    "bound_ms": res["bound_ms"], "max_abs_err": 0,
+                    "layers": int(want[4][0]), "grid": grids[kept],
+                    "ctas_per_sm": kept,
+                    "ms_by_ctas_per_sm": {str(n): t for n, t in
+                                          times.items()},
+                    "grid_by_ctas_per_sm": {str(n): g for n, g in
+                                            grids.items()},
+                    "layout": TRAVERSAL_LAYOUT}))
     return res
+
+
+def wide_traversal_gates(g, sell, roots, label: str) -> None:
+    """Phase 6b: K6 on ``g`` and K10 on its SELL layout ``sell`` at
+    ``roots`` under the four policies, at each depth of `LAYER_DEPTHS`,
+    against their plain versions (`traversal_gate`)."""
+    import repro_torch.bfs as bfs
+    for pol in (bfs.TopDown(), bfs.ThresholdSimd(), bfs.PaperLiteralLayers(),
+                bfs.BeamerHybrid()):
+        modes = {}
+        for kind, fmt in (("csr", g), ("sell", sell)):
+            ct = bfs.plan(fmt, bfs.TraversalSpec(policy=pol,
+                                                 pipeline="persistent"))
+            name, cuda, plain, _, graph, state, kw = traversal_case(
+                kind, ct.fmt, ct.resolved, roots)
+            want = plain(graph, *state, **kw)
+            for depth in LAYER_DEPTHS:
+                traversal_gate(name + label, cuda, graph, state, kw, want,
+                               depth)
+            modes[kind] = want[5][:int(want[4][0]), 3].tolist()
+        log(f"{type(pol).__name__}{label}: K6 and K10 at depths "
+            f"{list(LAYER_DEPTHS)} equal their plain versions; modes per "
+            f"layer {modes}")
+
+
+#: what K6's and K10's barriers compile to: the grid barrier's acquire
+#: must invalidate L1, since the walk reads state rewritten between
+#: layers by plain loads
+SASS_OPS = ("CCTL.IVALL", "MEMBAR", "LDG.E.STRONG.GPU", "LDG.E.CONSTANT",
+            "LDG")
+
+
+def barrier_sass() -> dict:
+    """Counts of `SASS_OPS` in the built SASS of K5, K6, K9 and K10
+    (``cuobjdump -sass`` of the library); logged per kernel.  Returns
+    {kernel: counts}."""
+    import re
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    dump = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+                          check=True, capture_output=True,
+                          text=True).stdout
+    funcs, current = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), [])
+        elif current is not None:
+            current.append(line)
+    out = {}
+    for kernel in ("traversal_fused_kernel", "sell_traversal_fused_kernel",
+                   "layer_fused_kernel", "sell_layer_fused_kernel"):
+        tag = f"{len(kernel)}{kernel}E"
+        body = [ln for k, v in funcs.items() if tag in k for ln in v]
+        out[kernel] = {op: sum(op in ln for ln in body) for op in SASS_OPS}
+        log(json.dumps({"sass": kernel, **out[kernel]}))
+    return out
 
 
 def sell_groups(graph, wl, na) -> int:
@@ -1071,44 +1208,6 @@ def phase_sell_layer(g, roots, reps: int, label: str = ""):
                                   reps, label, g)
 
 
-def phase_sell_traversal_kernel(ct, roots, layers, reps: int):
-    """K10 against its plain version on the batch's initial state; bytes
-    = the per-layer K9 bytes of the same traversal (``layers`` from a
-    `layer_spy` of a megakernel run) plus one read of the degrees."""
-    import torch
-    from repro_torch.core import engine
-    from repro_torch.kernels import traversal_fused as tf
-    fmt, spec = ct.fmt, ct.resolved
-    graph = fmt.sell_graph(spec.tile)
-    r = torch.as_tensor(roots, dtype=torch.int32, device=fmt.device)
-    state = engine._init_batched(r, fmt.n_vertices, fmt.n_vertices_padded)
-    code = engine.encode_policy(spec.policy, fmt.n_vertices, len(roots),
-                                spec.max_layers)
-    kw = dict(code=code, max_layers=spec.max_layers)
-    got = tf.sell_traversal_fused_cuda(graph, *state, **kw)
-    want = tf.sell_traversal_fused_plain(graph, *state, **kw)
-    torch.cuda.synchronize()
-    err = 0
-    for i, name in ((0, "frontier"), (1, "visited"), (3, "depths"),
-                    (4, "layers"), (5, "stats")):
-        err = max(err, int((got[i] != want[i]).sum()))
-        assert torch.equal(got[i], want[i]), \
-            f"sell_traversal_fused: {name} disagrees with its plain version"
-    bytes_ = sum(sell_layer_bytes(gr, f, v, bu, m)
-                 for gr, f, v, bu, m in layers) + 4 * int(graph.deg.shape[0])
-    res = dict(max_abs_err=err, bytes=bytes_,
-               bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
-               ms=cuda_ms(lambda: tf.sell_traversal_fused_cuda(
-                   graph, *state, **kw), reps),
-               plain_ms=cuda_ms(lambda: tf.sell_traversal_fused_plain(
-                   graph, *state, **kw), 1))
-    log(json.dumps({"kernel": "sell_traversal_fused_batched",
-                    "ms": res["ms"], "plain_ms": res["plain_ms"],
-                    "bytes": bytes_, "bound_ms": res["bound_ms"],
-                    "max_abs_err": err, "layers": int(got[4][0])}))
-    return res
-
-
 def phase_sell(g, roots, base, oracle, edges: int, reps: int,
                plan_layers):
     """Phase 5b: the SELL-C-σ layout of the main path's graph, built on
@@ -1168,7 +1267,7 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int,
                 f"{sum(kernels_seen.values()) - 1} other device events "
                 f"(initial state)")
             kres["sell_traversal_fused_batched"] = \
-                phase_sell_traversal_kernel(ct, roots, mega_cap.calls, 5)
+                phase_traversal_kernel("sell", ct, roots, mega_cap.calls, 5)
         del ct
     kres.update(phase_sell_kernels(cap.best["sell_batched"], g, reps))
     del cap, mega_cap, fmt
@@ -1355,9 +1454,10 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     every layer of the main-path traversal, as planned and with a dense
     root), K2, K3 (and K4 at each depth) and K1 on the largest layer,
     K5 and K9 on the largest layer of each direction (depths 0 and 2),
-    and K11 and K12 on the largest ksource_bfs (int32)
-    and sssp (float32) layers, against their plain versions with the
-    phase-3 and phase-9 contracts."""
+    K11 and K12 on the largest ksource_bfs (int32) and sssp (float32)
+    layers, against their plain versions with the phase-3 and phase-9
+    contracts, and K6 and K10 under the four policies at depths 0 and 2
+    (`wide_traversal_gates`)."""
     import repro_torch.bfs as bfs
     from repro_torch.kernels import ops
     roots = pick_roots(g, WIDE_BATCH, seed + 3)
@@ -1392,9 +1492,10 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
                 bfs.plan(fmt, bfs.TraversalSpec(algorithm=alg, **fields)) \
                     .run_batched(roots)
     phase_relax_kernels(relax, reps, label=label, fold=False)
+    wide_traversal_gates(g, sell, roots, label)
     log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
-        f"V={g.n_vertices}: the planner, K3, K4, K5, K9, K11 and K12 equal "
-        f"their plain versions")
+        f"V={g.n_vertices}: the planner, K3, K4, K5, K6, K9, K10, K11 and "
+        f"K12 equal their plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1918,6 +2019,7 @@ def main(argv=None) -> int:
             if line.startswith("==") or "registers" in line \
                     or "spill" in line or (full and "ptxas" in line):
                 log("  " + line.strip())
+    sass = barrier_sass()
 
     # main-path graph and a capture run (warm-up) for phase 3
     t0 = time.perf_counter()
@@ -2039,8 +2141,8 @@ def main(argv=None) -> int:
             log(f"persistent: 1 K6 launch per traversal; "
                 f"{sum(kernels.values()) - 1} other device events "
                 f"(initial state)")
-            kres["traversal_fused_batched"] = phase_persistent_kernel(
-                ct_path, roots, fused_layers.calls, 5)
+            kres["traversal_fused_batched"] = phase_traversal_kernel(
+                "csr", ct_path, roots, fused_layers.calls, 5)
         del ct_path
     del fused_layers
     launches.update(path_launches)
@@ -2175,6 +2277,10 @@ def main(argv=None) -> int:
         f"{k}={v}" for k, v in launches.items()))
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
+    for kernel in ("traversal_fused_kernel", "sell_traversal_fused_kernel"):
+        assert sass[kernel]["CCTL.IVALL"] > 0, \
+            f"{kernel}: no L1 invalidation in its SASS, but its walk reads " \
+            f"state rewritten between layers by plain loads"
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

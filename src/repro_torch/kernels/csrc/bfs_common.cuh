@@ -1,23 +1,18 @@
-// Device helpers shared by the CSR and SELL kernels.  Two gather bodies
-// live here:
-//
-// * the per-root body, `expand_block` over `sweep` (a CTA walks one
-//   root's work-list and searches each slot's owner with `owner_in`):
-//   the whole-traversal kernel K6 (fused_phases.cuh);
-// * the union body, `owners_by_scan` + `expand_roots` over
-//   `sweep_union` (a CTA walks the union of the batch's work-lists and
-//   serves every root whose bit is set in the block's root mask, the
-//   owners of a block put in shared memory by one scan): K3 and K4
-//   (gather_expand.cu) and K11 (gather_relax.cu, with its own per-root
-//   step in relax_common.cuh); K5 runs the same pair over a union it
-//   plans in the launch (union_phases.cuh).
+// Device helpers shared by the CSR and SELL kernels.  The CSR gather
+// body lives here: `owners_by_scan` + `expand_roots`, one CTA per
+// rows-block of the union of the batch's work-lists, serving every root
+// whose bit is set in the block's root mask, the owners of a block put
+// in shared memory by one scan.  K3 and K4 (gather_expand.cu) walk a
+// union the planner built (`sweep_union`), K11 (gather_relax.cu) the
+// same with its own per-root step (relax_common.cuh); K5 and K6 walk a
+// union they plan in their own launch (union_phases.cuh, `walk_csr`).
 //
 // Also here: `sweep_items`, the walk with `depth` items in flight into
 // a (depth + 1)-stage ring of shared memory (`cp.async`), or read
 // straight from device memory at depth 0, which the SELL kernels use
-// with their own stage (K8 and K10 over each root's list, K9 and K12
-// over the union); block-wide sums and an exclusive scan of one flag per
-// thread.
+// with their own stage (K8 over each root's list, `WorkItems`; K9, K10
+// and K12 over the union); block-wide sums and an exclusive scan of one
+// flag per thread.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,55 +25,15 @@ namespace bfs {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Largest u in [lo, hi] with cs[u] <= e, given cs[lo] <= e.
-__device__ __forceinline__ int owner_in(const int* __restrict__ cs, int lo,
-                                        int hi, int e) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo + 1) >> 1);
-    if (__ldg(cs + mid) <= e) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-// A load of a word that another CTA of the same launch may write.
-// kCoherent (K6, K10: state rewritten between grid barriers) reads
-// through L2 only (ld.global.cg); never the non-coherent path.
+// A load of a word that another CTA of the same launch may write: K8's
+// per-root sweep (`sell_group`) reads its bitmaps by a plain load;
+// kCoherent reads through L2 only (ld.global.cg) and serves the
+// planning's `group_roots` where the planning words are rewritten in
+// the launch (K10).  Never the non-coherent path.
 template <bool kCoherent>
 __device__ __forceinline__ unsigned load_word(const unsigned* p) {
   if constexpr (kCoherent) return __ldcg(p);
   return *p;
-}
-
-// The gather-expand body over one rows-block [e0, e0 + tile): owner u
-// of each slot by a search in [lo, hi], neighbour v from `rows_blk`.
-// Top-down gates on u in the frontier and discovers v; bottom-up swaps
-// the roles.  The undiscovered test is `visited | out` (the out word is
-// read racily and written back with the new bit, paper §3.3.2), or the
-// pre-layer `visited` alone for a scalar-mode layer of K6.  Every lane
-// that passes writes its negative P mark, which restoration turns into
-// the repaired bitmap.
-template <bool kCoherent>
-__device__ __forceinline__ void expand_block(
-    const int* rows_blk, const int* __restrict__ cs, int e0, int tile,
-    int lo, int hi, const unsigned* fr, const unsigned* vis, unsigned* ob,
-    int* pb, int n_vertices, bool bottom_up, bool scalar) {
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int e = e0 + i;
-    const int u = owner_in(cs, lo, hi, e);
-    const int v = rows_blk[i];
-    if (u >= n_vertices || v >= n_vertices) continue;  // sentinel tail
-    const int gate = bottom_up ? v : u;
-    const int cand = bottom_up ? u : v;
-    if (!((load_word<kCoherent>(fr + (gate >> 5)) >> (gate & 31)) & 1u))
-      continue;
-    const int w = cand >> 5;
-    const unsigned bit = 1u << (cand & 31);
-    const unsigned ow = load_word<kCoherent>(ob + w);      // racy read
-    const unsigned seen = load_word<kCoherent>(vis + w) | (scalar ? 0u : ow);
-    if (seen & bit) continue;
-    pb[cand] = gate - n_vertices;                           // negative mark
-    ob[w] = ow | bit;                                       // racy write
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -230,22 +185,6 @@ __device__ __forceinline__ void sweep_items(const Items& items, int b0,
     __syncthreads();                 // slot k is refilled next step
   }
   cp_async_wait<0>();
-}
-
-// The rows-block walk of the CSR kernels: body(b, blk, rows_of_blk),
-// with the block's rows staged in shared memory at depth > 0.
-template <class Body>
-__device__ void sweep(const WorkItems& items, int b0, const int* rows,
-                      int tile, int depth, int* stage, Body body) {
-  sweep_items(
-      items, b0, depth, tile, stage,
-      [&](int* dst, int blk) {
-        stage_block(dst, rows + static_cast<long long>(blk) * tile, tile);
-      },
-      [&](int b, int blk, const int* slot) {
-        body(b, blk,
-             slot ? slot : rows + static_cast<long long>(blk) * tile);
-      });
 }
 
 // ---------------------------------------------------------------------------
@@ -403,12 +342,15 @@ __device__ __forceinline__ void owners_by_scan(const int* __restrict__ cs,
 // A word of the state a union walk reads and no CTA writes during it:
 // kReadOnly, state the launch never writes (K3's inputs), by the
 // non-coherent path; else state an earlier phase of the same launch
-// wrote before a grid barrier (K5's and K9's masks and interleaved
-// copies) by a plain load, which may hit L1 and which the barrier
-// orders after those writes.  The launch writes that state, so nvcc
-// keeps the plain load off the non-coherent path (ld.global, LDG.E);
-// `__ldca` would give a strong SM-scope load (LDG.E.STRONG.SM), which
-// ran K9 2.2 times slower.
+// wrote before a grid barrier (K5's, K6's, K9's and K10's masks, list
+// and interleaved bitmaps) by a plain load, which may hit L1 and which
+// the barrier orders after those writes: the grid barrier's acquire
+// (`ld.acquire.gpu`) invalidates the SM's L1 (`CCTL.IVALL` in the
+// SASS), so a line an earlier layer of K6 or K10 cached there is not
+// read again.  The launch writes that state, so nvcc keeps the plain
+// load off the non-coherent path (ld.global, LDG.E); `__ldca` would
+// give a strong SM-scope load (LDG.E.STRONG.SM), which ran K9 2.2
+// times slower.
 template <bool kReadOnly>
 __device__ __forceinline__ unsigned ld_walk(const unsigned* p) {
   if constexpr (kReadOnly) return __ldg(p);
@@ -417,23 +359,24 @@ __device__ __forceinline__ unsigned ld_walk(const unsigned* p) {
 
 // The racy gather-expand over n slots of one block for every root whose
 // bit is set in `mask` (n_mask_words words): slot i has owner own[i] and
-// neighbour rows_sub[i].  Per root, the body of `expand_block`: the
-// gate's frontier bit, the `visited | out` test, the negative P mark and
-// the racy out word write (paper §3.3.2).  The bitmaps are
-// root-interleaved, (n_words, B): root b's word w is at w * n_batch + b,
-// so the B words of one vertex share a sector.  The owner side of each
-// test goes first (the gate top-down, the candidate bottom-up): it is
-// the same word for a run of slots, so a root it rules out costs no
-// load of the random side.  P stays (B, v_pad).  mask, fr and vis are
-// read by `ld_walk<kReadOnly>` (K3: read-only inputs; K5: written in
-// the launch before its walk).
-template <bool kReadOnly = true>
+// neighbour rows_sub[i].  Per root: the gate's frontier bit, the
+// `visited | out` test, the negative P mark and the racy out word write
+// (paper §3.3.2); with kScalarArm (K6), a `scalar` layer tests the
+// pre-layer visited alone (the reference's `_gather_tile_dyn`).  The
+// bitmaps are root-interleaved, (n_words, B): root b's word w is at
+// w * n_batch + b, so the B words of one vertex share a sector.  The
+// owner side of each test goes first (the gate top-down, the candidate
+// bottom-up): it is the same word for a run of slots, so a root it
+// rules out costs no load of the random side.  P stays (B, v_pad).
+// mask, fr and vis are read by `ld_walk<kReadOnly>` (K3: read-only
+// inputs; K5, K6: written in the launch before its walk).
+template <bool kReadOnly = true, bool kScalarArm = false>
 __device__ __forceinline__ void expand_roots(
     const int* rows_sub, const int* own, int n,
     const unsigned* __restrict__ mask, int n_mask_words,
     const unsigned* __restrict__ fr, const unsigned* __restrict__ vis,
     unsigned* out, int* p, long long n_batch, long long v_pad,
-    int n_vertices, bool bottom_up) {
+    int n_vertices, bool bottom_up, bool scalar = false) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int u = own[i];
     const int v = rows_sub[i];
@@ -449,7 +392,8 @@ __device__ __forceinline__ void expand_roots(
         const int b = 32 * k + __ffs(m) - 1;
         if (!bottom_up && !(ld_walk<kReadOnly>(fg + b) & gbit)) continue;
         const unsigned ow = oc[b];                         // racy read
-        if ((ld_walk<kReadOnly>(vc + b) | ow) & cbit) continue;
+        const unsigned seen = kScalarArm && scalar ? 0u : ow;
+        if ((ld_walk<kReadOnly>(vc + b) | seen) & cbit) continue;
         if (bottom_up && !(ld_walk<kReadOnly>(fg + b) & gbit)) continue;
         p[b * v_pad + cand] = gate - n_vertices;           // negative mark
         oc[b] = ow | cbit;                                 // racy write

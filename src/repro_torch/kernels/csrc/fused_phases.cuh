@@ -1,9 +1,10 @@
-// The grid-wide phases of one BFS layer that walk each root's own
-// work-list, run by the whole-traversal kernel (K6, traversal_fused.cu,
-// through traversal_loop.cuh).  Every function here is called by every
-// thread of every CTA of a cooperative launch, between grid barriers:
-//
-//   plan_count  | plan_write  | gather  | restore_update (K6)
+// The pieces of the cooperative CSR kernels that are not a phase of
+// their own: the loop constants of the CSR graph (`FusedGraph`), the
+// rows-block plan's test, a CTA's chunk of items, the grid's warps, and
+// the host side of a cooperative launch (the co-resident grid).  The
+// phases themselves — planning the union of the batch's lists, the walk
+// with one CTA per item for every root, restoration — are in
+// union_phases.cuh, shared by the planner, K5, K6, K9 and K10.
 //
 // * plan: rows-block blk is covered iff some vertex whose adjacency
 //   intersects it is active and has degree > 0.  Those vertices are
@@ -11,26 +12,9 @@
 //   block's first and last slot, loop constants built once per plan)
 //   that have degree > 0, so the test (`covered`) is an OR over a few
 //   words of `active & nz`.  That is the reference's difference-scatter
-//   plan (`layer_fused._plan_in_kernel`) without the scatter.  Each CTA
-//   counts the covered blocks of its contiguous chunk; after a barrier
-//   each CTA sums the counts of the CTAs before it and writes its
-//   chunk's block ids there, so the work-list is ascending, as the
-//   reference's.  n_active[b] is its length.
-// * gather: the CTAs stride over every root's work-list (`bfs::sweep`),
-//   so a block that r roots list is read, and its owners searched, r
-//   times.
-// * restore (`restore_word`, traversal_loop.cuh's `restore_update`): one
-//   warp per 32 vertices; a ballot of the negative P marks is the delta
-//   word, ORed into `out`.
-//
-// The whole-layer kernels K5 and K9 no longer walk per root: they plan
-// the union of the lists with the same `covered` (and K9's
-// `group_roots`) and walk it with one CTA per item for every root
-// (union_phases.cuh), which K6's loop could adopt the same way.  Also
-// here: the host side of a cooperative launch (the co-resident grid).
-//
-// State that CTAs rewrite inside the launch (bitmaps, P, work-lists,
-// counts) is read with ld.global.cg, never the non-coherent path.
+//   plan (`layer_fused._plan_in_kernel`) without the scatter.  The
+//   planning words are read through L2 (ld.global.cg): K6 rewrites them
+//   between layers.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -48,14 +32,6 @@ struct FusedGraph {
   const unsigned* nz;    // (n_words,) bit v set iff deg(v) > 0
   const int* deg;        // (v_pad,) degrees, 0 on padding
   int n_blocks, tile, n_cs, n_words, v_pad, n_vertices;
-};
-
-// The per-layer work buffers.
-struct LayerBuffers {
-  unsigned* out;   // (B, n_words) racy discoveries of the layer
-  int* wl;         // (B, n_blocks) work-lists
-  int* cnt;        // (B, gridDim.x) covered blocks per CTA chunk
-  int* na;         // (B,) work-list lengths
 };
 
 __device__ __forceinline__ bool covered(const FusedGraph& g,
@@ -83,70 +59,6 @@ __device__ __forceinline__ void chunk_of_cta(int n_blocks, int* begin,
   *end = min(n_blocks, *begin + chunk);
 }
 
-// Phase 1: covered blocks per (root, CTA chunk) -> cnt.  `words` are the
-// planning bitmaps (frontier, or visited with complement = true).
-__device__ inline void plan_count(const FusedGraph& g, const unsigned* words,
-                                  bool complement, int n_batch, int* cnt) {
-  int begin, end;
-  chunk_of_cta(g.n_blocks, &begin, &end);
-  for (int b = 0; b < n_batch; ++b) {
-    const unsigned* act = words + static_cast<long long>(b) * g.n_words;
-    long long c[1] = {0};
-    for (int i = begin + threadIdx.x; i < end; i += blockDim.x)
-      c[0] += covered(g, act, complement, i);
-    block_sum(c);
-    if (threadIdx.x == 0) cnt[b * gridDim.x + blockIdx.x] = int(c[0]);
-  }
-}
-
-// Phase 2: ascending work-lists and their lengths.
-__device__ inline void plan_write(const FusedGraph& g, const unsigned* words,
-                                  bool complement, int n_batch,
-                                  const LayerBuffers& buf) {
-  int begin, end;
-  chunk_of_cta(g.n_blocks, &begin, &end);
-  for (int b = 0; b < n_batch; ++b) {
-    const unsigned* act = words + static_cast<long long>(b) * g.n_words;
-    long long s[2] = {0, 0};       // CTAs before this one, all CTAs
-    for (int c = threadIdx.x; c < static_cast<int>(gridDim.x);
-         c += blockDim.x) {
-      const int v = __ldcg(buf.cnt + b * gridDim.x + c);
-      s[1] += v;
-      if (c < static_cast<int>(blockIdx.x)) s[0] += v;
-    }
-    block_sum(s);
-    if (blockIdx.x == 0 && threadIdx.x == 0) buf.na[b] = int(s[1]);
-    int* wl_b = buf.wl + static_cast<long long>(b) * g.n_blocks;
-    int off = int(s[0]);
-    for (int base = begin; base < end; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const bool f = i < end && covered(g, act, complement, i);
-      int total;
-      const int r = block_rank(f, &total);
-      if (f) wl_b[off + r] = i;
-      off += total;
-    }
-  }
-}
-
-// Phase 3: gather-expand every root's listed blocks into buf.out and P.
-__device__ inline void gather(const FusedGraph& g, const unsigned* frontier,
-                              const unsigned* visited, int* p,
-                              const LayerBuffers& buf, int n_batch,
-                              bool bottom_up, bool scalar, int depth,
-                              int* stage) {
-  const WorkItems items{buf.wl, buf.na, g.n_blocks, n_batch};
-  sweep(items, 0, g.rows, g.tile, depth, stage,
-        [&](int b, int blk, const int* rows_blk) {
-          const long long wo = static_cast<long long>(b) * g.n_words;
-          expand_block<true>(rows_blk, g.cs, blk * g.tile, g.tile,
-                             __ldg(g.blk_lo + blk), __ldg(g.blk_hi + blk),
-                             frontier + wo, visited + wo, buf.out + wo,
-                             p + static_cast<long long>(b) * g.v_pad,
-                             g.n_vertices, bottom_up, scalar);
-        });
-}
-
 // This thread's warp and the grid's warp count.
 __device__ __forceinline__ long long grid_warp() {
   return static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
@@ -154,16 +66,6 @@ __device__ __forceinline__ long long grid_warp() {
 }
 __device__ __forceinline__ long long grid_warps() {
   return static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
-}
-
-// Restore one word's 32 P entries (lane k: vertex 32 w + k) and return
-// the delta word: the marked vertices.
-__device__ __forceinline__ unsigned restore_word(int* p_word, int lane,
-                                                 int n_vertices) {
-  const int v = __ldcg(p_word + lane);
-  const bool marked = v < 0;
-  if (marked) p_word[lane] = v + n_vertices;
-  return __ballot_sync(0xffffffffu, marked);
 }
 
 // ---------------------------------------------------------------------------

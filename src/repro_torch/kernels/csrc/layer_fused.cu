@@ -78,27 +78,7 @@ __global__ void __launch_bounds__(bfs::kThreads)
                          g.n_blocks, n_batch);
   grid.sync();
   // 3. one CTA per union block for every root of its mask
-  const bfs::LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
-  bfs::sweep_items(
-      items, 0, depth, g.tile, smem,
-      [&](int* dst, int blk) {
-        bfs::stage_block(dst, g.rows + static_cast<long long>(blk) * g.tile,
-                         g.tile);
-      },
-      [&](int, int blk, const int* slot) {
-        const int* rows_blk =
-            slot ? slot : g.rows + static_cast<long long>(blk) * g.tile;
-        const unsigned* mask =
-            buf.rmask + static_cast<long long>(blk) * n_mask_words;
-        for (int s0 = 0; s0 < g.tile; s0 += sub) {
-          const int n = min(sub, g.tile - s0);
-          bfs::owners_by_scan(g.cs, g.n_cs, blk * g.tile + s0, n, own);
-          bfs::expand_roots<false>(rows_blk + s0, own, n, mask,
-                                   n_mask_words, buf.fi, buf.vi, buf.oi, p,
-                                   n_batch, g.v_pad, g.n_vertices, bu);
-          if (s0 + sub < g.tile) __syncthreads();   // own is rewritten
-        }
-      });
+  bfs::walk_csr(g, buf, p, n_batch, bu, depth, sub, smem, own);
   grid.sync();
   // 4. restoration
   bfs::restore_union(g, p, buf, n_batch);

@@ -52,8 +52,8 @@ __global__ void __launch_bounds__(bfs::kThreads) sell_expand_kernel(
   extern __shared__ __align__(16) int ring[];
   const int b = blockIdx.y;
   const bfs::WorkItems items{wl, na, g.n_steps, b + 1};
-  bfs::sell_sweep<false>(g, items, b, frontier, visited, out, p,
-                         bottom_up != 0, depth, ring);
+  bfs::sell_sweep(g, items, b, frontier, visited, out, p, bottom_up != 0,
+                  depth, ring);
 }
 
 }  // namespace

@@ -72,32 +72,7 @@ __global__ void __launch_bounds__(bfs::kThreads) sell_layer_fused_kernel(
                          g.n_steps, n_batch);
   grid.sync();
   // 3. one CTA per union group for every root of its mask
-  const bfs::LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
-  const int cols_ints = g.spp * bfs::kSlabInts;
-  const int rows_ints = g.spp * bfs::kSliceC;
-  bfs::sweep_items(
-      items, 0, depth, cols_ints + rows_ints, ring,
-      [&](int* dst, int grp) {
-        bfs::stage_block(dst,
-                         g.cols + static_cast<long long>(grp) * cols_ints,
-                         cols_ints);
-        bfs::stage_block(
-            dst + cols_ints,
-            g.slab_rows + static_cast<long long>(grp) * rows_ints,
-            rows_ints);
-      },
-      [&](int, int grp, const int* slot) {
-        const int* cols_g =
-            slot ? slot : g.cols + static_cast<long long>(grp) * cols_ints;
-        const int* rows_g =
-            slot ? slot + cols_ints
-                 : g.slab_rows + static_cast<long long>(grp) * rows_ints;
-        bfs::sell_group_union(
-            cols_g, rows_g, g.spp,
-            buf.rmask + static_cast<long long>(grp) * n_mask_words,
-            n_mask_words, buf.fi, buf.vi, buf.oi, p, n_batch, g.v_pad,
-            g.n_vertices, bu);
-      });
+  bfs::walk_sell(g, buf, p, n_batch, bu, depth, ring);
   grid.sync();
   // 4. restoration
   bfs::restore_union(g, p, buf, n_batch);

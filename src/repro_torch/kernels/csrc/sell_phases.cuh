@@ -1,9 +1,9 @@
-// The SELL-C-σ slab sweep over each root's work-list and its grid-wide
-// plan, shared by the slab kernel (K8, sell_expand.cu) and the
-// whole-traversal kernel (K10, sell_traversal_fused.cu); the planner
-// (plan_union.cu) and the whole-layer kernel (K9, sell_layer_fused.cu)
-// take `group_roots` and the layout from here and walk the union of
-// the lists instead (union_phases.cuh).
+// The SELL-C-σ layout on the device, the slab sweep over each root's
+// work-list (K8, sell_expand.cu) and the planning test of a slab group
+// (`group_roots`), which the planner (plan_union.cu) and the one-launch
+// kernels K9 (sell_layer_fused.cu) and K10 (sell_traversal_fused.cu)
+// take from here to plan the union of the lists (union_phases.cuh);
+// they walk that union with `sell_group_union`.
 //
 // Layout (formats/sell.py): a slab is an (8, 128) int32 block;
 // cols[slab][q][lane] is neighbour q of the virtual row in `lane`
@@ -20,20 +20,16 @@
 //   passing lane writes its negative P mark, and restoration repairs
 //   `out` from those marks.  Sentinel rows and neighbours (== V) never
 //   index P or a bitmap.
-// * sell_sweep: a CTA's walk over its share of the work-lists
+// * sell_sweep: K8's walk over its share of the work-lists
 //   (`bfs::sweep_items`), each group's cols and slab_rows staged
 //   together in one ring slot at depth > 0; a group that r roots list
 //   is read r times.
-// * sell_plan_count / sell_plan_write (K10): slab group `grp` is active
-//   for root b iff one of its lanes owns a row below V that is a member
-//   of the planning bitmap (the frontier, or the unvisited set
-//   bottom-up: the reference's `_plan_slabs_in_kernel`).  One warp
-//   reads a group's slab_rows once and tests them against up to 32
-//   roots' bitmaps (`group_roots`), giving one root-mask word per
-//   (group, 32 roots), kept in `gmask`; each CTA counts its contiguous
-//   chunk of groups per root, and after a grid barrier writes its
-//   active groups at the offset summed from the CTAs before it: an
-//   ascending work-list and its length, exactly the reference's.
+// * group_roots: slab group `grp` is active for root b iff one of its
+//   lanes owns a row below V that is a member of the planning bitmap
+//   (the frontier, or the unvisited set bottom-up: the reference's
+//   `_plan_slabs_in_kernel`).  One warp reads a group's slab_rows once
+//   and tests them against up to 32 roots' bitmaps, giving one
+//   root-mask word per (group, 32 roots).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,14 +49,12 @@ struct SellGraph {
   int n_steps, spp, n_words, v_pad, n_vertices;
 };
 
-template <bool kCoherent>
 __device__ __forceinline__ bool in_bitmap(const unsigned* words, int v) {
-  return (load_word<kCoherent>(words + (v >> 5)) >> (v & 31)) & 1u;
+  return (load_word<false>(words + (v >> 5)) >> (v & 31)) & 1u;
 }
 
 // One slab group's sweep for one root.  cols_g / rows_g point at the
 // group's cols and slab_rows, in device or shared memory.
-template <bool kCoherent>
 __device__ __forceinline__ void sell_group(const int* cols_g,
                                            const int* rows_g, int spp,
                                            const unsigned* fr,
@@ -73,25 +67,25 @@ __device__ __forceinline__ void sell_group(const int* cols_g,
     if (row >= n_vertices) continue;                  // sentinel row
     const int* c = cols_g + (i >> 7) * kSlabInts + (i & (kSliceC - 1));
     if (!bottom_up) {
-      if (!in_bitmap<kCoherent>(fr, row)) continue;
+      if (!in_bitmap(fr, row)) continue;
       for (int q = 0; q < kWQuant; ++q) {
         const int nbr = c[q * kSliceC];
         if (nbr >= n_vertices) continue;              // sentinel column
         const int w = nbr >> 5;
         const unsigned bit = 1u << (nbr & 31);
-        const unsigned ow = load_word<kCoherent>(ob + w);   // racy read
-        if ((load_word<kCoherent>(vis + w) | ow) & bit) continue;
+        const unsigned ow = load_word<false>(ob + w);   // racy read
+        if ((load_word<false>(vis + w) | ow) & bit) continue;
         pb[nbr] = row - n_vertices;                   // negative mark
         ob[w] = ow | bit;                             // racy write
       }
     } else {
       const int w = row >> 5;
       const unsigned bit = 1u << (row & 31);
-      if (load_word<kCoherent>(vis + w) & bit) continue;
+      if (load_word<false>(vis + w) & bit) continue;
       for (int q = 0; q < kWQuant; ++q) {
         const int nbr = c[q * kSliceC];
-        if (nbr >= n_vertices || !in_bitmap<kCoherent>(fr, nbr)) continue;
-        const unsigned ow = load_word<kCoherent>(ob + w);
+        if (nbr >= n_vertices || !in_bitmap(fr, nbr)) continue;
+        const unsigned ow = load_word<false>(ob + w);
         if (!(ow & bit)) {
           pb[row] = nbr - n_vertices;
           ob[w] = ow | bit;
@@ -105,7 +99,6 @@ __device__ __forceinline__ void sell_group(const int* cols_g,
 // A CTA's walk over its share of the work-lists of roots [b0, b_end):
 // K8 at depth 0 reads the slabs from device memory, at depth > 0 from
 // the ring, `ring` being (depth + 1) * spp * 1152 ints of shared memory.
-template <bool kCoherent>
 __device__ __forceinline__ void sell_sweep(const SellGraph& g,
                                            const WorkItems& items, int b0,
                                            const unsigned* frontier,
@@ -130,7 +123,7 @@ __device__ __forceinline__ void sell_sweep(const SellGraph& g,
             slot ? slot + cols_ints
                  : g.slab_rows + static_cast<long long>(grp) * rows_ints;
         const long long wo = static_cast<long long>(b) * g.n_words;
-        sell_group<kCoherent>(cols_g, rows_g, g.spp, frontier + wo,
+        sell_group(cols_g, rows_g, g.spp, frontier + wo,
                               visited + wo, out + wo,
                               p + static_cast<long long>(b) * g.v_pad,
                               g.n_vertices, bottom_up);
@@ -160,88 +153,6 @@ __device__ __forceinline__ unsigned group_roots(const SellGraph& g,
     }
   }
   return __reduce_or_sync(0xffffffffu, m);
-}
-
-__device__ __forceinline__ int root_chunks(int n_batch) {
-  return (n_batch + 31) >> 5;
-}
-
-// Phase 1: root masks of the CTA's chunk of groups -> gmask
-// ((n_steps, root_chunks) words), and active groups per (root, CTA)
-// -> cnt.  `words` are the planning bitmaps (frontier, or visited with
-// complement = true).
-template <bool kCoherent>
-__device__ inline void sell_plan_count(const SellGraph& g,
-                                       const unsigned* words,
-                                       bool complement, int n_batch,
-                                       unsigned* gmask, int* cnt) {
-  int begin, end;
-  chunk_of_cta(g.n_steps, &begin, &end);
-  const int n_chunks = root_chunks(n_batch);
-  const int warp = threadIdx.x >> 5;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int b0 = c * 32, nb = min(32, n_batch - b0);
-    for (int grp = begin + warp; grp < end; grp += kWarps) {
-      const unsigned m =
-          group_roots<kCoherent>(g, words, complement, b0, nb, grp);
-      if ((threadIdx.x & 31) == 0)
-        gmask[static_cast<long long>(grp) * n_chunks + c] = m;
-    }
-  }
-  __syncthreads();                 // this CTA's masks are visible to it
-  for (int b = 0; b < n_batch; ++b) {
-    const unsigned bit = 1u << (b & 31);
-    long long s[1] = {0};
-    for (int grp = begin + threadIdx.x; grp < end; grp += blockDim.x)
-      s[0] += (__ldcg(gmask + static_cast<long long>(grp) * n_chunks +
-                      (b >> 5)) & bit) != 0;
-    block_sum(s);
-    if (threadIdx.x == 0) cnt[b * gridDim.x + blockIdx.x] = int(s[0]);
-  }
-}
-
-// Phase 2: ascending work-lists and their lengths from the masks.
-__device__ inline void sell_plan_write(const SellGraph& g, int n_batch,
-                                       const unsigned* gmask,
-                                       const LayerBuffers& buf) {
-  int begin, end;
-  chunk_of_cta(g.n_steps, &begin, &end);
-  const int n_chunks = root_chunks(n_batch);
-  for (int b = 0; b < n_batch; ++b) {
-    const unsigned bit = 1u << (b & 31);
-    long long s[2] = {0, 0};       // CTAs before this one, all CTAs
-    for (int c = threadIdx.x; c < static_cast<int>(gridDim.x);
-         c += blockDim.x) {
-      const int v = __ldcg(buf.cnt + b * gridDim.x + c);
-      s[1] += v;
-      if (c < static_cast<int>(blockIdx.x)) s[0] += v;
-    }
-    block_sum(s);
-    if (blockIdx.x == 0 && threadIdx.x == 0) buf.na[b] = int(s[1]);
-    int* wl_b = buf.wl + static_cast<long long>(b) * g.n_steps;
-    int off = int(s[0]);
-    for (int base = begin; base < end; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const bool f =
-          i < end && (__ldcg(gmask + static_cast<long long>(i) * n_chunks +
-                             (b >> 5)) & bit);
-      int total;
-      const int r = block_rank(f, &total);
-      if (f) wl_b[off + r] = i;
-      off += total;
-    }
-  }
-}
-
-// Phase 3 of K10: every root's listed groups into buf.out and P.
-__device__ __forceinline__ void sell_gather(const SellGraph& g,
-                                   const unsigned* frontier,
-                                   const unsigned* visited, int* p,
-                                   const LayerBuffers& buf, int n_batch,
-                                   bool bottom_up, int depth, int* ring) {
-  const WorkItems items{buf.wl, buf.na, g.n_steps, n_batch};
-  sell_sweep<true>(g, items, 0, frontier, visited, buf.out, p, bottom_up,
-                   depth, ring);
 }
 
 }  // namespace bfs

@@ -1,61 +1,60 @@
 // K10: a whole multi-root BFS traversal over SELL-C-σ slabs in ONE
-// cooperative launch, for Hopper.
+// cooperative launch, for Hopper, each layer walking the union of the
+// roots' work-lists.
 //
 // Replaces: src/repro/kernels/traversal_fused.py,
 // `sell_traversal_fused_batched` (Pallas body `_sell_traversal_kernel`:
 // `_init_state`, `_persistent_layer_loop` with `_layer_counters` and
 // `_decide`, `_plan_slabs_in_kernel` and the `_sell_tile_dyn` sweep).
 //
-// What it computes: K6's in-kernel layer loop (traversal_loop.cuh) with
-// the per-root slab phases (sell_phases.cuh) as the layer's sweep: the
-// slab plan of the frontier (or, bottom-up, of the unvisited set), the
-// slab sweep with the layer's direction, restoration.  The Table 1
-// counters come from the padded degree array, SELL having no
-// colstarts.  SELL runs the SIMD algorithm only, so every mode is the
-// slab sweep with the accumulating `visited | out` test; a scalar-mode
-// layer is the top-down sweep (the reference's `_sell_tile_dyn` has no
-// scalar blend).
+// What it computes: K6's in-kernel layer loop (traversal_loop.cuh) whose
+// layers are K9's phases (union_phases.cuh): the union of the roots'
+// slab-group lists planned in the launch (`union_masks_sell`: one warp
+// reads a group's slab_rows once for 32 roots, through L2, since the
+// loop rewrites the planning words; `union_write`), one CTA per union
+// group for every root of its mask (`walk_sell`: each lane's row and 8
+// neighbours read once, the live roots inside the neighbour loop, so a
+// random neighbour's words serve them all), and restoration with the
+// next layer's counters in one pass.  The Table 1 counters come from
+// the padded degree array, SELL having no colstarts.  SELL runs the SIMD
+// algorithm only, so every mode is the slab sweep with the accumulating
+// `visited | out` test; a scalar-mode layer is the top-down sweep (the
+// reference's `_sell_tile_dyn` has no scalar blend).
 //
-// Every read of state rewritten between layers (frontier, visited, P,
-// out, the work-lists, counts and root masks) is ld.global.cg.
-//
-// What bounds it on this card: the sweeps, as K8; plus per layer one
-// pass over slab_rows (the plan), over P (restoration) and over the
-// bitmaps and degrees (counters).
+// What bounds it on this card: bytes, in practice the latency of the
+// random neighbour words of the walks, as K9; plus per layer one pass
+// over slab_rows and the planning words (the plan), over P (restoration,
+// where a word has discoveries) and over the degrees (counters).  The
+// per-root design it replaces read a group's cols and slab_rows once per
+// root that listed it, and each root fetched a random neighbour's sector
+// again.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "sell_phases.cuh"
 #include "traversal_loop.cuh"
 
 namespace {
 
-// The per-root slab phases as the loop's layer sweep.
+// K9's planning and walk as the loop's layer.
 struct SellLayer {
   bfs::SellGraph g;
-  unsigned* gmask;       // (n_steps, ceil(B / 32)) root masks
 
-  __device__ void plan_count(const unsigned* words, bool complement,
-                             int n_batch,
-                             const bfs::LayerBuffers& buf) const {
-    bfs::sell_plan_count<true>(g, words, complement, n_batch, gmask,
-                               buf.cnt);
+  __device__ int n_items() const { return g.n_steps; }
+  __device__ void masks(const unsigned* words, bool complement, int n_batch,
+                        unsigned* rmask, int begin, int end) const {
+    bfs::union_masks_sell<false, true>(g, words, complement, n_batch,
+                                       nullptr, rmask, begin, end);
   }
-  __device__ void plan_write(const unsigned*, bool, int n_batch,
-                             const bfs::LayerBuffers& buf) const {
-    bfs::sell_plan_write(g, n_batch, gmask, buf);
-  }
-  __device__ void gather(const unsigned* frontier, const unsigned* visited,
-                         int* p, const bfs::LayerBuffers& buf, int n_batch,
-                         bool bottom_up, bool, int depth, int* ring) const {
-    bfs::sell_gather(g, frontier, visited, p, buf, n_batch, bottom_up,
-                     depth, ring);
+  __device__ void walk(const bfs::UnionBuffers& buf, int* p, int n_batch,
+                       bool bottom_up, bool, int depth, int* ring) const {
+    bfs::walk_sell(g, buf, p, n_batch, bottom_up, depth, ring);
   }
 };
 
-__global__ void __launch_bounds__(bfs::kThreads)
+// At least kTraversalCtas resident CTAs per SM, as K6 (traversal_fused.cu).
+__global__ void __launch_bounds__(bfs::kThreads, bfs::kTraversalCtas)
     sell_traversal_fused_kernel(SellLayer layer, bfs::Traversal t,
-                                bfs::LayerBuffers buf, bfs::Policy pol) {
+                                bfs::UnionBuffers buf, bfs::Policy pol) {
   extern __shared__ __align__(16) int ring[];
   bfs::traversal_loop(layer, t, buf, pol, ring);
 }
@@ -75,20 +74,22 @@ extern "C" int repro_sell_traversal_fused_grid(int depth, int spp,
 }
 
 // cols (n_steps * spp, 8, 128), slab_rows (n_steps * spp, 128) and deg
-// (v_pad,) int32; f0, vis0: (B, n_words) words and p0: (B, v_pad)
-// int32, read only.  frontier, visited, p, depths (B,), layers (1,),
-// stats (max_layers, 8) are the outputs; out (B, n_words), wl
-// (B, n_steps), cnt (B, grid), na (B,), gmask (n_steps * ceil(B / 32))
-// and acc ((max_layers + 1) * B * 4 uint64) are scratch.  simd_layer:
+// (v_pad,) int32 (deg 16-byte aligned); f0, vis0: (B, n_words) words and
+// p0: (B, v_pad) int32 (16-byte aligned), read only.  frontier, visited,
+// p, depths (B,), layers (1,), stats (max_layers, 8) are the outputs;
+// rmask (n_steps, ceil(B / 32)), ulist (n_steps,), ucount (1,), cnt
+// (B + 1, grid), na (B,), fi, vi, oi ((n_words, B) each) and acc
+// ((max_layers + 1) * B * 4 uint64) are scratch.  simd_layer:
 // (max_layers,) int32 (PaperLiteralLayers).
 extern "C" int repro_sell_traversal_fused(
     const void* cols, const void* slab_rows, const void* deg, const void* f0,
     const void* vis0, const void* p0, void* frontier, void* visited, void* p,
-    void* out, void* wl, void* cnt, void* na, void* gmask, void* acc,
-    void* depths, void* layers, void* stats, const void* simd_layer,
-    int n_batch, int n_steps, int spp, int n_words, int v_pad,
-    int n_vertices, int depth, int max_layers, int kind, float alpha,
-    float v_over_beta, float threshold, int grid, void* stream) {
+    void* rmask, void* ulist, void* ucount, void* cnt, void* na, void* fi,
+    void* vi, void* oi, void* acc, void* depths, void* layers, void* stats,
+    const void* simd_layer, int n_batch, int n_steps, int spp, int n_words,
+    int v_pad, int n_vertices, int depth, int max_layers, int kind,
+    float alpha, float v_over_beta, float threshold, int grid,
+    void* stream) {
   if (n_batch == 0) return 0;
   const bfs::SellGraph g{static_cast<const int*>(cols),
                          static_cast<const int*>(slab_rows),
@@ -105,11 +106,15 @@ extern "C" int repro_sell_traversal_fused(
                    static_cast<int*>(layers),
                    static_cast<int*>(stats),
                    n_batch, max_layers, depth};
-  bfs::LayerBuffers buf{static_cast<unsigned*>(out), static_cast<int*>(wl),
-                        static_cast<int*>(cnt), static_cast<int*>(na)};
+  bfs::UnionBuffers buf{
+      nullptr,                     static_cast<unsigned*>(rmask),
+      static_cast<int*>(ulist),    static_cast<int*>(ucount),
+      static_cast<int*>(cnt),      static_cast<int*>(na),
+      static_cast<unsigned*>(fi),  static_cast<unsigned*>(vi),
+      static_cast<unsigned*>(oi)};
   bfs::Policy pol{kind, alpha, v_over_beta, threshold,
                   static_cast<const int*>(simd_layer)};
-  SellLayer layer{g, static_cast<unsigned*>(gmask)};
+  SellLayer layer{g};
   void* args[] = {&layer, &t, &buf, &pol};
   return bfs::launch_cooperative(sell_traversal_fused_kernel, grid,
                                  ring_bytes(depth, spp), stream, args);

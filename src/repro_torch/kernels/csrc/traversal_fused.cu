@@ -1,5 +1,5 @@
 // K6: a whole multi-root BFS traversal in ONE cooperative launch, for
-// Hopper.
+// Hopper, each layer walking the union of the roots' work-lists.
 //
 // Replaces: src/repro/kernels/traversal_fused.py,
 // `traversal_fused_batched` (Pallas body `_traversal_kernel`:
@@ -9,17 +9,28 @@
 // two share the layer loop of traversal_loop.cuh.
 //
 // What it computes: the engine's layer loop over a root batch
-// (traversal_loop.cuh) with the per-root phases of fused_phases.cuh as
-// the layer's sweep: the owner-range plan, the rows-block gather and, at
-// the layer's end, restoration; a scalar-mode layer tests the
-// pre-layer visited only (`_gather_tile_dyn`).
+// (traversal_loop.cuh) whose layers are K5's phases (union_phases.cuh):
+// the union of the roots' rows-block lists planned in the launch
+// (`union_masks_csr` on `covered`, `union_write`), one CTA per union
+// block for every root of its mask (`walk_csr`: the block's rows read
+// once, from a cp.async ring at depth > 0, its owners found once by a
+// shared-memory scan of colstarts, then K3's racy expand per root), and
+// at the layer's end restoration with the next layer's counters in one
+// pass.  A scalar-mode layer tests the pre-layer visited only
+// (`_gather_tile_dyn`; `expand_roots`' scalar arm).
 //
 // The TPU kernel keeps the state in VMEM across layers; here it lives in
-// device memory (and mostly L2) and the layers' phases are separated by
-// grid barriers of a cooperative launch.
+// device memory (and mostly L2), in rows for the planning and
+// root-interleaved for the walk, and the phases are separated by grid
+// barriers of a cooperative launch whose grid is sized from the
+// occupancy API, so every CTA is resident.
 //
-// What bounds it on this card: the gathers, as K3; plus per layer one
-// pass over P (restoration) and over the bitmaps and degrees (counters).
+// What bounds it on this card: bytes, in practice the latency of the
+// random per-root bitmap loads of the walks, as K5; plus per layer one
+// pass over the planning words, P (restoration, where a word has
+// discoveries) and the degrees (counters).  The per-root design it
+// replaces fetched a block's rows, and searched each slot's owner, once
+// per root that listed it, and read the state through L2 only.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -27,62 +38,70 @@
 
 namespace {
 
-// The per-root phases as the loop's layer sweep.
+// K5's planning and walk as the loop's layer.
 struct CsrLayer {
   bfs::FusedGraph g;
+  int sub;               // owner slots per scan
 
-  __device__ void plan_count(const unsigned* words, bool complement,
-                             int n_batch,
-                             const bfs::LayerBuffers& buf) const {
-    bfs::plan_count(g, words, complement, n_batch, buf.cnt);
+  __device__ int n_items() const { return g.n_blocks; }
+  __device__ void masks(const unsigned* words, bool complement, int n_batch,
+                        unsigned* rmask, int begin, int end) const {
+    bfs::union_masks_csr<false>(g, words, complement, n_batch, nullptr,
+                                rmask, begin, end);
   }
-  __device__ void plan_write(const unsigned* words, bool complement,
-                             int n_batch,
-                             const bfs::LayerBuffers& buf) const {
-    bfs::plan_write(g, words, complement, n_batch, buf);
-  }
-  __device__ void gather(const unsigned* frontier, const unsigned* visited,
-                         int* p, const bfs::LayerBuffers& buf, int n_batch,
-                         bool bottom_up, bool scalar, int depth,
-                         int* ring) const {
-    bfs::gather(g, frontier, visited, p, buf, n_batch, bottom_up, scalar,
-                depth, ring);
+  __device__ void walk(const bfs::UnionBuffers& buf, int* p, int n_batch,
+                       bool bottom_up, bool scalar, int depth,
+                       int* smem) const {
+    int* own = smem + (depth > 0 ? (depth + 1) * g.tile : 0);
+    bfs::walk_csr<true>(g, buf, p, n_batch, bottom_up, depth, sub, smem,
+                        own, scalar);
   }
 };
 
-__global__ void __launch_bounds__(bfs::kThreads)
+// At least kTraversalCtas resident CTAs per SM: ptxas then keeps to 48
+// registers and spills some, and the walks gain more from the resident
+// warps than they lose to the spill (`tools/sweep_launch_bounds.py`
+// times K6 and K10 at each minimum; PERF.md).
+__global__ void __launch_bounds__(bfs::kThreads, bfs::kTraversalCtas)
     traversal_fused_kernel(CsrLayer layer, bfs::Traversal t,
-                           bfs::LayerBuffers buf, bfs::Policy pol) {
-  extern __shared__ __align__(16) int stage[];
-  bfs::traversal_loop(layer, t, buf, pol, stage);
+                           bfs::UnionBuffers buf, bfs::Policy pol) {
+  extern __shared__ __align__(16) int smem[];
+  bfs::traversal_loop(layer, t, buf, pol, smem);
 }
 
-size_t stage_bytes(int depth, int tile) {
-  return depth > 0 ? static_cast<size_t>(depth + 1) * tile * sizeof(int)
-                   : 0;
+// Dynamic shared memory: the rows ring at depth > 0, then `sub` owners
+// (K5's).
+size_t smem_bytes(int depth, int tile, int sub) {
+  const size_t ring =
+      depth > 0 ? static_cast<size_t>(depth + 1) * tile * sizeof(int) : 0;
+  return ring + static_cast<size_t>(sub) * sizeof(int);
 }
 
 }  // namespace
 
-extern "C" int repro_traversal_fused_grid(int depth, int tile,
+extern "C" int repro_traversal_fused_grid(int depth, int tile, int sub,
                                           int ctas_per_sm, int* grid) {
   return bfs::cooperative_grid(traversal_fused_kernel,
-                               stage_bytes(depth, tile), ctas_per_sm, grid);
+                               smem_bytes(depth, tile, sub), ctas_per_sm,
+                               grid);
 }
 
-// f0, vis0: (B, n_words) words and p0: (B, v_pad) int32, read only.
-// frontier, visited, p, depths (B,), layers (1,), stats (max_layers, 8)
-// are the outputs; out (B, n_words), wl (B, n_blocks), cnt (B, grid),
-// na (B,) and acc ((max_layers + 1) * B * 4 uint64) are scratch.
-// simd_layer: (max_layers,) int32 (PaperLiteralLayers only; may be
-// null for other kinds).
+// f0, vis0: (B, n_words) words and p0: (B, v_pad) int32 (16-byte
+// aligned), read only.  frontier, visited, p, depths (B,), layers (1,),
+// stats (max_layers, 8) are the outputs; rmask (n_blocks, ceil(B / 32)),
+// ulist (n_blocks,), ucount (1,), cnt (B + 1, grid), na (B,), fi, vi, oi
+// ((n_words, B) each) and acc ((max_layers + 1) * B * 4 uint64) are
+// scratch.  simd_layer: (max_layers,) int32 (PaperLiteralLayers only;
+// may be null for other kinds).  `grid` must come from
+// repro_traversal_fused_grid with the same depth, tile and sub.
 extern "C" int repro_traversal_fused(
     const void* rows, const void* cs, const void* blk_lo, const void* blk_hi,
     const void* nz, const void* deg, const void* f0, const void* vis0,
-    const void* p0, void* frontier, void* visited, void* p, void* out,
-    void* wl, void* cnt, void* na, void* acc, void* depths, void* layers,
-    void* stats, const void* simd_layer, int n_batch, int n_blocks,
-    int tile, int n_cs, int n_words, int v_pad, int n_vertices, int depth,
+    const void* p0, void* frontier, void* visited, void* p, void* rmask,
+    void* ulist, void* ucount, void* cnt, void* na, void* fi, void* vi,
+    void* oi, void* acc, void* depths, void* layers, void* stats,
+    const void* simd_layer, int n_batch, int n_blocks, int tile, int n_cs,
+    int n_words, int v_pad, int n_vertices, int depth, int sub,
     int max_layers, int kind, float alpha, float v_over_beta,
     float threshold, int grid, void* stream) {
   if (n_batch == 0) return 0;
@@ -104,12 +123,16 @@ extern "C" int repro_traversal_fused(
                    static_cast<int*>(layers),
                    static_cast<int*>(stats),
                    n_batch, max_layers, depth};
-  bfs::LayerBuffers buf{static_cast<unsigned*>(out), static_cast<int*>(wl),
-                        static_cast<int*>(cnt), static_cast<int*>(na)};
+  bfs::UnionBuffers buf{
+      nullptr,                     static_cast<unsigned*>(rmask),
+      static_cast<int*>(ulist),    static_cast<int*>(ucount),
+      static_cast<int*>(cnt),      static_cast<int*>(na),
+      static_cast<unsigned*>(fi),  static_cast<unsigned*>(vi),
+      static_cast<unsigned*>(oi)};
   bfs::Policy pol{kind, alpha, v_over_beta, threshold,
                   static_cast<const int*>(simd_layer)};
-  CsrLayer layer{g};
+  CsrLayer layer{g, sub};
   void* args[] = {&layer, &t, &buf, &pol};
   return bfs::launch_cooperative(traversal_fused_kernel, grid,
-                                 stage_bytes(depth, tile), stream, args);
+                                 smem_bytes(depth, tile, sub), stream, args);
 }

@@ -4,33 +4,51 @@
 // From the initial (frontier, visited, P) of B roots, the engine's layer
 // loop until every frontier is empty or max_layers layers ran.  Each
 // layer:
-//   measure  per-root frontier popcount and degree sum (and, for
-//            BeamerHybrid, the unvisited set's), exact int64, from the
-//            padded degree array `deg`;
-//   decide   the direction policy on those counters (kind + parameters;
-//            the batch sums are float32 of the exact int64 sums, the
-//            same numbers the engine's policies compare);
-//   sweep    the layout's plan (count, write) and gather with the
-//            layer's direction (`Layer::plan_count`, `plan_write`,
-//            `gather`);
-//   update   restore P, frontier = out, visited |= out, next layer's
-//            counters, the stats row (launches column 1 on layer 0 only;
-//            tiles column the batch's n_active sum in every mode).
+//   decide   the direction policy on the layer's Table-1 counters (per
+//            root the frontier's popcount and degree sum and, for
+//            BeamerHybrid, the unvisited set's, exact int64 from the
+//            padded degree array `deg`; the batch sums are float32 of
+//            the exact int64 sums, the same numbers the engine's
+//            policies compare);
+//   1. plan  root masks of the CTA's chunk of items from the planning
+//            words (the frontier, or visited bottom-up) and per-CTA
+//            counts (`Layer::masks`, `union_counts`, union_phases.cuh);
+//   2.       the ascending union of the batch's lists, its count and
+//            each root's n_active (`union_write`);
+//   3. walk  one CTA per union item for every root of its mask
+//            (`Layer::walk`: `walk_csr` or `walk_sell`), on the
+//            root-interleaved state;
+//   4. update restore P, frontier = out | delta, visited |= frontier,
+//            the interleaved out zeroed, and the next layer's counters,
+//            in one pass (`update_state`);
+//   then CTA 0 writes the stats row (launches column 1 on layer 0 only;
+//   tiles column the batch's n_active sum in every mode), the depths
+//   and the layer count.
 // Outputs: (frontier, visited, P, depths (B,), layers (1,), stats
 // (max_layers, 8)) — the engine's whole-traversal contract.
 //
 // The phases are separated by grid barriers of a cooperative launch: 2
 // at start-up, 4 per layer.  Every CTA reads the same counters after a
 // barrier and decides the same direction, so the loop needs no
-// broadcast and ends in step.  CTA 0 alone writes the stats row, depths
-// and layer count.  State rewritten between layers is read with
-// ld.global.cg only.
+// broadcast and ends in step.
+//
+// State across layers.  The planning reads each root's words in rows,
+// (B, n_words); the walk reads them root-interleaved, (n_words, B), so
+// that the B words of one vertex share a sector.  The start-up pass
+// writes the initial state into both layouts and every update pass
+// writes the new frontier and visited into both, so no phase restages
+// the state; the rows are the outputs.  Loads: the planning words, P
+// and the counters through L2 (ld.global.cg); the walk's masks, list and
+// interleaved words, and the update's interleaved words, by plain loads
+// (`ld_walk<false>`) after a grid barrier, whose acquire invalidates the
+// SM's L1 (bfs_common.cuh), so that no layer reads a line an earlier
+// layer left in L1.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "fused_phases.cuh"
+#include "union_phases.cuh"
 
 namespace bfs {
 
@@ -38,6 +56,9 @@ constexpr int kModeScalar = 0, kModeSimd = 1, kModeBottomUp = 2;
 constexpr int kTopDown = 0, kThresholdSimd = 1, kPaperLayers = 2,
               kBeamer = 3;
 constexpr int kStatCols = 8;
+// K6's and K10's minimum of resident CTAs per SM (`__launch_bounds__`;
+// tools/sweep_launch_bounds.py rebuilds them at other values)
+constexpr int kTraversalCtas = 5;
 
 struct Policy {
   int kind;
@@ -86,20 +107,16 @@ __device__ inline int decide(const Policy& pol, int layer, float f_count,
   }
 }
 
-// Add one word's counters (lane k: vertex 32 w + k) to c: frontier
-// count and degree sum, and the unvisited set's when asked.  G has deg.
-template <class G>
-__device__ __forceinline__ void count_word(const G& g, long long w,
-                                           unsigned fw, unsigned vw,
-                                           bool unvisited, int lane,
-                                           long long (&c)[4]) {
-  const bool in_f = (fw >> lane) & 1u;
-  const bool in_u = unvisited && !((vw >> lane) & 1u);
-  if (in_f || in_u) {
-    const int d = __ldg(g.deg + w * 32 + lane);
-    if (in_f) { c[0] += 1; c[1] += d; }
-    if (in_u) { c[2] += 1; c[3] += d; }
-  }
+// The warp's (count, degree sum) of the vertices whose bits each lane
+// holds in `bits` (bit k: the vertex whose degree is component k of d).
+// Every lane of the warp must call it; every lane gets the sums.
+__device__ __forceinline__ void count4(unsigned bits, const int4& d,
+                                       int* n, int* e) {
+  *n = __reduce_add_sync(0xffffffffu, __popc(bits));
+  *e = __reduce_add_sync(0xffffffffu, ((bits & 1u) ? d.x : 0) +
+                                          ((bits & 2u) ? d.y : 0) +
+                                          ((bits & 4u) ? d.z : 0) +
+                                          ((bits & 8u) ? d.w : 0));
 }
 
 // One root's counters, reduced over the CTA, added to acc (4 values).
@@ -111,121 +128,189 @@ __device__ __forceinline__ void flush_counters(long long (&c)[4],
       if (c[k]) atomicAdd(acc + k, static_cast<unsigned long long>(c[k]));
 }
 
-// Layer 0's counters from the initial state.
-template <class G>
-__device__ void count_state(const G& g, const Traversal& t, bool unvisited,
-                            unsigned long long* acc) {
-  const int lane = threadIdx.x & 31;
-  for (int b = 0; b < t.n_batch; ++b) {
-    long long c[4] = {0, 0, 0, 0};
-    for (long long w = grid_warp(); w < g.n_words; w += grid_warps()) {
-      const long long q = static_cast<long long>(b) * g.n_words + w;
-      count_word(g, w, __ldcg(t.frontier + q), __ldcg(t.visited + q),
-                 unvisited, lane, c);
-    }
-    flush_counters(c, acc + 4 * b);
-  }
-}
-
-// Restore P, move out into the frontier, OR it into visited, zero out
-// for the next layer, and count the next layer's counters.
-template <class G>
-__device__ void restore_update(const G& g, const Traversal& t,
-                               unsigned* out, bool unvisited,
-                               unsigned long long* acc) {
-  const int lane = threadIdx.x & 31;
-  for (int b = 0; b < t.n_batch; ++b) {
-    long long c[4] = {0, 0, 0, 0};
-    for (long long w = grid_warp(); w < g.n_words; w += grid_warps()) {
-      const long long q = static_cast<long long>(b) * g.n_words + w;
-      const unsigned delta = restore_word(
-          t.p + static_cast<long long>(b) * g.v_pad + w * 32, lane,
-          g.n_vertices);
-      const unsigned fw = __ldcg(out + q) | delta;
-      const unsigned vw = __ldcg(t.visited + q) | fw;
-      __syncwarp();
-      if (lane == 0) {
-        t.frontier[q] = fw;
-        t.visited[q] = vw;
-        out[q] = 0u;
+// The start-up pass (kStart) or a layer's update pass over every root's
+// state, counting the next layer's counters into acc ((B, 4)).  A warp
+// takes 4 words (128 vertices) at a time, lane l the 4 entries
+// 4 (l & 7) .. 4 (l & 7) + 3 of word l >> 3, with their 4 degrees in one
+// 16-byte load that serves every root of a chunk of 32; per root:
+//   kStart: P copied from p0 by one 16-byte load per lane, the words
+//           from f0 and vis0;
+//   update: P restored by one 16-byte load per lane where the word's
+//           interleaved out is not zero (every negative mark was
+//           written with a bit of its out word; `full`, on layer 0,
+//           restores every word, as the plain version restores any mark
+//           p0 carries), the 8 lanes of a word ORing their pieces of the
+//           delta; frontier = out | delta, visited |= frontier;
+// then the words go to both layouts and the interleaved out is zeroed.
+// Lane j of each warp sums root b0 + j's counters of the warp's steps,
+// in int32 (every count and degree sum fits: colstarts are int32); they
+// are reduced over the CTA at the chunk's end.  G has deg, n_words and
+// v_pad (= 32 n_words).
+template <bool kStart, class G>
+__device__ void update_state(const G& g, const Traversal& t,
+                             const UnionBuffers& buf, bool unvisited,
+                             bool full, unsigned long long* acc) {
+  const int lane = threadIdx.x & 31, piece = lane & 7;
+  const long long n_batch = t.n_batch;
+  const long long n_steps = (g.n_words + 3) / 4;
+  for (int b0 = 0; b0 < t.n_batch; b0 += 32) {
+    const int nb = min(32, t.n_batch - b0);
+    int mine[4] = {0, 0, 0, 0};
+    for (long long s = grid_warp(); s < n_steps; s += grid_warps()) {
+      const long long w = 4 * s + (lane >> 3);
+      const bool live = w < g.n_words;
+      const long long e = 32 * w + 4 * piece;
+      const int4 d = live ? __ldg(reinterpret_cast<const int4*>(g.deg + e))
+                          : make_int4(0, 0, 0, 0);
+      for (int j = 0; j < nb; ++j) {
+        const long long b = b0 + j;
+        const long long r = b * g.n_words + w;      // (B, n_words)
+        const long long q = w * n_batch + b;        // (n_words, B)
+        int4* at = reinterpret_cast<int4*>(t.p + b * g.v_pad + e);
+        unsigned fw = 0u, vw = ~0u;
+        if constexpr (kStart) {
+          if (live) {
+            *at = __ldg(reinterpret_cast<const int4*>(t.p0 + b * g.v_pad +
+                                                      e));
+            fw = __ldg(t.f0 + r);
+            vw = __ldg(t.vis0 + r);
+          }
+        } else {
+          unsigned m = 0u, ow = 0u, old_vw = 0u;
+          if (live) {
+            ow = ld_walk<false>(buf.oi + q);
+            old_vw = ld_walk<false>(buf.vi + q);
+            if (full || ow) {
+              int4 v = __ldcg(at);
+              m = (v.x < 0) | (v.y < 0) << 1 | (v.z < 0) << 2 |
+                  (v.w < 0) << 3;
+              if (m) {
+                if (v.x < 0) v.x += g.n_vertices;
+                if (v.y < 0) v.y += g.n_vertices;
+                if (v.z < 0) v.z += g.n_vertices;
+                if (v.w < 0) v.w += g.n_vertices;
+                *at = v;
+              }
+            }
+          }
+          unsigned delta = m << (4 * piece);
+          delta |= __shfl_xor_sync(0xffffffffu, delta, 1);
+          delta |= __shfl_xor_sync(0xffffffffu, delta, 2);
+          delta |= __shfl_xor_sync(0xffffffffu, delta, 4);
+          if (live) {
+            fw = ow | delta;
+            vw = old_vw | fw;
+          }
+        }
+        if (piece == 0 && live) {
+          t.frontier[r] = fw;
+          t.visited[r] = vw;
+          buf.fi[q] = fw;
+          buf.vi[q] = vw;
+          buf.oi[q] = 0u;
+        }
+        int n, deg_sum;
+        count4((fw >> (4 * piece)) & 0xfu, d, &n, &deg_sum);
+        if (lane == j) {
+          mine[0] += n;
+          mine[1] += deg_sum;
+        }
+        if (unvisited) {
+          count4((~vw >> (4 * piece)) & 0xfu, d, &n, &deg_sum);
+          if (lane == j) {
+            mine[2] += n;
+            mine[3] += deg_sum;
+          }
+        }
       }
-      count_word(g, w, fw, vw, unvisited, lane, c);
     }
-    flush_counters(c, acc + 4 * b);
+    for (int j = 0; j < nb; ++j) {
+      long long c[4];
+      for (int k = 0; k < 4; ++k) c[k] = lane == j ? mine[k] : 0;
+      flush_counters(c, acc + 4 * (b0 + j));
+    }
   }
 }
 
-// The whole loop.  Layer provides `g` (deg, n_words, v_pad, n_vertices)
-// and plan_count(words, complement, n_batch, buf), plan_write(words,
-// complement, n_batch, buf) and gather(frontier, visited, p, buf,
-// n_batch, bottom_up, scalar, depth, ring); every CTA calls it.
+// The whole loop; every CTA calls it.  Layer provides `g` (deg,
+// n_words, v_pad, n_vertices), n_items(), masks(words, complement,
+// n_batch, rmask, begin, end) (the root masks of items [begin, end))
+// and walk(buf, p, n_batch, bottom_up, scalar, depth, smem).  buf.out
+// is unused: the update pass writes the frontier rows.
 template <class Layer>
 __device__ void traversal_loop(const Layer& L, const Traversal& t,
-                               const LayerBuffers& buf, const Policy& pol,
-                               int* ring) {
+                               const UnionBuffers& buf, const Policy& pol,
+                               int* smem) {
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
   const auto& g = L.g;
   const int n_batch = t.n_batch;
-  const long long n_bits = static_cast<long long>(n_batch) * g.n_words;
-  const long long n_p = static_cast<long long>(n_batch) * g.v_pad;
+  const int n_mask_words = (n_batch + 31) >> 5;
   const long long n_acc = (t.max_layers + 1LL) * n_batch * 4;
   const long long n_stats = static_cast<long long>(t.max_layers) * kStatCols;
-  const long long n_init = max(max(n_p, n_acc), n_stats);
   const bool unvisited = pol.kind == kBeamer;
 
-  // start-up: copy the initial state, zero outputs and counters
-  for (long long i = grid.thread_rank(); i < n_init; i += grid.size()) {
-    if (i < n_p) t.p[i] = __ldg(t.p0 + i);
-    if (i < n_bits) {
-      t.frontier[i] = __ldg(t.f0 + i);
-      t.visited[i] = __ldg(t.vis0 + i);
-      buf.out[i] = 0u;
-    }
+  // start-up: zero counters and outputs; copy the initial state into
+  // both layouts and count layer 0
+  for (long long i = grid.thread_rank(); i < max(n_acc, n_stats);
+       i += grid.size()) {
     if (i < n_acc) t.acc[i] = 0ull;
     if (i < n_stats) t.stats[i] = 0;
     if (i < n_batch) t.depths[i] = 0;
     if (i == 0) t.layers[0] = 0;
   }
   grid.sync();
-  count_state(g, t, unvisited, t.acc);
+  update_state<true>(g, t, buf, unvisited, false, t.acc);
   grid.sync();
 
+  int begin, end;
+  chunk_of_cta(L.n_items(), &begin, &end);
   bool bottom_up = false;
   for (int l = 0; l < t.max_layers; ++l) {
     const unsigned long long* acc_l = t.acc + 4LL * n_batch * l;
-    long long tot[4] = {0, 0, 0, 0};
-    for (int b = 0; b < n_batch; ++b)
-      for (int k = 0; k < 4; ++k)
-        tot[k] += static_cast<long long>(__ldcg(acc_l + 4 * b + k));
-    if (tot[0] == 0) break;                 // every frontier is empty
-    const int mode = decide(pol, l, __ll2float_rn(tot[0]),
-                            __ll2float_rn(tot[1]), __ll2float_rn(tot[2]),
-                            __ll2float_rn(tot[3]), &bottom_up);
+    int mode;
+    {
+      long long tot[4] = {0, 0, 0, 0};
+      for (int b = 0; b < n_batch; ++b)
+        for (int k = 0; k < 4; ++k)
+          tot[k] += static_cast<long long>(__ldcg(acc_l + 4 * b + k));
+      if (tot[0] == 0) break;               // every frontier is empty
+      mode = decide(pol, l, __ll2float_rn(tot[0]), __ll2float_rn(tot[1]),
+                    __ll2float_rn(tot[2]), __ll2float_rn(tot[3]),
+                    &bottom_up);
+    }
     const bool is_bu = mode == kModeBottomUp;
-    const unsigned* plan_words = is_bu ? t.visited : t.frontier;
 
-    L.plan_count(plan_words, is_bu, n_batch, buf);
+    // 1. root masks of the CTA's chunk, per-CTA counts
+    L.masks(is_bu ? t.visited : t.frontier, is_bu, n_batch, buf.rmask,
+            begin, end);
+    union_counts(buf.rmask, n_mask_words, n_batch, begin, end, buf.cnt);
     grid.sync();
-    L.plan_write(plan_words, is_bu, n_batch, buf);
+    // 2. the union list, its count, each root's count
+    union_write<true>(buf.rmask, buf.cnt, buf.ulist, buf.ucount, buf.na,
+                      L.n_items(), n_batch);
     grid.sync();
-    L.gather(t.frontier, t.visited, t.p, buf, n_batch, is_bu,
-             mode == kModeScalar, t.depth, ring);
+    // 3. one CTA per union item for every root of its mask
+    L.walk(buf, t.p, n_batch, is_bu, mode == kModeScalar, t.depth, smem);
     grid.sync();
-    restore_update(g, t, buf.out, unvisited, t.acc + 4LL * n_batch * (l + 1));
+    // 4. restoration, the new state in both layouts, next counters
+    update_state<false>(g, t, buf, unvisited, l == 0,
+                        t.acc + 4LL * n_batch * (l + 1));
     grid.sync();
 
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       const unsigned long long* acc_n = acc_l + 4LL * n_batch;
-      long long discovered = 0, tiles = 0;
+      long long f_count = 0, f_edges = 0, discovered = 0, tiles = 0;
       for (int b = 0; b < n_batch; ++b) {
+        f_count += static_cast<long long>(__ldcg(acc_l + 4 * b));
+        f_edges += static_cast<long long>(__ldcg(acc_l + 4 * b + 1));
         discovered += static_cast<long long>(__ldcg(acc_n + 4 * b));
         tiles += __ldcg(buf.na + b);
         if (__ldcg(acc_l + 4 * b) > 0) t.depths[b] += 1;
       }
       int* row = t.stats + kStatCols * l;
-      row[0] = static_cast<int>(tot[0]);
-      row[1] = static_cast<int>(tot[1]);
+      row[0] = static_cast<int>(f_count);
+      row[1] = static_cast<int>(f_edges);
       row[2] = static_cast<int>(discovered);
       row[3] = mode;
       row[4] = 1;

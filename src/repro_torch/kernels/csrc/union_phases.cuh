@@ -1,8 +1,11 @@
 // The union of a batch's work-lists, planned and walked on the card,
-// shared by the union planner (plan_union.cu, two launches) and the
+// shared by the union planner (plan_union.cu, two launches), the
 // one-launch layer kernels K5 (layer_fused.cu, CSR rows-blocks) and K9
-// (sell_layer_fused.cu, SELL-C-σ slab groups), so that the planner and
-// the kernels cannot drift apart.
+// (sell_layer_fused.cu, SELL-C-σ slab groups) and the whole-traversal
+// kernels K6 (traversal_fused.cu) and K10 (sell_traversal_fused.cu),
+// which run the same phases in every layer of their loop
+// (traversal_loop.cuh), so that the planner and the kernels cannot
+// drift apart.
 //
 // Planning, in a CTA's contiguous chunk of items (`chunk_of_cta`):
 //
@@ -10,41 +13,44 @@
 //   32 roots), bit j of word k set when root 32 k + j lists the item:
 //   CSR, `covered` (an active vertex of degree > 0 in the block's owner
 //   range, fused_phases.cuh); SELL, `group_roots` (one warp reads a
-//   group's slab_rows once for 32 roots, sell_phases.cuh).
+//   group's slab_rows once for 32 roots, sell_phases.cuh; through L2
+//   where the launch rewrites the planning words, K10).
 // * union_counts: the chunk's listed items per root and for "any root"
 //   (row B of `cnt`).
-// * union_write, after a grid barrier (K5, K9) or in a second launch
-//   (the planner): each CTA sums the "any root" counts of the CTAs
-//   before it and writes its chunk's listed items there, ranked by a
-//   block scan, so the list is ascending; the tail is zeroed and CTA 0
+// * union_write, after a grid barrier (K5, K6, K9, K10) or in a second
+//   launch (the planner): each CTA sums the "any root" counts of the
+//   CTAs before it and writes its chunk's listed items there, ranked by
+//   a block scan, so the list is ascending; the tail is zeroed and CTA 0
 //   sums each root's count.  No atomics on the outputs: deterministic.
 //
-// The walk (K5, K9): a CTA per union item for every root of its mask,
-// over `sweep_items` (a cp.async ring at depth > 0).
+// The walk: a CTA per union item for every root of its mask, over
+// `sweep_items` (a cp.async ring at depth > 0).
 //
-// * K5: per slot of a rows-block, with its owner from the block's
-//   shared-memory owner scan (`owners_by_scan`), K3's `expand_roots`
-//   for each root of the mask (bfs_common.cuh).
-// * sell_group_union (K9): per lane of a slab group, its row and 8
-//   neighbours read once; the roots of the mask whose owner side
-//   passes (the row in the frontier top-down, the row unvisited
-//   bottom-up) run inside the neighbour loop, so a random neighbour's
-//   word serves every root.  Bottom-up, a root is done with the row at
-//   its first frontier neighbour, whose id P takes (`sell_group`'s
-//   per-root break).
+// * walk_csr (K5, K6): per slot of a rows-block, with its owner from
+//   the block's shared-memory owner scan (`owners_by_scan`), K3's
+//   `expand_roots` for each root of the mask (bfs_common.cuh).
+// * walk_sell (K9, K10) over sell_group_union: per lane of a slab
+//   group, its row and 8 neighbours read once; the roots of the mask
+//   whose owner side passes (the row in the frontier top-down, the row
+//   unvisited bottom-up) run inside the neighbour loop, so a random
+//   neighbour's word serves every root.  Bottom-up, a root is done with
+//   the row at its first frontier neighbour, whose id P takes
+//   (`sell_group`'s per-root break).
 //
 // The walk's per-root state is root-interleaved, (n_words, B) (root b's
-// word w at w * B + b: the B words of one vertex share a sector): the
-// first phase copies frontier and visited from their (B, n_words) rows
-// into scratch, the restore phase copies the discoveries back to rows
-// (`stage_state`, `restore_union`).  Loads: the planning phases read
-// what other CTAs wrote in the same phase or the one before through L2
-// only (ld.global.cg); the walk reads the state that no CTA writes
-// during it (the masks, the list and the interleaved copies, written
-// before its grid barrier) with loads that may hit L1 (`ld_walk<false>`,
-// which the barrier orders), so that the B roots of one vertex's sector
-// miss once; and the racy `out` as K3 does, with plain loads: a stale
-// word only costs a duplicate mark, which restoration absorbs.
+// word w at w * B + b: the B words of one vertex share a sector).  K5
+// and K9 copy frontier and visited from their (B, n_words) rows into
+// scratch in their first phase and copy the discoveries back to rows in
+// the restore phase (`stage_state`, `restore_union`); K6 and K10 keep
+// both layouts across their layers (traversal_loop.cuh).  Loads: the
+// planning phases read what other CTAs wrote in the same phase or the
+// one before through L2 only (ld.global.cg); the walk reads the state
+// that no CTA writes during it (the masks, the list and the interleaved
+// copies, written before its grid barrier) with loads that may hit L1
+// (`ld_walk<false>`, which the barrier orders), so that the B roots of
+// one vertex's sector miss once; and the racy `out` as K3 does, with
+// plain loads: a stale word only costs a duplicate mark, which
+// restoration absorbs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,8 +98,10 @@ __device__ __forceinline__ void union_masks_csr(
   }
 }
 
-// Root masks of the slab groups [begin, end), one warp per group.
-template <bool kSeeded>
+// Root masks of the slab groups [begin, end), one warp per group;
+// kCoherent reads the planning words through L2 (K10 rewrites them
+// between layers), else by a plain load.
+template <bool kSeeded, bool kCoherent = false>
 __device__ __forceinline__ void union_masks_sell(
     const SellGraph& g, const unsigned* __restrict__ words,
     bool complement, int n_batch, const unsigned* __restrict__ m0,
@@ -103,8 +111,8 @@ __device__ __forceinline__ void union_masks_sell(
     for (int k = 0; k < n_mask_words; ++k) {
       const int b0 = 32 * k, nb = min(32, n_batch - b0);
       const unsigned m = (kSeeded ? m0[k] : 0u) |
-                         group_roots<false>(g, words, complement, b0, nb,
-                                            grp);
+                         group_roots<kCoherent>(g, words, complement, b0,
+                                                nb, grp);
       if ((threadIdx.x & 31) == 0)
         rmask[static_cast<long long>(grp) * n_mask_words + k] = m;
     }
@@ -185,12 +193,12 @@ __device__ __forceinline__ void union_write(
 }
 
 // ---------------------------------------------------------------------------
-// The walk of the union (K5, K9)
+// The walk of the union (K5, K6, K9, K10)
 // ---------------------------------------------------------------------------
 
-// The scratch of a one-launch layer over the union.
+// The scratch of a walk of the union planned in the launch.
 struct UnionBuffers {
-  unsigned* out;    // (B, n_words): the layer's discoveries, repaired
+  unsigned* out;    // (B, n_words): K5's, K9's discoveries, repaired
   unsigned* rmask;  // (n_items, ceil(B / 32)) root masks
   int* ulist;       // (n_items,) the union, ascending, then zeros
   int* ucount;      // (1,) its length
@@ -301,6 +309,76 @@ __device__ __forceinline__ void sell_group_union(
       }
     }
   }
+}
+
+// K5's and K6's walk: one CTA per block of the union written earlier
+// in the launch, for every root of its mask.  `smem`: the rows ring at
+// depth > 0 ((depth + 1) * tile ints), then `own`, `sub` owner slots
+// (the caller points `own` there; K5 does so at its start, as before
+// its walk moved here, which keeps its SASS).  kScalarArm: a `scalar`
+// layer tests the pre-layer visited alone (K6).
+template <bool kScalarArm = false>
+__device__ __forceinline__ void walk_csr(const FusedGraph& g,
+                                         const UnionBuffers& buf, int* p,
+                                         int n_batch, bool bottom_up,
+                                         int depth, int sub, int* smem,
+                                         int* own, bool scalar = false) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  const LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
+  sweep_items(
+      items, 0, depth, g.tile, smem,
+      [&](int* dst, int blk) {
+        stage_block(dst, g.rows + static_cast<long long>(blk) * g.tile,
+                    g.tile);
+      },
+      [&](int, int blk, const int* slot) {
+        const int* rows_blk =
+            slot ? slot : g.rows + static_cast<long long>(blk) * g.tile;
+        const unsigned* mask =
+            buf.rmask + static_cast<long long>(blk) * n_mask_words;
+        for (int s0 = 0; s0 < g.tile; s0 += sub) {
+          const int n = min(sub, g.tile - s0);
+          owners_by_scan(g.cs, g.n_cs, blk * g.tile + s0, n, own);
+          expand_roots<false, kScalarArm>(
+              rows_blk + s0, own, n, mask, n_mask_words, buf.fi, buf.vi,
+              buf.oi, p, n_batch, g.v_pad, g.n_vertices, bottom_up, scalar);
+          if (s0 + sub < g.tile) __syncthreads();   // own is rewritten
+        }
+      });
+}
+
+// K9's and K10's walk: one CTA per slab group of the union written
+// earlier in the launch, for every root of its mask; `ring` holds
+// (depth + 1) slots of a group's cols and slab_rows at depth > 0.
+__device__ __forceinline__ void walk_sell(const SellGraph& g,
+                                          const UnionBuffers& buf, int* p,
+                                          int n_batch, bool bottom_up,
+                                          int depth, int* ring) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  const LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
+  const int cols_ints = g.spp * kSlabInts;
+  const int rows_ints = g.spp * kSliceC;
+  sweep_items(
+      items, 0, depth, cols_ints + rows_ints, ring,
+      [&](int* dst, int grp) {
+        stage_block(dst, g.cols + static_cast<long long>(grp) * cols_ints,
+                    cols_ints);
+        stage_block(dst + cols_ints,
+                    g.slab_rows + static_cast<long long>(grp) * rows_ints,
+                    rows_ints);
+      },
+      [&](int, int grp, const int* slot) {
+        const int* cols_g =
+            slot ? slot : g.cols + static_cast<long long>(grp) * cols_ints;
+        const int* rows_g =
+            slot ? slot + cols_ints
+                 : g.slab_rows + static_cast<long long>(grp) * rows_ints;
+        sell_group_union(
+            cols_g, rows_g, g.spp,
+            buf.rmask + static_cast<long long>(grp) * n_mask_words,
+            n_mask_words, buf.fi, buf.vi, buf.oi, p, n_batch, g.v_pad,
+            g.n_vertices, bottom_up);
+      });
 }
 
 // The last phase: restore P and write `out` (rows) from the interleaved

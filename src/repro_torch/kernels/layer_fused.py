@@ -39,16 +39,13 @@ from repro_torch.kernels.restoration import restoration_plain
 #: shared memory of the kernels' own reductions (block sums and ranks),
 #: an upper bound of what ``nvcc -Xptxas -v`` reports for K5 and K6
 FUSED_STATIC_SMEM = 1024
-#: K6's and K10's cooperative grid: at most this many CTAs per SM.  Each
-#: layer of their in-kernel loop crosses several grid barriers, whose
-#: cost grows with the grid; they keep the count they were ported with.
-CTAS_PER_SM = 4
-#: K5's and K9's grid: at most this many CTAs per SM (an SM holds 2048
-#: threads, 8 CTAs of 256); the occupancy at the kernel's shared memory
-#: decides.  They cross three barriers per launch, and their union walk
-#: waits on one random bitmap word per (slot, root), which more resident
-#: warps hide.
-LAYER_CTAS_PER_SM = 8
+#: K5's, K6's, K9's and K10's cooperative grid: at most this many CTAs
+#: per SM (an SM holds 2048 threads, 8 CTAs of 256); the occupancy at the
+#: kernel's registers and shared memory decides.  Their union walk waits
+#: on one random bitmap word per (slot, root), which more resident warps
+#: hide, though each layer of K6 and K10 crosses 4 grid barriers
+#: (`chip_smoke.py` times both at 4 and 8; PERF.md).
+CTAS_PER_SM = 8
 
 
 class FusedCsr(NamedTuple):
@@ -156,25 +153,25 @@ def check_args(g: FusedCsr, kernel: str, frontier, visited, parent):
                              f"{(n_batch, width)}")
 
 
-def cooperative_grid(lib_fn, *args, ctas_per_sm: int = CTAS_PER_SM) -> int:
-    """CTAs of a fully co-resident grid for K6 or K10 (K5, K9:
-    ``ctas_per_sm`` `LAYER_CTAS_PER_SM`); ``args``: the C grid function's
-    own, before the CTAs per SM."""
+def cooperative_grid(lib_fn, *args) -> int:
+    """CTAs of a fully co-resident grid for K5, K6, K9 or K10, at most
+    `CTAS_PER_SM` per SM (read at each call); ``args``: the C grid
+    function's own, before the CTAs per SM."""
     import ctypes
 
     from repro_torch.kernels import _build
     grid = ctypes.c_int(0)
-    _build.check(lib_fn(*map(int, args), ctas_per_sm, ctypes.byref(grid)),
+    _build.check(lib_fn(*map(int, args), CTAS_PER_SM, ctypes.byref(grid)),
                  "cooperative grid")
     return grid.value
 
 
-def check_p_aligned(kernel: str, parent) -> None:
-    """K5 and K9 restore P with 16-byte loads: its rows must start on
-    16 bytes (a tensor's own storage does; a slice at an odd offset may
-    not)."""
+def check_p_aligned(kernel: str, parent, name: str = "parent") -> None:
+    """K5, K6, K9 and K10 read P (K6, K10 also the degrees) with 16-byte
+    loads: its rows must start on 16 bytes (a tensor's own storage does;
+    a slice at an odd offset may not)."""
     if parent.data_ptr() % 16:
-        raise ValueError(f"{kernel}: parent must start on a 16-byte "
+        raise ValueError(f"{kernel}: {name} must start on a 16-byte "
                          f"boundary, got address {parent.data_ptr():#x}")
 
 
@@ -199,8 +196,7 @@ def layer_fused_grid(g: FusedCsr, depth: int):
     from repro_torch.kernels import _build
     sub = ge.owner_sub(g.tile, depth, "layer_fused")
     return cooperative_grid(_build.load().repro_layer_fused_grid, depth,
-                            g.tile, sub,
-                            ctas_per_sm=LAYER_CTAS_PER_SM), sub
+                            g.tile, sub), sub
 
 
 def layer_fused_cuda(g: FusedCsr, frontier, visited, parent, *,

@@ -224,17 +224,11 @@ def sell_expand_cuda(g: SellGraph, wl, na, frontier, visited, out, p, *,
     return out, p
 
 
-def n_root_chunks(n_batch: int) -> int:
-    """K10's plan keeps root masks of 32 roots per word."""
-    return -(-int(n_batch) // 32)
-
-
 def sell_layer_fused_grid(g: SellGraph, depth: int) -> int:
     """K9's co-resident grid at ``depth``."""
     from repro_torch.kernels import _build
     return lf.cooperative_grid(_build.load().repro_sell_layer_fused_grid,
-                               depth, g.spp,
-                               ctas_per_sm=lf.LAYER_CTAS_PER_SM)
+                               depth, g.spp)
 
 
 def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,

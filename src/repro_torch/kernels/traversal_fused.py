@@ -21,7 +21,14 @@ the engine, so both decide alike.  The CUDA kernels
 (``csrc/traversal_fused.cu``, ``csrc/sell_traversal_fused.cu``, sharing
 ``csrc/traversal_loop.cuh``) replace
 ``repro.kernels.traversal_fused.traversal_fused_batched`` and
-``sell_traversal_fused_batched``.  The Table 1 counters come from the
+``sell_traversal_fused_batched``.  Each layer of their loop runs the
+phases of the one-launch layer kernels K5 and K9: it plans the union of
+the batch's work-lists in the launch and walks it with one CTA per item
+for every root that lists it, on root-interleaved (n_words, B) copies
+of the bitmaps that the loop keeps beside the (B, n_words) rows; the
+restore pass also counts the next layer's counters.  The plain versions
+walk each root's own list, layer by layer, on the host; both give the
+same state, depths and stats.  The Table 1 counters come from the
 padded degree array, which SELL keeps itself (it has no colstarts).
 """
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import sell_expand as se
 
@@ -146,6 +154,34 @@ def sell_traversal_fused_plain(g: se.SellGraph, frontier, visited, parent,
                             code=code, max_layers=max_layers)
 
 
+def loop_buffers(code: PolicyCode, n_batch: int, max_layers: int, dev):
+    """The loop's counters (int64 scratch), depths, layer count and
+    stats (outputs), and the PaperLiteralLayers table."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    acc = torch.empty(((max_layers + 1) * n_batch * 4,),
+                      dtype=torch.int64, device=dev)
+    simd_layer = torch.tensor(
+        [int(l in code.simd_layers) for l in range(max_layers)], **i32)
+    return (acc, torch.empty((n_batch,), **i32), torch.empty((1,), **i32),
+            torch.empty((max_layers, N_STATS), **i32), simd_layer)
+
+
+def traversal_fused_grid(g: lf.FusedCsr, depth: int):
+    """K6's co-resident grid and owner slots at ``depth`` (K5's
+    shared memory)."""
+    from repro_torch.kernels import _build
+    sub = ge.owner_sub(g.tile, depth, "traversal_fused")
+    return lf.cooperative_grid(_build.load().repro_traversal_fused_grid,
+                               depth, g.tile, sub), sub
+
+
+def sell_traversal_fused_grid(g: se.SellGraph, depth: int) -> int:
+    """K10's co-resident grid at ``depth`` (K9's shared memory)."""
+    from repro_torch.kernels import _build
+    return lf.cooperative_grid(
+        _build.load().repro_sell_traversal_fused_grid, depth, g.spp)
+
+
 def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
                          code: PolicyCode, max_layers: int,
                          prefetch_depth: int = 0):
@@ -153,36 +189,28 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
     from repro_torch.kernels import _build
     n_batch = int(frontier.shape[0])
     lf.check_args(g, "traversal_fused", frontier, visited, parent)
+    lf.check_p_aligned("traversal_fused", parent)
+    lf.check_p_aligned("traversal_fused", g.deg, "deg")
     depth = min(max(int(prefetch_depth), 0), g.n_blocks)
-    lib = _build.load()
-    grid = lf.cooperative_grid(lib.repro_traversal_fused_grid, depth,
-                               g.tile)
-    dev = g.rows.device
-    i32 = dict(dtype=torch.int32, device=dev)
+    grid, sub = traversal_fused_grid(g, depth)
+    n_words = int(g.nz.shape[0])
     f_out, v_out, p_out = (torch.empty_like(frontier),
                            torch.empty_like(visited),
                            torch.empty_like(parent))
-    out = torch.empty_like(frontier)
-    wl = torch.empty((n_batch, g.n_blocks), **i32)
-    cnt = torch.empty((n_batch, grid), **i32)
-    na = torch.empty((n_batch,), **i32)
-    acc = torch.empty(((max_layers + 1) * n_batch * 4,),
-                      dtype=torch.int64, device=dev)
-    depths = torch.empty((n_batch,), **i32)
-    layers = torch.empty((1,), **i32)
-    stats = torch.empty((max_layers, N_STATS), **i32)
-    simd_layer = torch.tensor(
-        [int(l in code.simd_layers) for l in range(max_layers)], **i32)
-    _build.check(lib.repro_traversal_fused(
+    # ``scratch`` keeps the memory behind ``ptrs`` alive for the launch
+    na, scratch, ptrs = lf.union_scratch(g.n_blocks, n_batch, n_words,
+                                         grid, g.rows.device)
+    acc, depths, layers, stats, simd_layer = loop_buffers(
+        code, n_batch, max_layers, g.rows.device)
+    _build.check(_build.load().repro_traversal_fused(
         g.rows.data_ptr(), g.colstarts.data_ptr(), g.blk_lo.data_ptr(),
         g.blk_hi.data_ptr(), g.nz.data_ptr(), g.deg.data_ptr(),
         frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),
-        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
-        out.data_ptr(), wl.data_ptr(), cnt.data_ptr(), na.data_ptr(),
-        acc.data_ptr(), depths.data_ptr(), layers.data_ptr(),
-        stats.data_ptr(), simd_layer.data_ptr(), n_batch, g.n_blocks,
-        g.tile, int(g.colstarts.shape[0]), int(g.nz.shape[0]),
-        int(g.deg.shape[0]), g.n_vertices, depth, int(max_layers),
+        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), *ptrs[:4],
+        na.data_ptr(), *ptrs[4:], acc.data_ptr(), depths.data_ptr(),
+        layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
+        n_batch, g.n_blocks, g.tile, int(g.colstarts.shape[0]), n_words,
+        int(g.deg.shape[0]), g.n_vertices, depth, sub, int(max_layers),
         code.kind, code.alpha, code.v_over_beta, code.threshold, grid,
         _build.stream_of(parent)), "traversal_fused")
     return f_out, v_out, p_out, depths, layers, stats
@@ -195,34 +223,24 @@ def sell_traversal_fused_cuda(g: se.SellGraph, frontier, visited, parent,
     from repro_torch.kernels import _build
     se.check_args(g, "sell_traversal_fused", frontier=frontier,
                   visited=visited, parent=parent)
+    lf.check_p_aligned("sell_traversal_fused", parent)
+    lf.check_p_aligned("sell_traversal_fused", g.deg, "deg")
     n_batch = int(frontier.shape[0])
     depth = se._depth(prefetch_depth, g.n_steps)
-    lib = _build.load()
-    grid = lf.cooperative_grid(lib.repro_sell_traversal_fused_grid, depth,
-                               g.spp)
-    dev = g.cols.device
-    i32 = dict(dtype=torch.int32, device=dev)
+    grid = sell_traversal_fused_grid(g, depth)
     f_out, v_out, p_out = (torch.empty_like(frontier),
                            torch.empty_like(visited),
                            torch.empty_like(parent))
-    out = torch.empty_like(frontier)
-    wl = torch.empty((n_batch, g.n_steps), **i32)
-    cnt = torch.empty((n_batch, grid), **i32)
-    na = torch.empty((n_batch,), **i32)
-    gmask = torch.empty((g.n_steps * se.n_root_chunks(n_batch),), **i32)
-    acc = torch.empty(((max_layers + 1) * n_batch * 4,),
-                      dtype=torch.int64, device=dev)
-    depths = torch.empty((n_batch,), **i32)
-    layers = torch.empty((1,), **i32)
-    stats = torch.empty((max_layers, N_STATS), **i32)
-    simd_layer = torch.tensor(
-        [int(l in code.simd_layers) for l in range(max_layers)], **i32)
-    _build.check(lib.repro_sell_traversal_fused(
+    # ``scratch`` keeps the memory behind ``ptrs`` alive for the launch
+    na, scratch, ptrs = lf.union_scratch(g.n_steps, n_batch, g.n_words,
+                                         grid, g.cols.device)
+    acc, depths, layers, stats, simd_layer = loop_buffers(
+        code, n_batch, max_layers, g.cols.device)
+    _build.check(_build.load().repro_sell_traversal_fused(
         g.cols.data_ptr(), g.slab_rows.data_ptr(), g.deg.data_ptr(),
         frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),
-        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
-        out.data_ptr(), wl.data_ptr(), cnt.data_ptr(), na.data_ptr(),
-        gmask.data_ptr(), acc.data_ptr(), depths.data_ptr(),
+        f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), *ptrs[:4],
+        na.data_ptr(), *ptrs[4:], acc.data_ptr(), depths.data_ptr(),
         layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
         n_batch, g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]),
         g.n_vertices, depth, int(max_layers), code.kind, code.alpha,
