@@ -25,7 +25,8 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    depths 0 and 2: n_active, ``out`` and the marked set bitwise, P restored, exactly
    one CUDA launch per call by the profiler; its co-resident grid
    printed), K9 the same on the autotuner's SELL layout of the graph
-   (phase 3d: its largest ``fused_gather`` layer of each direction),
+   (phase 3d: its largest ``fused_gather`` layer of each direction,
+   where K8 is held to its plain version at depths 0 and 2),
    and for the planner, K2 and K3 at B = 1 from a ``run(root)``
    traversal;
 4. main path: Graph500 R-MAT SCALE 22 / edgefactor 16 from ``--seed``,
@@ -53,14 +54,19 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    runs, trees valid, visited, frontier, depths, layers, stats columns
    0-4 and 6 and the direction log equal to the CSR main path's, the
    launches column as contracted, no degrade, one K9 launch per layer
-   and one K10 launch per traversal by the profiler; K8 (depths 0, 1,
-   2, 4) and K13 against their plain versions on the largest captured
-   SELL layer, K10 on the batch's initial state as K6;
+   and one K10 launch per traversal by the profiler; the
+   ``fused_gather`` paths plan with one union-planner launch per layer
+   and call none of the plain planning functions (``--profile``: the
+   depth-0 one traced, one K8 launch per layer); K8 (depths 0, 1, 2, 4,
+   on the layer's union plan) and K13 against their plain versions on
+   the largest captured SELL layer, with the planner on that layer
+   beside the planning it replaced; K10 on the batch's initial state
+   as K6;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
 6b. at SCALE 16 with 33 roots (two root-mask words): the planner
    (both arms, every layer, with a dense root), K3 (and K4 at each
-   depth), K5 and K9 (both directions, depths 0 and 2),
+   depth), K5, K8 and K9 (both directions, depths 0 and 2),
    K11 and K12 (int32 and float32 layers), and K6 and K10 (the four
    policies, depths 0 and 2) against their plain versions on their
    contracts;
@@ -89,7 +95,10 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    SELL (K8 over every slab group + K1): timed over 3 runs with the
    peak device memory, held to the main path as in phase 5 (stats
    columns 0-4), no edge truncated; K7 against its plain version on
-   the largest captured layer (K3's contract).
+   the largest captured layer of each direction and on a synthetic
+   stream at that scale in each direction (``valid`` not a prefix of a
+   row, a slot count that is not a multiple of 16, a hub's run longer
+   than K7's 16-slot chunk), K3's contract.
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -183,10 +192,11 @@ PREFETCH_DEPTHS = (1, 2, 4)
 #: included): the kernels that walk the union of the lists, and the
 #: planner that builds it
 UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
-                 "== sell_relax.cu", "== plan_union.cu",
+                 "== sell_expand.cu", "== sell_relax.cu", "== plan_union.cu",
                  "== layer_fused.cu", "== sell_layer_fused.cu",
                  "== traversal_fused.cu", "== sell_traversal_fused.cu")
 WIDE_BATCH = 33               # two root-mask words
+SYN_HUB_RUN = 4099            # K7's synthetic stream: a hub's run of slots
 SELL_DEPTHS = (0, 1, 2, 4)
 #: K5 and K9 on a captured layer, K6 and K10 at 33 roots: the depths
 #: each is held at (K5, K9: and timed at)
@@ -248,10 +258,9 @@ def level_bfs_depths(src, dst, n_vertices: int, root: int):
 
 
 def listed(args) -> int:
-    """A work-listed call's key: the blocks or slab groups its roots
-    list (from its plan, or K8's per-root counts)."""
-    plan = args.get("plan")
-    return int((plan.na if plan is not None else args["n_active"]).sum())
+    """A work-listed call's key: the (root, block) or (root, slab group)
+    pairs its plan lists."""
+    return int(args["plan"].na.sum())
 
 
 def listed_in(bottom_up: bool):
@@ -435,7 +444,9 @@ def fused_layer_bytes(fg, frontier, visited, bottom_up: bool,
             + 4 * n_batch)
 
 
-PROFILER_SESSIONS = 3   # sessions tried before an empty trace fails
+#: sessions tried before an empty trace fails: on the card, the sessions
+#: of K9's launch check came back empty up to three times in a row
+PROFILER_SESSIONS = 8
 
 
 def traced_device_events(fn, activities):
@@ -844,7 +855,7 @@ def phase_layer_kernel(kind: str, cap, reps: int, label: str = "",
         graph = cap["graph"]
         n = graph.n_vertices
         cuda, plain, n_active = (se.sell_layer_fused_cuda,
-                                 se.sell_layer_fused_plain, cap["n_active"])
+                                 se.sell_layer_fused_plain, cap["plan"].na)
         grid_of = lambda d: se.sell_layer_fused_grid(graph, d)
         marks = lambda p: sell_check_marks(cap, p, g)
         bytes_of = lambda m: sell_layer_bytes(graph, fr, vis, bu, m)
@@ -1078,14 +1089,15 @@ def sell_groups(graph, wl, na) -> int:
 
 def sell_k8_bytes(cap, n_marked: int) -> int:
     """Bytes K8 must move for a captured layer, each input read once:
-    cols and slab_rows of the union of active groups, wl/na, frontier +
-    visited + out read, out written, one P word per marked vertex."""
+    cols and slab_rows of the plan's union of groups, the union list,
+    its count and root masks, frontier + visited + out read, out
+    written, one P word per marked vertex."""
     from repro_torch.kernels.sell_expand import SLAB_INTS
-    graph = cap["graph"]
+    graph, plan = cap["graph"], cap["plan"]
     n_batch, n_words = cap["frontier"].shape
-    return (4 * graph.spp * SLAB_INTS * sell_groups(graph, cap["worklist"],
-                                                    cap["n_active"])
-            + 4 * (n_batch + int(cap["n_active"].sum()))
+    n_union = int(plan.ucount)
+    return (4 * graph.spp * SLAB_INTS * n_union
+            + 4 * (1 + n_union * (1 + int(plan.rmask.shape[1])))
             + 4 * 4 * n_batch * n_words + 4 * n_marked)
 
 
@@ -1113,21 +1125,57 @@ def sell_check_marks(cap, p_racy, g):
                      colstarts=g.colstarts), p_racy, cap["frontier"])
 
 
-def phase_sell_kernels(cap, g, reps: int):
-    """K8 (depths 0, 1, 2, 4) on the captured SELL layer and K13 on its
-    frontier words, each against its plain version on the card."""
+def k8_gate(cap, g, depth: int, want) -> int:
+    """K8 at ``depth`` on a captured call (``cap``: its plan, state and
+    direction) against its plain version's (out, P) ``want``: after
+    restoration ``out``, ``visited`` and the marked set equal, every
+    mark a frontier neighbour.  Returns the count of disagreeing entries
+    (0; any other count fails)."""
     import torch
-    from repro_torch.kernels import bitmap_kernels as bk
     from repro_torch.kernels import restoration as rest
     from repro_torch.kernels import sell_expand as se
-    graph, n = cap["graph"], g.n_vertices
+    n = g.n_vertices
+    out, p = cap["out_init"].clone(), cap["p_init"].clone()
+    se.sell_expand_cuda(cap["graph"], cap["plan"], cap["frontier"],
+                        cap["visited"], out, p,
+                        bottom_up=cap["kw"]["bottom_up"],
+                        prefetch_depth=depth)
+    torch.cuda.synchronize()
+    out_p, p_p = want
+    _, delta_k = rest.restoration_plain(p, n)
+    _, delta_p = rest.restoration_plain(p_p, n)
+    err = int(((p < 0) != (p_p < 0)).sum())
+    for a, b in ((out | delta_k, out_p | delta_p),
+                 (cap["visited"] | delta_k, cap["visited"] | delta_p)):
+        err = max(err, int((a != b).sum()))
+    assert err == 0, f"K8 at depth {depth} disagrees with its plain version"
+    sell_check_marks(cap, p, g)
+    return err
+
+
+def k8_plain(cap):
+    """K8's plain version on a captured call: (out, P)."""
+    from repro_torch.kernels import sell_expand as se
+    out, p = cap["out_init"].clone(), cap["p_init"].clone()
+    se.sell_expand_plain(cap["graph"], cap["plan"], cap["frontier"],
+                         cap["visited"], out, p,
+                         bottom_up=cap["kw"]["bottom_up"])
+    return out, p
+
+
+def phase_sell_kernels(cap, g, reps: int):
+    """K8 (depths 0, 1, 2, 4) on the captured SELL layer, on the union
+    planner's plan of that layer, and K13 on its frontier words, each
+    against its plain version on the card; the planner on that layer
+    beside the planning it replaced (`plan_slabs_plain` + the fold)."""
+    from repro_torch.kernels import bitmap_kernels as bk
+    from repro_torch.kernels import sell_expand as se
+    graph = cap["graph"]
     bu = cap["kw"]["bottom_up"]
     res = {}
 
-    out_p, p_p = cap["out_init"].clone(), cap["p_init"].clone()
-    se.sell_expand_plain(graph, cap["worklist"], cap["n_active"], cap["frontier"],
-                         cap["visited"], out_p, p_p, bottom_up=bu)
-    _, delta_p = rest.restoration_plain(p_p, n)
+    want = k8_plain(cap)
+    n_marked = int((want[1] < 0).sum())
     out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
@@ -1135,62 +1183,73 @@ def phase_sell_kernels(cap, g, reps: int):
         p_buf.copy_(cap["p_init"])
 
     def k8(fn, **kw):
-        return lambda: fn(graph, cap["worklist"], cap["n_active"], cap["frontier"],
-                          cap["visited"], out_buf, p_buf, bottom_up=bu, **kw)
+        return lambda: fn(graph, cap["plan"], cap["frontier"], cap["visited"],
+                          out_buf, p_buf, bottom_up=bu, **kw)
 
     per_depth = {}
-    n_marked = int((p_p < 0).sum())
+    n_union = int(cap["plan"].ucount)
     for depth in SELL_DEPTHS:
-        reset()
-        k8(se.sell_expand_cuda, prefetch_depth=depth)()
-        torch.cuda.synchronize()
-        _, delta_k = rest.restoration_plain(p_buf, n)
-        err = int(((p_buf < 0) != (p_p < 0)).sum())
-        for name, a, b in (("out|delta", out_buf | delta_k, out_p | delta_p),
-                           ("visited|delta", cap["visited"] | delta_k,
-                            cap["visited"] | delta_p)):
-            err = max(err, int((a != b).sum()))
-        assert err == 0, f"K8 at depth {depth} disagrees with its plain"
-        sell_check_marks(cap, p_buf, g)
+        err = k8_gate(cap, g, depth, want)
         per_depth[depth] = cuda_ms(k8(se.sell_expand_cuda,
                                       prefetch_depth=depth), reps,
                                    setup=reset)
         log(json.dumps({"kernel": "sell_expand", "prefetch_depth": depth,
-                        "ms": per_depth[depth], "max_abs_err": err}))
+                        "ms": per_depth[depth], "max_abs_err": err,
+                        "union_blocks": n_union}))
     bytes_k8 = sell_k8_bytes(cap, n_marked)
     plain_ms = cuda_ms(k8(se.sell_expand_plain), max(3, reps // 4),
                        setup=reset)
     res["sell_expand_batched"] = dict(
         max_abs_err=0, ms=per_depth[0], plain_ms=plain_ms, bytes=bytes_k8,
-        groups=cap["key"], marked=n_marked, bottom_up=bu)
+        groups=cap["key"], marked=n_marked, bottom_up=bu,
+        union_blocks=n_union, timing=KERNEL_ONLY)
     res["sell_expand_prefetch"] = dict(
         max_abs_err=0, ms=per_depth[2], plain_ms=plain_ms, bytes=bytes_k8,
-        per_depth=per_depth)
+        per_depth=per_depth, union_blocks=n_union, timing=KERNEL_ONLY)
 
     # K13 on the layer's frontier words
     words = cap["frontier"]
-    got, want = bk.popcount_cuda(words), bk.popcount_plain(words)
-    err = abs(int(got) - int(want))
-    assert err == 0, f"popcount disagrees: {int(got)} vs {int(want)}"
+    got, want_n = bk.popcount_cuda(words), bk.popcount_plain(words)
+    err = abs(int(got) - int(want_n))
+    assert err == 0, f"popcount disagrees: {int(got)} vs {int(want_n)}"
     res["popcount"] = dict(
         max_abs_err=err, bytes=4 * words.numel() + 4,
         ms=cuda_ms(lambda: bk.popcount_cuda(words), reps),
         plain_ms=cuda_ms(lambda: bk.popcount_plain(words), reps))
     for name, r in res.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        log(json.dumps({"kernel": name, "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bytes": r["bytes"],
-                        "bound_ms": r["bound_ms"],
-                        "max_abs_err": r["max_abs_err"]}))
-    log(f"K8 layer: {cap['key']} active slab groups (all roots), "
-        f"{n_marked} marked, bottom_up={bu}")
+        log(json.dumps({"kernel": name, **{
+            k: r[k] for k in ("ms", "plain_ms", "bytes", "bound_ms",
+                              "max_abs_err", "union_blocks", "timing")
+            if k in r}}))
+    log(f"K8 layer: {cap['key']} listed (root, group) pairs over "
+        f"{n_union} union groups, {n_marked} marked, bottom_up={bu}")
+    # the SELL fused_gather planning of the same layer
+    log_row("plan_union_sell_fused_gather",
+            plan_row(cap["before"]["plan_union"], reps), bottom_up=bu)
     return res
 
 
+def k8_both_ways(dirs: dict, g, label: str = "") -> None:
+    """K8 on the largest layer of each direction of a SELL fused_gather
+    run (``dirs``: its `direction_spies` of ``sell_batched``) at each
+    depth of `LAYER_DEPTHS`, against its plain version (`k8_gate`)."""
+    for bu in (False, True):
+        cap = in_direction(dirs, "sell_batched", bu)
+        want = k8_plain(cap)
+        for depth in LAYER_DEPTHS:
+            k8_gate(cap, g, depth, want)
+        log(f"sell_expand{label} ({'bottom-up' if bu else 'top-down'}, "
+            f"{cap['frontier'].shape[0]} roots, {int(cap['plan'].ucount)} "
+            f"union groups): K8 at depths {list(LAYER_DEPTHS)} equals its "
+            f"plain version")
+
+
 def phase_sell_layer(g, roots, reps: int, label: str = ""):
-    """Phase 3d (and 6b): K9 (`layer_kernel_both_ways`) on the largest
-    SELL layer of each direction of a ``fused_gather`` run of ``roots``
-    on the autotuner's SELL layout of ``g``.  On the main path it runs
+    """Phase 3d (and 6b): K8 (`k8_both_ways`, depths 0 and 2) and K9
+    (`layer_kernel_both_ways`) on the largest SELL layer of each
+    direction of a ``fused_gather`` run of ``roots`` on the autotuner's
+    SELL layout of ``g``.  On the main path it runs
     before any long traversal is profiled: after those, the card's
     CUPTI returned empty sessions."""
     import repro_torch.bfs as bfs
@@ -1204,17 +1263,23 @@ def phase_sell_layer(g, roots, reps: int, label: str = ""):
         for d in dirs.values():
             stack.enter_context(d)
         bfs.plan(fmt, bfs.TraversalSpec()).run_batched(roots)
-    return layer_kernel_both_ways("sell", spy.best["sell_batched"], dirs,
-                                  reps, label, g)
+    res = layer_kernel_both_ways("sell", spy.best["sell_batched"], dirs,
+                                 reps, label, g)
+    # after K9's profiled launch checks: on the card, a profiler session
+    # right after these gates once came back empty three times
+    k8_both_ways(dirs, g, label)
+    return res
 
 
 def phase_sell(g, roots, base, oracle, edges: int, reps: int,
-               plan_layers):
+               plan_layers, profile: bool = False):
     """Phase 5b: the SELL-C-σ layout of the main path's graph, built on
     the card by the autotuner's choice, on its four paths and kernels;
     the union planner's SELL arm on the main path's planning bitmaps
-    (``plan_layers``).  Returns ({kernel: results}, {kernel:
-    launches})."""
+    (``plan_layers``); the ``fused_gather`` paths plan with the planner
+    alone (one launch per layer, no call of `PLAIN_PLANNING`), and with
+    ``profile`` the depth-0 one is traced.  Returns ({kernel: results},
+    {kernel: launches})."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import formats
@@ -1239,18 +1304,32 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int,
     plan_gates(plan_layers, {"sell": fmt.sell_graph(
         bfs.plan(fmt, bfs.TraversalSpec()).resolved.tile)}, "_sell")
     kres, launches = {}, {}
+    n_layers = int(base.state.layer)
     for name, (fields, kernels, per_layer) in SELL_PATHS.items():
-        ct, launched, _ = run_path(fmt, g, roots, name, fields, kernels,
-                                   per_layer, base, oracle, edges,
-                                   (0, 1, 2, 3, 4, 6))
+        with CallCount(PLAIN_PLANNING) as plain:
+            ct, launched, _ = run_path(fmt, g, roots, name, fields, kernels,
+                                       per_layer, base, oracle, edges,
+                                       (0, 1, 2, 3, 4, 6))
         for k in kernels:
             launches.setdefault(k, launched[k])
+        if "fused_gather" in name:
+            assert launched["plan_union"] == n_layers \
+                and not any(plain.counts.values()), \
+                (name, launched["plan_union"], plain.counts)
+            log(f"{name} planning: {n_layers} plan_union launches for "
+                f"{n_layers} layers; no call of "
+                f"{', '.join(sorted(plain.counts))}")
         if name == "sell_fused_gather":           # an untimed capture run
-            with Spy(ops, {"sell_batched": listed}) as cap:
+            with Spy(ops, {"plan_union": None,
+                           "sell_batched": listed}) as cap:
                 ct.run_batched(roots)
+            if profile:
+                kernels_seen = profile_run(ct, roots, name, top=8)
+                got = launches_of(kernels_seen, "sell_expand_kernel")
+                assert got == n_layers, \
+                    f"K8 must be one CUDA launch per layer, saw {got}"
         if name == "sell_megakernel":
             kernels_seen = profile_run(ct, roots, name, top=8)
-            n_layers = int(base.state.layer)
             got = launches_of(kernels_seen, "sell_layer_fused_kernel")
             assert got == n_layers, \
                 f"K9 must be one CUDA launch per layer, saw {got}"
@@ -1453,7 +1532,8 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     ``g`` and its SELL layout ``sell``: the union planner (both arms, on
     every layer of the main-path traversal, as planned and with a dense
     root), K2, K3 (and K4 at each depth) and K1 on the largest layer,
-    K5 and K9 on the largest layer of each direction (depths 0 and 2),
+    K5, K8 and K9 on the largest layer of each direction (depths 0 and
+    2),
     K11 and K12 on the largest ksource_bfs (int32) and sssp (float32)
     layers, against their plain versions with the phase-3 and phase-9
     contracts, and K6 and K10 under the four policies at depths 0 and 2
@@ -1494,8 +1574,8 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     phase_relax_kernels(relax, reps, label=label, fold=False)
     wide_traversal_gates(g, sell, roots, label)
     log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
-        f"V={g.n_vertices}: the planner, K3, K4, K5, K6, K9, K10, K11 and "
-        f"K12 equal their plain versions")
+        f"V={g.n_vertices}: the planner, K3, K4, K5, K6, K8, K9, K10, K11 "
+        f"and K12 equal their plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1662,10 +1742,48 @@ def phase_portfolio(g, roots, oracle, reps: int):
     return rows, launches, sell_plan
 
 
-def phase_expand_kernel(cap, g, reps: int):
-    """K7 against its plain version on the captured layer, under K3's
-    contract: the marked sets, ``out|delta`` and ``visited|delta``
-    bitwise, every mark a frontier neighbour of its vertex."""
+def synthetic_k7_stream(cap, check_frontier: bool, seed: int) -> dict:
+    """K7's inputs at the scale of a captured layer (``cap``: its batch,
+    slot count, bitmaps and P), made on the card from ``seed``: each
+    root's slots in runs of one owner (nbr top-down, cand bottom-up) of
+    1-31 slots, the second run `SYN_HUB_RUN` long (longer than K7's
+    16-slot chunk, starting mid-chunk); the other side random; about
+    64% of the slots valid, at random (not a prefix of a row), the last
+    3 valid; the slot count cut to one that is not a multiple of 16."""
+    import torch
+    n = cap["kw"]["n_vertices"]
+    n_batch, n_slots = cap["cand"].shape
+    n_slots -= 5 if n_slots % 16 == 0 else 0
+    dev = cap["cand"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    total = n_batch * n_slots
+    lens = torch.randint(1, 32, (total // 12 + 2,), generator=gen,
+                         device=dev)
+    lens[:2] = torch.tensor([5, SYN_HUB_RUN], device=dev)
+    owners = torch.randint(0, n, lens.shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+    owner = torch.repeat_interleave(owners, lens)
+    assert owner.numel() >= total, "too few owner runs"
+    owner = owner[:total].view(n_batch, n_slots).clone()
+    del lens, owners
+    other = torch.randint(0, n, (n_batch, n_slots), generator=gen,
+                          device=dev, dtype=torch.int32)
+    valid = torch.randint(0, 100, (n_batch, n_slots), generator=gen,
+                          device=dev, dtype=torch.uint8) < 64
+    valid[:, -3:] = True
+    nbr, cand = (other, owner) if check_frontier else (owner, other)
+    return dict(nbr=nbr, cand=cand, valid=valid, frontier=cap["frontier"],
+                visited=cap["visited"], out_init=cap["out_init"],
+                p_init=cap["p_init"], key=int(valid.sum()),
+                kw=dict(n_vertices=n, check_frontier=check_frontier))
+
+
+def phase_expand_kernel(cap, g, reps: int, stream: str = "captured"):
+    """K7 against its plain version on a stream (``cap``: a captured
+    layer's call, or `synthetic_k7_stream`), under K3's contract: the
+    marked sets, ``out|delta`` and ``visited|delta`` bitwise; every mark
+    a frontier neighbour of its vertex on a captured layer, its parent
+    a real vertex (bottom-up: in the frontier) on a synthetic one."""
     import torch
     from repro_torch.kernels import frontier_expand as fe
     from repro_torch.kernels import restoration as rest
@@ -1683,10 +1801,21 @@ def phase_expand_kernel(cap, g, reps: int):
     for a, b in ((out_k | delta_k, out_p | delta_p),
                  (cap["visited"] | delta_k, cap["visited"] | delta_p)):
         err = max(err, int((a != b).sum()))
-    assert err == 0, "frontier_expand disagrees with its plain version"
-    check_marks(dict(kw=dict(n_vertices=n), rows=g.rows,
-                     colstarts=g.colstarts), p_k, cap["frontier"])
+    assert err == 0, f"frontier_expand ({stream}) disagrees with its plain " \
+                     f"version"
     n_marked = int((p_k < 0).sum())
+    assert n_marked > 0, f"frontier_expand ({stream}): nothing discovered"
+    if stream == "captured":
+        check_marks(dict(kw=dict(n_vertices=n), rows=g.rows,
+                         colstarts=g.colstarts), p_k, cap["frontier"])
+    else:
+        gate = (p_k[p_k < 0] + n).long()
+        assert bool(((gate >= 0) & (gate < n)).all()), "parent out of range"
+        if kw["check_frontier"]:
+            rows = torch.nonzero(p_k < 0)[:, 0]
+            fw = cap["frontier"][rows, gate >> 5]
+            assert bool((((fw >> (gate & 31).int()) & 1) == 1).all()), \
+                "a marked parent is not in the frontier"
     del out_p, p_p, delta_k, delta_p
     out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
@@ -1705,22 +1834,64 @@ def phase_expand_kernel(cap, g, reps: int):
                plain_ms=cuda_ms(run(fe.frontier_expand_plain), 1,
                                 setup=reset))
     res["bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
-    log(json.dumps({"kernel": "frontier_expand_batched", "ms": res["ms"],
-                    "plain_ms": res["plain_ms"], "bytes": bytes_,
-                    "bound_ms": res["bound_ms"], "max_abs_err": err,
-                    "valid_slots": cap["key"], "slots": n_batch * n_slots,
-                    "marked": n_marked,
+    log(json.dumps({"kernel": "frontier_expand_batched", "stream": stream,
+                    "ms": res["ms"], "plain_ms": res["plain_ms"],
+                    "bytes": bytes_, "bound_ms": res["bound_ms"],
+                    "max_abs_err": err, "valid_slots": cap["key"],
+                    "slots": n_batch * n_slots, "marked": n_marked,
                     "check_frontier": kw["check_frontier"]}))
     return res
 
 
-def phase_materialized(g, roots, base, oracle, edges: int, reps: int):
+def phase_expand_streams(ct, g, roots, reps: int, seed: int):
+    """K7 on the materialized path's largest layer of each direction
+    (`phase_expand_kernel`), then on a synthetic stream at that scale in
+    each direction (`synthetic_k7_stream`).  Returns the numbers of the
+    layer with the most valid slots."""
+    import torch
+    from repro_torch.kernels import ops
+    spies = {bu: Spy(ops, {"expand_batched": (
+        lambda a, bu=bu: int(a["valid"].sum())
+        if bool(a["check_frontier"]) == bu else -1)}) for bu in (False, True)}
+    with contextlib.ExitStack() as stack:
+        for spy in spies.values():
+            stack.enter_context(spy)
+        res = ct.run_batched(roots)
+    assert not bool(res.stats[:, 6].any()), "edges truncated"
+    log("path materialized: every layer's truncated count is 0")
+    del res
+    best, states = None, {}
+    for bu, spy in spies.items():
+        cap = spy.best["expand_batched"]
+        assert cap["key"] >= 0, f"no {'bottom-up' if bu else 'top-down'} layer"
+        r = phase_expand_kernel(cap, g, reps)
+        if best is None or cap["key"] > best[0]:
+            best = (cap["key"], r)
+        # the layer's state and its stream's shape, for the synthetic one
+        states[bu] = {k: cap[k] for k in ("frontier", "visited", "out_init",
+                                          "p_init", "kw")}
+        states[bu]["cand"] = cap["cand"][:, :1].expand(cap["cand"].shape)
+        spy.best.clear()
+        del cap
+        torch.cuda.empty_cache()
+    for bu, state in states.items():
+        syn = synthetic_k7_stream(state, bu, seed + bu)
+        phase_expand_kernel(syn, g, reps, stream="synthetic")
+        del syn
+        torch.cuda.empty_cache()
+    return best[1]
+
+
+def phase_materialized(g, roots, base, oracle, edges: int, reps: int,
+                       seed: int):
     """Phase 10: the materialized pipeline at the main path's size, on
     CSR (K2 + the apportioned stream + K7 + K1) and on the autotuner's
     SELL layout (K8 over every slab group + K1), all-auto policy: each
     timed over 3 runs with its peak device memory, held to the main
     path (`run_path`); K7 against its plain version on the largest
-    captured layer.  Returns ({kernel: results}, {kernel: launches}):
+    captured layer of each direction and on a synthetic stream at that
+    scale (`phase_expand_streams`).  Returns ({kernel: results},
+    {kernel: launches}):
     K7's and K2's launches (K2 plans this path's layers); K8's stay
     those of phase 5b's work-listed run, whose layer its time is
     measured on (its full sweep here is printed)."""
@@ -1750,15 +1921,8 @@ def phase_materialized(g, roots, base, oracle, edges: int, reps: int):
             for k in (kernels[0], "frontier_compact_batched"):
                 assert launched[k] > 0, f"{name}: {k} never launched"
                 launches[k] = launched[k]
-            with Spy(ops, {"expand_batched":
-                           lambda a: int(a["valid"].sum())}) as cap:
-                res = ct.run_batched(roots)
-            assert not bool(res.stats[:, 6].any()), "edges truncated"
-            log(f"path {name}: every layer's truncated count is 0")
-            del res
-            kres["frontier_expand_batched"] = phase_expand_kernel(
-                cap.best["expand_batched"], g, reps)
-            del cap
+            kres["frontier_expand_batched"] = phase_expand_streams(
+                ct, g, roots, reps, seed)
         del ct
         bfs.clear_plan_cache()
         torch.cuda.empty_cache()
@@ -2150,7 +2314,8 @@ def main(argv=None) -> int:
     # 5b. SELL-C-σ at the main path's size
     sell_kres, sell_launches = phase_sell(g, roots, res,
                                           oracle_depths.__getitem__, edges,
-                                          args.reps, plan_layers.calls)
+                                          args.reps, plan_layers.calls,
+                                          args.profile)
     del plan_layers
     kres.update(sell_kres)
     for name, n in sell_launches.items():
@@ -2167,7 +2332,8 @@ def main(argv=None) -> int:
 
     # 10. the materialized pipeline at the main path's size
     mat_kres, mat_launches = phase_materialized(
-        g, roots, res, oracle_depths.__getitem__, edges, args.reps)
+        g, roots, res, oracle_depths.__getitem__, edges, args.reps,
+        args.seed)
     kres.update(mat_kres)
     launches.update(mat_launches)
     del ct, res, parents, g, oracle_depths

@@ -27,9 +27,11 @@ reference's four pipelines: ``fused_gather`` (any ``prefetch_depth``),
   slots per root, K7 expands it and K1 restores.  For ``megakernel``
   it is `_make_megakernel_step`: K5 does all of that in one launch.
   A scalar layer (`_make_scalar_step`) is K2 plus the plain
-  apportionment and `expand_candidates`, in every pipeline.  SELL's steps are in `formats.sell`: K8 + K1 (over every
-  slab group for ``materialized``), or K9.  The semiring portfolio has
-  its own driver, `algorithms.traversal`.
+  apportionment and `expand_candidates`, in every pipeline.  SELL's
+  steps are in `formats.sell`: the union planner, K8 over its union of
+  slab groups and K1 (K8 over every slab group for ``materialized``),
+  or K9.  The semiring portfolio has its own driver,
+  `algorithms.traversal`.
 * **restore** (§3.3.2): vertices marked by a negative P are repaired
   into ``out`` and ``visited``.
 

@@ -22,11 +22,13 @@ benchmark table).
 
 Steps (``make_steps``):
 
-* ``fused_gather``: plain-torch slab planning (`plan_slabs_plain`: a
-  group is active iff one of its lanes owns a member of the frontier,
-  or of ``~visited`` bottom-up), K8 (its ``cp.async`` ring at
+* ``fused_gather``: the union planner's SELL arm (`kernels.plan`: a
+  group is listed for a root iff one of its lanes owns a member of the
+  frontier, or of ``~visited`` bottom-up; charged no launch, as the
+  reference plans in jnp), K8 over that union (its ``cp.async`` ring at
   ``prefetch_depth > 0``) and K1 — two launches per layer;
-* ``materialized``: K8 over every slab group (no plan) and K1;
+* ``materialized``: K8 over every slab group (`sell_expand.dense_plan`)
+  and K1;
 * ``megakernel``: K9, one launch per layer;
 * ``persistent``: K10, one launch per traversal (``persistent_run``);
 * the semiring portfolio's step: the union planner (`kernels.plan`)
@@ -298,24 +300,23 @@ class SellFormat(GraphFormat):
                          "launches/layer instead of 1)")
             mega = False
 
-        # the materialized arm sweeps every slab group (K8 without a
-        # work-list), the SpMV sweep the reference's ablation streams
+        # the materialized arm sweeps every slab group (K8 on the dense
+        # plan), the SpMV sweep the reference's ablation streams
         planned = spec.pipeline != "materialized"
 
         def make_kernel_step(bottom_up: bool):
             def step(frontier, visited, parent):
                 with ops.count_launches() as c:
-                    kw = {}
+                    plan = None
                     tiles = frontier.shape[0] * n_steps
                     if planned:
-                        active = ~visited if bottom_up else frontier
-                        wl, na = se.plan_slabs_plain(g, active)
-                        kw = dict(worklist=wl, n_active=na)
-                        tiles = na.sum()
+                        plan = (ops.plan_union(g, visited, complement=True)
+                                if bottom_up else ops.plan_union(g, frontier))
+                        tiles = plan.na.sum()
                     out_racy, p_racy = ops.sell_batched(
                         g, frontier, visited, torch.zeros_like(frontier),
-                        parent, bottom_up=bottom_up, prefetch_depth=depth,
-                        **kw)
+                        parent, plan=plan, bottom_up=bottom_up,
+                        prefetch_depth=depth)
                     p_fixed, delta = ops.restore(
                         p_racy, n_vertices=self._n_vertices)
                 aux = engine.StepAux(tiles, 0, c.count)

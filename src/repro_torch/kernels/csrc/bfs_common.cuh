@@ -9,10 +9,9 @@
 //
 // Also here: `sweep_items`, the walk with `depth` items in flight into
 // a (depth + 1)-stage ring of shared memory (`cp.async`), or read
-// straight from device memory at depth 0, which the SELL kernels use
-// with their own stage (K8 over each root's list, `WorkItems`; K9, K10
-// and K12 over the union); block-wide sums and an exclusive scan of one
-// flag per thread.
+// straight from device memory at depth 0, which the SELL kernels (K8,
+// K9, K10 and K12, over the union) use with their own stage; block-wide
+// sums and an exclusive scan of one flag per thread.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,11 +24,10 @@ namespace bfs {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// A load of a word that another CTA of the same launch may write: K8's
-// per-root sweep (`sell_group`) reads its bitmaps by a plain load;
-// kCoherent reads through L2 only (ld.global.cg) and serves the
-// planning's `group_roots` where the planning words are rewritten in
-// the launch (K10).  Never the non-coherent path.
+// A load of a planning word that another CTA of the same launch may
+// write: `group_roots` reads by a plain load, or with kCoherent through
+// L2 only (ld.global.cg) where the planning words are rewritten in the
+// launch (K10).  Never the non-coherent path.
 template <bool kCoherent>
 __device__ __forceinline__ unsigned load_word(const unsigned* p) {
   if constexpr (kCoherent) return __ldcg(p);
@@ -100,48 +98,10 @@ __device__ __forceinline__ void stage_block(int* dst, const int* src,
   }
 }
 
-// ---------------------------------------------------------------------------
-// A CTA's share of the work-lists
-// ---------------------------------------------------------------------------
-
-// Roots [b, b_end) in turn; within root b the work-list entries
-// t = blockIdx.x, blockIdx.x + gridDim.x, ... below na[b].  The lists
-// and counts may have been written earlier in the same launch, so they
-// are read through L2.
-struct WorkItems {
-  const int* wl;
-  const int* na;
-  int n_blocks;
-  int b_end;
-
-  struct Cursor {
-    int b, t;
-  };
-
-  __device__ void settle(Cursor& c) const {
-    while (c.b < b_end && c.t >= __ldcg(na + c.b)) {
-      ++c.b;
-      c.t = blockIdx.x;
-    }
-  }
-  __device__ Cursor first(int b0) const {
-    Cursor c{b0, static_cast<int>(blockIdx.x)};
-    settle(c);
-    return c;
-  }
-  __device__ void next(Cursor& c) const {
-    c.t += gridDim.x;
-    settle(c);
-  }
-  __device__ bool valid(const Cursor& c) const { return c.b < b_end; }
-  __device__ int blk(const Cursor& c) const {
-    return __ldcg(wl + static_cast<long long>(c.b) * n_blocks + c.t);
-  }
-};
-
-// Walk the CTA's items (`WorkItems` or `UnionItems`), calling
-// body(b, blk, slot) for each.  depth == 0 passes slot = nullptr (the
-// body reads device memory); depth > 0 keeps
+// Walk the CTA's items of a list (`UnionItems` or `LaunchUnionItems`:
+// entries t = blockIdx.x, blockIdx.x + gridDim.x, ... below its count),
+// calling body(blk, slot) for each.  depth == 0 passes slot = nullptr
+// (the body reads device memory); depth > 0 keeps
 // `depth` items' copies in flight into ring slot (k % (depth + 1)) while
 // item k computes on the slot that has landed (the reference's
 // `_dma_pipeline`: warm-up of `depth` copies, then one ahead per step).
@@ -149,38 +109,37 @@ struct WorkItems {
 // `slot_ints` ints; `ring` is (depth + 1) * slot_ints ints of dynamic
 // shared memory.
 template <class Items, class Stage, class Body>
-__device__ __forceinline__ void sweep_items(const Items& items, int b0,
-                                            int depth, int slot_ints,
-                                            int* ring, Stage stage,
-                                            Body body) {
-  typename Items::Cursor cur = items.first(b0);
+__device__ __forceinline__ void sweep_items(const Items& items, int depth,
+                                            int slot_ints, int* ring,
+                                            Stage stage, Body body) {
+  int t = blockIdx.x;
   if (depth == 0) {
-    for (; items.valid(cur); items.next(cur)) {
-      body(cur.b, items.blk(cur), static_cast<const int*>(nullptr));
+    for (; t < items.count; t += gridDim.x) {
+      body(items.blk(t), static_cast<const int*>(nullptr));
       __syncthreads();
     }
     return;
   }
   const int n_stage = depth + 1;
-  typename Items::Cursor ahead = cur;
+  int ahead = t;
   int k_ahead = 0;
   for (int j = 0; j < depth; ++j, ++k_ahead) {
-    if (items.valid(ahead)) {
+    if (ahead < items.count) {
       stage(ring + (k_ahead % n_stage) * slot_ints, items.blk(ahead));
-      items.next(ahead);
+      ahead += gridDim.x;
     }
     cp_async_commit();
   }
-  for (int k = 0; items.valid(cur); ++k, items.next(cur)) {
-    if (items.valid(ahead)) {
+  for (int k = 0; t < items.count; ++k, t += gridDim.x) {
+    if (ahead < items.count) {
       stage(ring + (k_ahead % n_stage) * slot_ints, items.blk(ahead));
-      items.next(ahead);
+      ahead += gridDim.x;
     }
     cp_async_commit();
     ++k_ahead;
     cp_async_wait_prior(depth);      // item k's group has landed
     __syncthreads();                 // ... for every thread's copies
-    body(cur.b, items.blk(cur),
+    body(items.blk(t),
          static_cast<const int*>(ring + (k % n_stage) * slot_ints));
     __syncthreads();                 // slot k is refilled next step
   }
@@ -191,23 +150,14 @@ __device__ __forceinline__ void sweep_items(const Items& items, int b0,
 // The union body (K3, K4, K11): one CTA per listed block for all roots
 // ---------------------------------------------------------------------------
 
-// The union of the batch's work-lists: entries t = blockIdx.x,
-// blockIdx.x + gridDim.x, ... below `count` (read on the device by the
-// kernel from the union's count).  The cursor's root is unused.
+// The union of the batch's work-lists, `count` entries (read on the
+// device by the kernel from the union's count), by the non-coherent
+// path: the list is an input of the launch.
 struct UnionItems {
   const int* ulist;
   int count;
 
-  struct Cursor {
-    int b, t;
-  };
-
-  __device__ Cursor first(int) const {
-    return Cursor{0, static_cast<int>(blockIdx.x)};
-  }
-  __device__ void next(Cursor& c) const { c.t += gridDim.x; }
-  __device__ bool valid(const Cursor& c) const { return c.t < count; }
-  __device__ int blk(const Cursor& c) const { return __ldg(ulist + c.t); }
+  __device__ int blk(int t) const { return __ldg(ulist + t); }
 };
 
 // The grid of a kernel that strides over a list: as many CTAs of
@@ -258,11 +208,11 @@ template <class Body>
 __device__ void sweep_union(const UnionItems& items, const int* rows,
                             int tile, int depth, int* stage, Body body) {
   sweep_items(
-      items, 0, depth, tile, stage,
+      items, depth, tile, stage,
       [&](int* dst, int blk) {
         stage_block(dst, rows + static_cast<long long>(blk) * tile, tile);
       },
-      [&](int, int blk, const int* slot) {
+      [&](int blk, const int* slot) {
         body(blk, slot ? slot : rows + static_cast<long long>(blk) * tile);
       });
 }

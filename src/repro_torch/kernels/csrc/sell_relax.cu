@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(bfs::kThreads) sell_relax_kernel(
   const int cols_ints = spp * bfs::kSlabInts, n_lanes = spp * bfs::kSliceC;
   const bfs::UnionItems items{ulist, __ldg(ucount)};
   bfs::sweep_items(
-      items, 0, 0, 0, nullptr, [](int*, int) {},
-      [&](int, int grp, const int*) {
+      items, 0, 0, nullptr, [](int*, int) {},
+      [&](int grp, const int*) {
         const unsigned* mask =
             rmask + static_cast<long long>(grp) * n_mask_words;
         const int* cols_g = cols + static_cast<long long>(grp) * cols_ints;

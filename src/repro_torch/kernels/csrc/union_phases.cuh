@@ -1,11 +1,12 @@
 // The union of a batch's work-lists, planned and walked on the card,
 // shared by the union planner (plan_union.cu, two launches), the
 // one-launch layer kernels K5 (layer_fused.cu, CSR rows-blocks) and K9
-// (sell_layer_fused.cu, SELL-C-σ slab groups) and the whole-traversal
+// (sell_layer_fused.cu, SELL-C-σ slab groups), the whole-traversal
 // kernels K6 (traversal_fused.cu) and K10 (sell_traversal_fused.cu),
 // which run the same phases in every layer of their loop
 // (traversal_loop.cuh), so that the planner and the kernels cannot
-// drift apart.
+// drift apart, and K8 (sell_expand.cu), which walks the planner's union
+// with K9's body.
 //
 // Planning, in a CTA's contiguous chunk of items (`chunk_of_cta`):
 //
@@ -29,28 +30,31 @@
 // * walk_csr (K5, K6): per slot of a rows-block, with its owner from
 //   the block's shared-memory owner scan (`owners_by_scan`), K3's
 //   `expand_roots` for each root of the mask (bfs_common.cuh).
-// * walk_sell (K9, K10) over sell_group_union: per lane of a slab
-//   group, its row and 8 neighbours read once; the roots of the mask
-//   whose owner side passes (the row in the frontier top-down, the row
-//   unvisited bottom-up) run inside the neighbour loop, so a random
-//   neighbour's word serves every root.  Bottom-up, a root is done with
-//   the row at its first frontier neighbour, whose id P takes
-//   (`sell_group`'s per-root break).
+// * sweep_sell over sell_group_union (K8 over the planner's list,
+//   `walk_sell` for K9 and K10 over the list of their launch): per lane
+//   of a slab group, its row and 8 neighbours read once; the roots of
+//   the mask whose owner side passes (the row in the frontier top-down,
+//   the row unvisited bottom-up) run inside the neighbour loop, so a
+//   random neighbour's word serves every root.  Bottom-up, a root is
+//   done with the row at its first frontier neighbour, whose id P takes
+//   (the per-root break).
 //
 // The walk's per-root state is root-interleaved, (n_words, B) (root b's
 // word w at w * B + b: the B words of one vertex share a sector).  K5
 // and K9 copy frontier and visited from their (B, n_words) rows into
 // scratch in their first phase and copy the discoveries back to rows in
 // the restore phase (`stage_state`, `restore_union`); K6 and K10 keep
-// both layouts across their layers (traversal_loop.cuh).  Loads: the
-// planning phases read what other CTAs wrote in the same phase or the
-// one before through L2 only (ld.global.cg); the walk reads the state
-// that no CTA writes during it (the masks, the list and the interleaved
-// copies, written before its grid barrier) with loads that may hit L1
-// (`ld_walk<false>`, which the barrier orders), so that the B roots of
-// one vertex's sector miss once; and the racy `out` as K3 does, with
-// plain loads: a stale word only costs a duplicate mark, which
-// restoration absorbs.
+// both layouts across their layers (traversal_loop.cuh); K8's wrapper
+// hands it interleaved copies.  Loads: the planning phases read what
+// other CTAs wrote in the same phase or the one before through L2 only
+// (ld.global.cg); the walk reads the state that no CTA writes during it
+// (the masks, the list and the interleaved copies, written before its
+// grid barrier) with loads that may hit L1 (`ld_walk<false>`, which the
+// barrier orders; K8, whose launch never writes them, by the
+// non-coherent path, `ld_walk<true>`), so that the B roots of one
+// vertex's sector miss once; and the racy `out` as K3 does, with plain
+// loads: a stale word only costs a duplicate mark, which restoration
+// absorbs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -215,14 +219,7 @@ struct LaunchUnionItems {
   const int* ulist;
   int count;
 
-  using Cursor = UnionItems::Cursor;
-
-  __device__ Cursor first(int) const {
-    return Cursor{0, static_cast<int>(blockIdx.x)};
-  }
-  __device__ void next(Cursor& c) const { c.t += gridDim.x; }
-  __device__ bool valid(const Cursor& c) const { return c.t < count; }
-  __device__ int blk(const Cursor& c) const { return ulist[c.t]; }
+  __device__ int blk(int t) const { return ulist[t]; }
 };
 
 // The first phase's state: frontier and visited copied from (B, n_words)
@@ -244,11 +241,14 @@ __device__ __forceinline__ void stage_state(const unsigned* frontier,
   }
 }
 
-// K9's body over one slab group for every root of `mask`.  cols_g /
-// rows_g point at the group's cols and slab_rows, in device or shared
-// memory; mask, fr and vis were written in the launch before its walk,
-// and the bitmaps are root-interleaved as in `expand_roots`.  Sentinel
-// rows and columns (== V) never index P or a bitmap.
+// K8's, K9's and K10's body over one slab group for every root of
+// `mask`.  cols_g / rows_g point at the group's cols and slab_rows, in
+// device or shared memory; mask, fr and vis are read by
+// `ld_walk<kReadOnly>` (K8: inputs of the launch; K9, K10: written in
+// the launch before its walk), and the bitmaps are root-interleaved as
+// in `expand_roots`.  Sentinel rows and columns (== V) never index P or
+// a bitmap.
+template <bool kReadOnly = false>
 __device__ __forceinline__ void sell_group_union(
     const int* cols_g, const int* rows_g, int spp, const unsigned* mask,
     int n_mask_words, const unsigned* fr, const unsigned* vis,
@@ -267,12 +267,12 @@ __device__ __forceinline__ void sell_group_union(
       // the roots of the mask whose owner side passes: the row in the
       // frontier top-down, the row unvisited bottom-up
       unsigned live = 0;
-      for (unsigned m = ld_walk<false>(mask + k); m; m &= m - 1) {
+      for (unsigned m = ld_walk<kReadOnly>(mask + k); m; m &= m - 1) {
         const int j = __ffs(m) - 1;
         const long long ri = rw + 32 * k + j;
         const bool pass = bottom_up
-                              ? !(ld_walk<false>(vis + ri) & rbit)
-                              : (ld_walk<false>(fr + ri) & rbit) != 0;
+                              ? !(ld_walk<kReadOnly>(vis + ri) & rbit)
+                              : (ld_walk<kReadOnly>(fr + ri) & rbit) != 0;
         if (pass) live |= 1u << j;
       }
       if (!live) continue;
@@ -293,11 +293,11 @@ __device__ __forceinline__ void sell_group_union(
           const int b = 32 * k + j;
           if (!bottom_up) {
             const unsigned ow = out[nw + b];              // racy read
-            if ((ld_walk<false>(vis + nw + b) | ow) & nbit) continue;
+            if ((ld_walk<kReadOnly>(vis + nw + b) | ow) & nbit) continue;
             p[b * v_pad + nb] = row - n_vertices;         // negative mark
             out[nw + b] = ow | nbit;                      // racy write
           } else {
-            if (!(ld_walk<false>(fr + nw + b) & nbit)) continue;
+            if (!(ld_walk<kReadOnly>(fr + nw + b) & nbit)) continue;
             const unsigned ow = out[rw + b];
             if (!(ow & rbit)) {
               p[b * v_pad + row] = nb - n_vertices;
@@ -326,12 +326,12 @@ __device__ __forceinline__ void walk_csr(const FusedGraph& g,
   const int n_mask_words = (n_batch + 31) >> 5;
   const LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
   sweep_items(
-      items, 0, depth, g.tile, smem,
+      items, depth, g.tile, smem,
       [&](int* dst, int blk) {
         stage_block(dst, g.rows + static_cast<long long>(blk) * g.tile,
                     g.tile);
       },
-      [&](int, int blk, const int* slot) {
+      [&](int blk, const int* slot) {
         const int* rows_blk =
             slot ? slot : g.rows + static_cast<long long>(blk) * g.tile;
         const unsigned* mask =
@@ -347,19 +347,25 @@ __device__ __forceinline__ void walk_csr(const FusedGraph& g,
       });
 }
 
-// K9's and K10's walk: one CTA per slab group of the union written
-// earlier in the launch, for every root of its mask; `ring` holds
-// (depth + 1) slots of a group's cols and slab_rows at depth > 0.
-__device__ __forceinline__ void walk_sell(const SellGraph& g,
-                                          const UnionBuffers& buf, int* p,
-                                          int n_batch, bool bottom_up,
-                                          int depth, int* ring) {
+// The SELL walk: one CTA per slab group of `items` (the planner's union,
+// `UnionItems`, for K8; the one written earlier in the launch,
+// `LaunchUnionItems`, for K9 and K10), for every root of its mask, on
+// root-interleaved bitmaps; `ring` holds (depth + 1) slots of a group's
+// cols and slab_rows at depth > 0.
+template <bool kReadOnly, class Items>
+__device__ __forceinline__ void sweep_sell(const SellGraph& g,
+                                           const Items& items,
+                                           const unsigned* rmask,
+                                           const unsigned* fi,
+                                           const unsigned* vi, unsigned* oi,
+                                           int* p, int n_batch,
+                                           bool bottom_up, int depth,
+                                           int* ring) {
   const int n_mask_words = (n_batch + 31) >> 5;
-  const LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
   const int cols_ints = g.spp * kSlabInts;
   const int rows_ints = g.spp * kSliceC;
   sweep_items(
-      items, 0, depth, cols_ints + rows_ints, ring,
+      items, depth, cols_ints + rows_ints, ring,
       [&](int* dst, int grp) {
         stage_block(dst, g.cols + static_cast<long long>(grp) * cols_ints,
                     cols_ints);
@@ -367,18 +373,29 @@ __device__ __forceinline__ void walk_sell(const SellGraph& g,
                     g.slab_rows + static_cast<long long>(grp) * rows_ints,
                     rows_ints);
       },
-      [&](int, int grp, const int* slot) {
+      [&](int grp, const int* slot) {
         const int* cols_g =
             slot ? slot : g.cols + static_cast<long long>(grp) * cols_ints;
         const int* rows_g =
             slot ? slot + cols_ints
                  : g.slab_rows + static_cast<long long>(grp) * rows_ints;
-        sell_group_union(
+        sell_group_union<kReadOnly>(
             cols_g, rows_g, g.spp,
-            buf.rmask + static_cast<long long>(grp) * n_mask_words,
-            n_mask_words, buf.fi, buf.vi, buf.oi, p, n_batch, g.v_pad,
-            g.n_vertices, bottom_up);
+            rmask + static_cast<long long>(grp) * n_mask_words,
+            n_mask_words, fi, vi, oi, p, n_batch, g.v_pad, g.n_vertices,
+            bottom_up);
       });
+}
+
+// K9's and K10's walk: `sweep_sell` over the union written earlier in
+// the launch.
+__device__ __forceinline__ void walk_sell(const SellGraph& g,
+                                          const UnionBuffers& buf, int* p,
+                                          int n_batch, bool bottom_up,
+                                          int depth, int* ring) {
+  const LaunchUnionItems items{buf.ulist, __ldcg(buf.ucount)};
+  sweep_sell<false>(g, items, buf.rmask, buf.fi, buf.vi, buf.oi, p, n_batch,
+                    bottom_up, depth, ring);
 }
 
 // The last phase: restore P and write `out` (rows) from the interleaved

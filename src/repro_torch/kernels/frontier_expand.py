@@ -14,7 +14,11 @@ tile t's writes; the CUDA kernel (``csrc/frontier_expand.cu``) has no
 such order and the plain version processes the stream a chunk at a
 time, so K7 is held to K3's contract: after restoration ``out``,
 ``visited`` and the marked set are exact, and every mark names the
-``nbr`` of a valid slot (a frontier vertex, bottom-up).  Replaces
+``nbr`` of a valid slot (a frontier vertex, bottom-up).  Neither arm
+assumes that the valid slots are a prefix of a row, though
+`engine.apportion` writes them so.  The kernel takes 16 slots per
+thread by 16-byte loads (only where a flag is set) when every stream's
+base is 16-byte aligned, and the rest one slot per thread.  Replaces
 ``repro.kernels.frontier_expand.frontier_expand_batched`` and, at
 B = 1, ``frontier_expand``.
 """
@@ -24,7 +28,9 @@ import torch
 
 from repro_torch.kernels.gather_expand import CHUNK_EDGES, _expand_edges
 
-CTAS_PER_SM = 8        # grid: a grid-stride loop over the slots
+CTAS_PER_SM = 8        # grid: a grid-stride loop over the chunks
+CHUNK_SLOTS = 16       # slots per thread of the kernel's vector path
+THREADS = 256
 
 
 def frontier_expand_plain(nbr, cand, valid, frontier, visited, out, p, *,
@@ -67,13 +73,18 @@ def frontier_expand_cuda(nbr, cand, valid, frontier, visited, out, p, *,
                 f"shape {shapes[name]} on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}, "
                 f"contiguous={t.is_contiguous()}")
+    if v_pad != 32 * n_words:
+        raise ValueError(f"frontier_expand: p has {v_pad} columns, expected "
+                         f"32 * n_words = {32 * n_words}")
+    vec = all(t.data_ptr() % 16 == 0 for t in (nbr, cand, valid))
+    chunks = -(-n_batch * n_slots // (CHUNK_SLOTS if vec else 1))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid_x = max(1, min(-(-n_slots // 256), CTAS_PER_SM * sms))
+    grid = max(1, min(-(-chunks // THREADS), CTAS_PER_SM * sms))
     lib = _build.load()
     _build.check(lib.repro_frontier_expand(
         nbr.data_ptr(), cand.data_ptr(), valid.data_ptr(),
         frontier.data_ptr(), visited.data_ptr(), out.data_ptr(),
-        p.data_ptr(), n_batch, n_slots, n_words, v_pad, int(n_vertices),
-        int(bool(check_frontier)), grid_x, _build.stream_of(p)),
+        p.data_ptr(), n_batch, n_slots, n_words, int(n_vertices),
+        int(bool(check_frontier)), int(vec), grid, _build.stream_of(p)),
         "frontier_expand")
     return out, p

@@ -286,47 +286,38 @@ def traversal_fused_batched(graph: lf.FusedCsr, frontier, visited, parent,
 
 
 def sell_batched(graph: se.SellGraph, frontier, visited, out_init, p_init,
-                 *, worklist=None, n_active=None, bottom_up: bool = False,
+                 *, plan: ge.UnionPlan | None = None, bottom_up: bool = False,
                  prefetch_depth: int = 0):
-    """K8 over (B, ...) state: ``worklist`` (B, n_steps) slab groups with
-    ``n_active`` (B,) — omitted, every root sweeps every group (the full
-    SpMV sweep).  Updates ``out_init`` and ``p_init`` in place and
-    returns them as (out, parent) — restoration NOT applied.  The slab
-    arrays are padded to the step once, when ``graph`` is built
-    (`sell_expand.sell_graph`)."""
-    if worklist is None:
-        n_batch = int(frontier.shape[0])
-        worklist = torch.arange(graph.n_steps, dtype=torch.int32,
-                                device=frontier.device) \
-            .expand(n_batch, -1).contiguous()
-        n_active = torch.full((n_batch,), graph.n_steps,
-                              dtype=torch.int32, device=frontier.device)
+    """K8 over (B, ...) state: the slab groups of ``plan``
+    (`plan_union`) — omitted, every root sweeps every group
+    (`sell_expand.dense_plan`, the full SpMV sweep).  Updates
+    ``out_init`` and ``p_init`` in place and returns them as (out,
+    parent) — restoration NOT applied.  The slab arrays are padded to
+    the step once, when ``graph`` is built (`sell_expand.sell_graph`)."""
+    if plan is None:
+        plan = se.dense_plan(graph.n_steps, int(frontier.shape[0]),
+                             frontier.device)
     _charge_launch()
     if _arm(p_init, "sell_batched"):
         name = ("sell_expand_prefetch" if prefetch_depth > 0
                 else "sell_expand_batched")
         KERNEL_LAUNCHES[name] += 1
-        return se.sell_expand_cuda(graph, worklist, n_active, frontier,
-                                   visited, out_init, p_init,
-                                   bottom_up=bottom_up,
+        return se.sell_expand_cuda(graph, plan, frontier, visited, out_init,
+                                   p_init, bottom_up=bottom_up,
                                    prefetch_depth=prefetch_depth)
-    return se.sell_expand_plain(graph, worklist, n_active, frontier,
-                                visited, out_init, p_init,
-                                bottom_up=bottom_up)
+    return se.sell_expand_plain(graph, plan, frontier, visited, out_init,
+                                p_init, bottom_up=bottom_up)
 
 
 def sell(graph: se.SellGraph, frontier, visited, out_init, p_init, *,
-         worklist=None, n_active=None, bottom_up: bool = False,
+         plan: ge.UnionPlan | None = None, bottom_up: bool = False,
          prefetch_depth: int = 0):
-    """K8 for one root ((W,), (V_pad,)): the batched call at B = 1;
-    ``out_init`` and ``p_init`` are updated in place."""
-    if worklist is not None:
-        worklist = worklist[None].contiguous()
-        n_active = torch.as_tensor(n_active, dtype=torch.int32,
-                                   device=frontier.device).reshape(1)
+    """K8 for one root ((W,), (V_pad,)): the batched call at B = 1, on a
+    one-root ``plan``; ``out_init`` and ``p_init`` are updated in
+    place."""
     sell_batched(graph, frontier[None].contiguous(),
                  visited[None].contiguous(), out_init[None], p_init[None],
-                 worklist=worklist, n_active=n_active, bottom_up=bottom_up,
+                 plan=plan, bottom_up=bottom_up,
                  prefetch_depth=prefetch_depth)
     return out_init, p_init
 

@@ -10,16 +10,20 @@ is one (W_QUANT=8, SLICE_C=128) int32 block.  The sweep walks slab
 work-list as the CSR kernels list rows-blocks.
 
 **K8** (`sell_expand_plain` / `sell_expand_cuda`): for each root b and
-each of its first ``n_active[b]`` work-list groups, every lane whose
-gate side is in the frontier and whose discovered side is in neither
-``visited`` nor ``out`` (and neither side the sentinel) writes
-``P[disc] = gate - |V|`` and ORs disc's bit into ``out`` without
-atomics (§3.3.2).  Top-down gates on the row and discovers the
-neighbour; bottom-up swaps the roles.  ``out`` and P are updated in
-place, restoration NOT applied.  At ``prefetch_depth > 0`` each CTA
+each slab group of a `gather_expand.UnionPlan` (`kernels.plan`) that
+lists it for b, every lane whose gate side is in the frontier and whose
+discovered side is in neither ``visited`` nor ``out`` (and neither
+side the sentinel) writes ``P[disc] = gate - |V|`` and ORs disc's bit
+into ``out`` without atomics (§3.3.2).  Top-down gates on the row and
+discovers the neighbour; bottom-up swaps the roles.  ``out`` and P are
+updated in place, restoration NOT applied.  The kernel walks the plan's
+union with one CTA per group for every root of its mask (K9's walk,
+neighbour-major), on root-interleaved copies of the bitmaps; the plain
+version walks each root's groups.  At ``prefetch_depth > 0`` each CTA
 keeps that many groups' ``cols`` and ``slab_rows`` in flight into a
 shared-memory ring (``cp.async``); the function is K8's, so the plain
-version is the same.  Replaces ``repro.kernels.sell_expand``'s
+version is the same.  `dense_plan` lists every group for every root
+(the full sweep).  Replaces ``repro.kernels.sell_expand``'s
 ``sell_expand[_batched]`` (BlockSpec and DMA arms).
 
 **K9** (`sell_layer_fused_plain` / `sell_layer_fused_cuda`): one SELL
@@ -48,6 +52,7 @@ restoration ``out``, ``visited`` and the marked set are identical.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,7 +66,6 @@ SLICE_C = 128     # rows per slice (the reference's lane count)
 W_QUANT = 8       # columns per slab: one (8, 128) int32 block
 SLAB_INTS = (W_QUANT + 1) * SLICE_C   # one slab's cols + slab_rows
 CHUNK_ENTRIES = 1 << 24   # plain versions: slab entries per pass
-CTAS_PER_SM = 4           # K8 grid: CTAs per SM striding the lists
 
 
 class SellGraph(NamedTuple):
@@ -121,21 +125,46 @@ def plan_slabs_plain(g: SellGraph, words: torch.Tensor):
     return lf.compact_worklist(covered, g.n_steps)
 
 
-def sell_expand_plain(g: SellGraph, wl, na, frontier, visited, out, p, *,
-                      bottom_up: bool = False):
-    """Plain torch K8 over (B, ...) state; updates ``out``/``p`` in place
-    and returns them."""
-    n = g.n_vertices
-    slab = torch.arange(g.spp, dtype=torch.int64, device=wl.device)
+def slab_edges(g: SellGraph, groups):
+    """(src, nbr) int64 chunks of the listed slab groups' entries
+    (``groups``: one root's items of a plan), K8's and K12's plain
+    versions' edge stream."""
+    slab = torch.arange(g.spp, dtype=torch.int64, device=g.cols.device)
     per_chunk = max(1, CHUNK_ENTRIES // (g.spp * W_QUANT * SLICE_C))
-    for b, n_act in enumerate(na.tolist()):
-        groups = wl[b, :n_act].to(torch.int64)
-        for s in range(0, int(n_act), per_chunk):
-            slabs = (groups[s:s + per_chunk, None] * g.spp + slab) \
-                .reshape(-1)
-            nbr = g.cols[slabs].reshape(-1).to(torch.int64)
-            src = g.slab_rows[slabs][:, None, :] \
-                .expand(-1, W_QUANT, -1).reshape(-1).to(torch.int64)
+    groups = groups.to(torch.int64)
+    for s in range(0, int(groups.shape[0]), per_chunk):
+        slabs = (groups[s:s + per_chunk, None] * g.spp + slab).reshape(-1)
+        nbr = g.cols[slabs].reshape(-1).to(torch.int64)
+        src = g.slab_rows[slabs][:, None, :].expand(-1, W_QUANT, -1) \
+            .reshape(-1).to(torch.int64)
+        yield src, nbr
+
+
+@functools.lru_cache(maxsize=16)
+def dense_plan(n_steps: int, n_batch: int, device) -> ge.UnionPlan:
+    """The plan that lists every one of ``n_steps`` slab groups for every
+    root (the full SpMV sweep of the ``materialized`` pipeline), made
+    once per (graph's step count, batch, device): the list 0..n_steps-1,
+    full root masks (the last word's unused bits clear), every count
+    ``n_steps``."""
+    i32 = dict(dtype=torch.int32, device=device)
+    words = torch.full((-(-n_batch // 32),), -1, **i32)
+    if n_batch % 32:
+        words[-1] = (1 << (n_batch % 32)) - 1
+    return ge.UnionPlan(torch.arange(n_steps, **i32),
+                        torch.full((1,), n_steps, **i32),
+                        words.expand(n_steps, -1).contiguous(),
+                        torch.full((n_batch,), n_steps, **i32))
+
+
+def sell_expand_plain(g: SellGraph, plan: ge.UnionPlan, frontier, visited,
+                      out, p, *, bottom_up: bool = False):
+    """Plain torch K8 over (B, ...) state, each root's groups of the plan
+    in ascending order; updates ``out``/``p`` in place and returns
+    them."""
+    n = g.n_vertices
+    for b in range(int(plan.na.shape[0])):
+        for src, nbr in slab_edges(g, plan.items_of(b)):
             valid = (src < n) & (nbr < n)
             gate, disc = (nbr, src) if bottom_up else (src, nbr)
             ge._expand_edges(n, gate, disc, valid, frontier[b], visited[b],
@@ -148,8 +177,8 @@ def sell_layer_fused_plain(g: SellGraph, frontier, visited, parent, *,
     """Plain torch K9: (out restored, P restored in place, n_active)."""
     wl, na = plan_slabs_plain(g, ~visited if bottom_up else frontier)
     out = torch.zeros_like(frontier)
-    sell_expand_plain(g, wl, na, frontier, visited, out, parent,
-                      bottom_up=bottom_up)
+    sell_expand_plain(g, ge.UnionPlan.of_lists(wl, na, g.n_steps), frontier,
+                      visited, out, parent, bottom_up=bottom_up)
     fixed, delta = restoration_plain(parent, g.n_vertices)
     parent.copy_(fixed)
     return out | delta, parent, na
@@ -173,12 +202,12 @@ def smem_budget(spp: int, depth: int) -> int:
 
 def check_args(g: SellGraph, kernel: str, **named) -> None:
     """The CUDA wrappers' checks: contiguous int32 on the graph's
-    device, (B, W) bitmaps, a (B, V_pad) P and (B, n_steps) lists."""
+    device, (B, W) bitmaps and a (B, V_pad) P."""
     dev = g.cols.device
     n_batch = int(named["frontier"].shape[0])
     widths = {"frontier": g.n_words, "visited": g.n_words,
               "out": g.n_words, "p": int(g.deg.shape[0]),
-              "parent": int(g.deg.shape[0]), "wl": g.n_steps}
+              "parent": int(g.deg.shape[0])}
     for name, t in named.items():
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != dev:
@@ -186,8 +215,7 @@ def check_args(g: SellGraph, kernel: str, **named) -> None:
                 f"{kernel}: {name} must be a contiguous int32 tensor on "
                 f"{dev}, got {t.dtype} on {t.device}, "
                 f"contiguous={t.is_contiguous()}")
-        shape = ((n_batch,) if name == "na"
-                 else (n_batch, widths[name]))
+        shape = (n_batch, widths[name])
         if tuple(t.shape) != shape:
             raise ValueError(f"{kernel}: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
@@ -197,30 +225,33 @@ def _depth(prefetch_depth: int, n_steps: int) -> int:
     return min(max(int(prefetch_depth), 0), n_steps)
 
 
-def sell_expand_cuda(g: SellGraph, wl, na, frontier, visited, out, p, *,
-                     bottom_up: bool = False, prefetch_depth: int = 0):
-    """Launch K8 (its ``cp.async`` ring at ``prefetch_depth > 0``,
-    clamped to the step count); ``out``/``p`` are updated in place."""
+def sell_expand_cuda(g: SellGraph, plan: ge.UnionPlan, frontier, visited,
+                     out, p, *, bottom_up: bool = False,
+                     prefetch_depth: int = 0):
+    """Launch K8 over the plan's union (its ``cp.async`` ring at
+    ``prefetch_depth > 0``, clamped to the step count), on
+    root-interleaved bitmaps; ``out``/``p`` are updated in place."""
     from repro_torch.kernels import _build
-    check_args(g, "sell_expand", wl=wl, na=na, frontier=frontier,
-               visited=visited, out=out, p=p)
+    check_args(g, "sell_expand", frontier=frontier, visited=visited,
+               out=out, p=p)
+    n_batch = int(frontier.shape[0])
+    ge.check_plan("sell_expand", plan, g.n_steps, n_batch, g.cols.device)
     depth = _depth(prefetch_depth, g.n_steps)
     if stage_bytes(g.spp, depth) > ge.SMEM_OPTIN_BYTES:
         raise ValueError(
             f"sell_expand: prefetch_depth={depth} at {g.spp} slabs per "
             f"step needs {stage_bytes(g.spp, depth)} bytes of shared "
             f"memory per CTA; the card allows {ge.SMEM_OPTIN_BYTES}")
-    sms = torch.cuda.get_device_properties(g.cols.device) \
-        .multi_processor_count
-    grid_x = max(1, min(g.n_steps, CTAS_PER_SM * sms))
-    lib = _build.load()
-    _build.check(lib.repro_sell_expand(
-        wl.data_ptr(), na.data_ptr(), g.cols.data_ptr(),
-        g.slab_rows.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
-        out.data_ptr(), p.data_ptr(), int(frontier.shape[0]), g.n_steps,
-        g.spp, g.n_words, int(g.deg.shape[0]), g.n_vertices,
-        int(bool(bottom_up)), depth, grid_x, _build.stream_of(p)),
-        "sell_expand")
+    fr, vis, ob = (ge.interleaved(frontier), ge.interleaved(visited),
+                   ge.interleaved(out))
+    _build.check(_build.load().repro_sell_expand(
+        plan.ulist.data_ptr(), plan.ucount.data_ptr(),
+        plan.rmask.data_ptr(), g.cols.data_ptr(), g.slab_rows.data_ptr(),
+        fr.data_ptr(), vis.data_ptr(), ob.data_ptr(), p.data_ptr(), n_batch,
+        g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]), g.n_vertices,
+        int(bool(bottom_up)), depth, _build.stream_of(p)), "sell_expand")
+    if ob is not out:
+        out.copy_(ob.t())
     return out, p
 
 
@@ -258,20 +289,6 @@ def sell_layer_fused_cuda(g: SellGraph, frontier, visited, parent, *,
 # ---------------------------------------------------------------------------
 # K12: the semiring relax over slab groups
 # ---------------------------------------------------------------------------
-
-def slab_edges(g: SellGraph, groups):
-    """(src, nbr) int64 chunks of the listed slab groups' entries
-    (``groups``: one root's active work-list entries)."""
-    slab = torch.arange(g.spp, dtype=torch.int64, device=g.cols.device)
-    per_chunk = max(1, CHUNK_ENTRIES // (g.spp * W_QUANT * SLICE_C))
-    groups = groups.to(torch.int64)
-    for s in range(0, int(groups.shape[0]), per_chunk):
-        slabs = (groups[s:s + per_chunk, None] * g.spp + slab).reshape(-1)
-        nbr = g.cols[slabs].reshape(-1).to(torch.int64)
-        src = g.slab_rows[slabs][:, None, :].expand(-1, W_QUANT, -1) \
-            .reshape(-1).to(torch.int64)
-        yield src, nbr
-
 
 def sell_relax_plain(g: SellGraph, plan: ge.UnionPlan, frontier, vals, *,
                      unit: int = 0, weighted: bool = False):

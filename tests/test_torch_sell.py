@@ -2,8 +2,10 @@
 per launch), K10 (one SELL traversal per launch) — and K13 (popcount)
 against the reference.
 
-K8's plain version is held against the reference's Pallas
-``sell_expand_batched`` (interpret mode, depth 0); its races are held to
+K8's plain version, on the `UnionPlan` of the reference planner's
+work-lists, is held against the reference's Pallas
+``sell_expand_batched`` (interpret mode, depth 0) over those lists; the
+plan that lists every group is the full sweep's; its races are held to
 what restoration makes exact: ``out|delta``, ``visited|delta`` and the
 marked set, with every marked parent a frontier neighbour.  The slab
 plan's work-list and ``n_active`` are bitwise equal to the reference's
@@ -33,7 +35,9 @@ from test_torch_kernels import _check_repaired
 import repro_torch.bfs as tbfs
 from repro_torch import errors, formats, interop
 from repro_torch.kernels import bitmap_kernels as t_bk
+from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import ops
+from repro_torch.kernels import plan as t_plan
 from repro_torch.kernels import restoration as t_rest
 from repro_torch.kernels import sell_expand as t_se
 from repro_torch.kernels import traversal_fused as t_tf
@@ -128,9 +132,10 @@ def test_plan_of_an_empty_frontier_costs_nothing():
     frontier, visited, p = _port_state(c)
     wl, na = t_se.plan_slabs_plain(c["graph"], frontier)
     assert na.tolist() == [0, 0, 0] and int(wl.abs().sum()) == 0
+    plan = ops.plan_union(c["graph"], frontier)
+    assert int(plan.ucount) == 0 and plan.na.tolist() == [0, 0, 0]
     out = torch.zeros_like(frontier)
-    ops.sell_batched(c["graph"], frontier, visited, out, p, worklist=wl,
-                     n_active=na)
+    ops.sell_batched(c["graph"], frontier, visited, out, p, plan=plan)
     assert int(out.abs().sum()) == 0 and bool((p == c["n"]).all())
 
 
@@ -138,29 +143,39 @@ def test_plan_of_an_empty_frontier_costs_nothing():
 # K8: the slab sweep
 # ---------------------------------------------------------------------------
 
+def _plan(c, batch=None):
+    """The port's `UnionPlan` of the reference planner's lists (rows
+    ``batch`` of them, all by default)."""
+    wl, na = c["wl"], c["na"]
+    if batch is not None:
+        wl, na = wl[batch], na[batch]
+    return ge.UnionPlan.of_lists(torch.from_numpy(np.ascontiguousarray(wl)),
+                                 torch.from_numpy(np.ascontiguousarray(na)),
+                                 c["n_steps"])
+
+
 @pytest.mark.parametrize("spp", [1, 2])
 @pytest.mark.parametrize("bottom_up", [False, True],
                          ids=["topdown", "bottomup"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_sell_expand_plain_matches_reference(seed, bottom_up, spp):
     """After restoration: out, visited and the marked set equal the
-    reference's Pallas sweep; every marked parent is a frontier
-    neighbour (in the symmetric adjacency)."""
+    reference's Pallas sweep over its work-lists, which the port takes
+    as a `UnionPlan`; every marked parent is a frontier neighbour (in
+    the symmetric adjacency)."""
     c = _sell_case(seed, bottom_up, spp=spp)
     frontier, visited, p = _port_state(c)
     out = torch.zeros_like(frontier)
     got = ops.sell_batched(c["graph"], frontier, visited, out, p,
-                           worklist=torch.from_numpy(c["wl"]),
-                           n_active=torch.from_numpy(c["na"]),
-                           bottom_up=bottom_up)
+                           plan=_plan(c), bottom_up=bottom_up)
     assert got[0] is out and got[1] is p
     _check_repaired(c, _ref_sweep(c, bottom_up),
                     (words_np(out), p.numpy()))
 
 
 def test_sell_full_sweep_without_a_worklist():
-    """No work-list: every root sweeps every group (the reference's
-    identity work-list)."""
+    """No plan: every root sweeps every group (the reference's identity
+    work-list)."""
     c = _sell_case(3, False)
     n_batch = c["frontier"].shape[0]
     c["wl"] = np.tile(np.arange(c["n_steps"], dtype=np.int32), (n_batch, 1))
@@ -171,16 +186,41 @@ def test_sell_full_sweep_without_a_worklist():
     _check_repaired(c, _ref_sweep(c, False), (words_np(out), p.numpy()))
 
 
+@pytest.mark.parametrize("n_batch", [1, 3, 32, 33])
+def test_sell_dense_plan_is_the_full_sweep(n_batch):
+    """The dense plan equals the plan of the identity work-lists (every
+    group for every root), the last mask word's unused bits clear; made
+    once per (steps, batch, device); K8 on it and on the old full
+    sweep's lists gives the same out and P."""
+    c = _sell_case(5, True)
+    n_steps = c["n_steps"]
+    plan = t_se.dense_plan(n_steps, n_batch, torch.device("cpu"))
+    assert plan is t_se.dense_plan(n_steps, n_batch, torch.device("cpu"))
+    wl = torch.arange(n_steps, dtype=torch.int32).expand(n_batch, -1)
+    na = torch.full((n_batch,), n_steps, dtype=torch.int32)
+    want = ge.UnionPlan.of_lists(wl.contiguous(), na, n_steps)
+    for name, a, b in zip(ge.UnionPlan._fields, plan, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b), name
+    frontier, visited, p = _port_state(c)
+    rows = torch.arange(n_batch) % frontier.shape[0]
+    frontier, visited = frontier[rows].contiguous(), visited[rows]
+    outs = []
+    for pl_ in (plan, want):
+        out, p_b = torch.zeros_like(frontier), p[rows].clone()
+        t_se.sell_expand_plain(c["graph"], pl_, frontier, visited, out, p_b,
+                               bottom_up=True)
+        outs.append((out, p_b))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
 def test_sell_single_root_is_batched_at_b1():
     c = _sell_case(2, False, n_batch=1)
     frontier, visited, p = _port_state(c)
     out1, p1 = torch.zeros_like(frontier[0]), p[0].clone()
-    ops.sell(c["graph"], frontier[0], visited[0], out1, p1,
-             worklist=torch.from_numpy(c["wl"][0]), n_active=int(c["na"][0]))
+    ops.sell(c["graph"], frontier[0], visited[0], out1, p1, plan=_plan(c))
     out_b = torch.zeros_like(frontier)
-    ops.sell_batched(c["graph"], frontier, visited, out_b, p,
-                     worklist=torch.from_numpy(c["wl"]),
-                     n_active=torch.from_numpy(c["na"]))
+    ops.sell_batched(c["graph"], frontier, visited, out_b, p, plan=_plan(c))
     assert torch.equal(out1, out_b[0]) and torch.equal(p1, p[0])
 
 
@@ -369,12 +409,41 @@ def test_cuda_sell_expand_matches_plain(cuda_device, bottom_up, depth):
     frontier, visited, p = _port_state(c, cuda_device)
     out = torch.zeros_like(frontier)
     t_se.sell_expand_cuda(_on(c["graph"], cuda_device),
-                          torch.from_numpy(c["wl"]).to(cuda_device),
-                          torch.from_numpy(c["na"]).to(cuda_device),
+                          ge.UnionPlan(*(t.to(cuda_device) for t in _plan(c))),
                           frontier, visited, out, p, bottom_up=bottom_up,
                           prefetch_depth=depth)
     _check_repaired(c, _ref_sweep(c, bottom_up),
                     (words_np(out), p.cpu().numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("bottom_up", [False, True],
+                         ids=["topdown", "bottomup"])
+def test_cuda_sell_expand_at_33_roots_matches_plain(cuda_device, bottom_up,
+                                                    depth):
+    """K8 at two root-mask words, on the union planner's plan: after
+    restoration out, visited and the marked set equal its plain
+    version's."""
+    c = _sell_case(8, bottom_up, n_batch=33)
+    f_c, v_c, p_c = _port_state(c)
+    plan = t_plan.plan_union_plain(c["graph"], v_c if bottom_up else f_c,
+                                   complement=bottom_up)
+    out_p = torch.zeros_like(f_c)
+    t_se.sell_expand_plain(c["graph"], plan, f_c, v_c, out_p, p_c,
+                           bottom_up=bottom_up)
+    frontier, visited, p = _port_state(c, cuda_device)
+    out = torch.zeros_like(frontier)
+    t_se.sell_expand_cuda(_on(c["graph"], cuda_device),
+                          ge.UnionPlan(*(t.to(cuda_device) for t in plan)),
+                          frontier, visited, out, p, bottom_up=bottom_up,
+                          prefetch_depth=depth)
+    p, out = p.cpu(), out.cpu()
+    _, d_k = t_rest.restoration_plain(p, c["n"])
+    _, d_p = t_rest.restoration_plain(p_c, c["n"])
+    assert torch.equal(p < 0, p_c < 0)
+    assert torch.equal(out | d_k, out_p | d_p)
+    assert torch.equal(v_c | d_k, v_c | d_p)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ resolved tile, under the four policies.
 
 Visited, frontier, depths, layers and the direction log are bitwise
 equal on every path; the stats buffer too — all 8 columns for
-``fused_gather`` at any depth (K8 + K1: 2 launches per layer), columns
+``fused_gather`` at any depth (the union planner, charged no launch, +
+K8 + K1: 2 launches per layer), columns
 0-6 for ``megakernel`` (1 launch per layer) and ``persistent`` (1 per
 traversal).  Parents (racy tie-breaks) pass both validators, with depths
 equal to ``bfs_serial``.  Every comparison is exact.
@@ -209,6 +210,53 @@ def test_sell_steps_launch_what_the_reference_charges(graphs):
         want = [1] + [0] * (n - 1) if per_layer == 0 else [per_layer] * n
         assert res.stats[:n, 7].tolist() == want
     assert not any(ops.KERNEL_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("policy_index", range(4), ids=POLICY_IDS)
+def test_sell_fused_gather_plans_with_the_union_planner(graphs, monkeypatch,
+                                                        policy_index, depth):
+    """SELL fused_gather plans every layer with `ops.plan_union` (the planner's SELL arm, charged no launch) and
+    calls `plan_slabs_plain` only inside it (its CPU arm); K8 takes the
+    plan; the stats stay bitwise the reference's in all 8 columns (2
+    launches per layer)."""
+    from repro_torch.kernels import sell_expand as se
+    ct, ref = _reference(graphs, "rmat9", policy_index)
+    calls = dict(plan_union=0, plain_outside=0, planned_sweeps=0)
+    inside = [0]
+    plan_union, plain, sweep = ops.plan_union, se.plan_slabs_plain, \
+        ops.sell_batched
+
+    def spy_plan(*a, **kw):
+        calls["plan_union"] += 1
+        inside[0] += 1
+        try:
+            return plan_union(*a, **kw)
+        finally:
+            inside[0] -= 1
+
+    def spy_plain(*a, **kw):
+        calls["plain_outside"] += inside[0] == 0
+        return plain(*a, **kw)
+
+    def spy_sweep(*a, plan=None, **kw):
+        calls["planned_sweeps"] += plan is not None
+        return sweep(*a, plan=plan, **kw)
+
+    monkeypatch.setattr(ops, "plan_union", spy_plan)
+    monkeypatch.setattr(se, "plan_slabs_plain", spy_plain)
+    monkeypatch.setattr(ops, "sell_batched", spy_sweep)
+    spec = tbfs.TraversalSpec(policy=POLICY_PAIRS[policy_index][1],
+                              tile=ct.resolved.tile, max_layers=128,
+                              prefetch_depth=depth)
+    got = tbfs.plan(_port_sell(graphs, "rmat9"), spec, device="cpu") \
+        .run_batched(FORMAT_ROOTS["rmat9"][1])
+    n_layers = int(ref.state.layer)     # simd: every layer runs K8
+    assert calls == dict(plan_union=n_layers, plain_outside=0,
+                         planned_sweeps=n_layers)
+    np.testing.assert_array_equal(got.stats.numpy(), np.asarray(ref.stats))
+    assert got.stats[:n_layers, 7].tolist() == [2] * n_layers
+    _check_state(got, ref)
 
 
 def test_sell_engine_uses_the_persistent_run_of_the_format(graphs,
