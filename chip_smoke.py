@@ -11,11 +11,19 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    K6 and K10 must invalidate L1 at their grid barriers, since their
    walks read state rewritten between layers by plain loads;
 3. kernels vs plain versions on the card, at the main path's shapes,
-   with inputs captured from a real layer of the main path: the union
+   with inputs captured from a real layer of the main path: the
+   measure kernel (K13 redesigned) on every layer, both directions,
+   bitwise against its plain version as captured, without the unvisited
+   pair and by the count-only arm (counters, sums, total, mode, stats
+   columns 0-4, depths), timed on the largest layer (calls queued back
+   to back, `device_ms`; CUDA events around one call count the host's
+   launch too) beside its bound, and at 33 roots at the main path's
+   width on random words (bitwise, timed beside its bound); the union
    planner (not a TPU kernel) bitwise on every layer, as planned and
    with a dense root, and timed beside the planning it replaced;
-   restoration and compaction (on the layer's planning bitmap; the
-   main path no longer runs K2) must match exactly; gather-expand, on
+   restoration and compaction (K2 on the layer's planning bitmap,
+   printed as ``frontier_compact_planning``: the main path no longer
+   runs K2, and K2's row is phase 10's) must match exactly; gather-expand, on
    the planner's plan, must give the same repaired ``out``/``visited``
    and marked set, and every mark must name a frontier neighbour; each
    kernel's median time (the plan built outside the timed window), its
@@ -26,7 +34,8 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    one CUDA launch per call by the profiler; its co-resident grid
    printed), K9 the same on the autotuner's SELL layout of the graph
    (phase 3d: its largest ``fused_gather`` layer of each direction,
-   where K8 is held to its plain version at depths 0 and 2),
+   where K8 is held to its plain version at depths 0 and 2, and the
+   measure kernel on every layer),
    and for the planner, K2 and K3 at B = 1 from a ``run(root)``
    traversal;
 4. main path: Graph500 R-MAT SCALE 22 / edgefactor 16 from ``--seed``,
@@ -34,14 +43,18 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    batch of 8 roots with degree > 0, timed; one planner launch per
    layer and no call of the planning it replaced; the same traversal
    with that planning gives the same visited and frontier sets, depths,
-   stats columns 0-7 and direction log; every tree validated and its
+   stats columns 0-7 and direction log; one measure launch per layer
+   (and one that finds every frontier empty), no call of the plain
+   counters or apportionment, and, traced (`profile_split`), no device
+   time in plain-torch counters; every tree validated and its
    depths checked against an independent level-synchronous BFS;
 5. the fusion paths at the same size — ``fused_gather`` at
    ``prefetch_depth=2`` (K4), ``megakernel`` at depth 0 and 2 (K5) and
    ``persistent`` (K6): each timed over 3 runs, trees valid, visited,
    frontier, depths, layers, stats columns 0-6 and the direction log
    equal to the main path's, the launches column as contracted, no
-   degrade, and by the profiler one K5 launch per layer and one K6
+   degrade, no plain counters or apportionment, and by the profiler one
+   K5 launch per layer and one K6
    launch per traversal; K6 against its plain version on the batch's
    initial state (frontier, visited, depths, layers, stats bitwise, P
    restored where the plain version's is), timed at 4 and 8 CTAs per
@@ -58,13 +71,16 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    ``fused_gather`` paths plan with one union-planner launch per layer
    and call none of the plain planning functions (``--profile``: the
    depth-0 one traced, one K8 launch per layer); K8 (depths 0, 1, 2, 4,
-   on the layer's union plan) and K13 against their plain versions on
+   on the layer's union plan) and K13 (the measure kernel's count-only
+   arm, printed as ``popcount_sell_frontier``) against their plain
+   versions on
    the largest captured SELL layer, with the planner on that layer
    beside the planning it replaced; K10 on the batch's initial state
    as K6;
 6. the four direction policies at SCALE 16, batch 8, on every pipeline
    of CSR and of SELL (``materialized`` included);
-6b. at SCALE 16 with 33 roots (two root-mask words): the planner
+6b. at SCALE 16 with 33 roots (two root-mask words): the measure
+   kernel on every layer of CSR and SELL, the planner
    (both arms, every layer, with a dense root), K3 (and K4 at each
    depth), K5, K8 and K9 (both directions, depths 0 and 2),
    K11 and K12 (int32 and float32 layers), and K6 and K10 (the four
@@ -76,8 +92,9 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    every pipeline (``materialized`` included), and for the three
    portfolio algorithms values, parents, depths and the whole stats
    buffer;
-8. the kernels' launch counts from their paths' runs (all > 0; K13 runs
-   every host-loop path's termination test);
+8. the kernels' launch counts from their paths' runs (all > 0; the
+   measure kernel runs every host-loop layer and termination test, its
+   count-only arm (K13's ``popcount``) the sssp portfolio's counts);
 9. (run right after 5b) the semiring portfolio at the main path's
    size, on CSR (K2 + K11) and on the autotuner's SELL layout (K12):
    ksource_bfs (the 8 roots) equals the level-synchronous depths; sssp
@@ -90,15 +107,31 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    sssp (float32) layers, bitwise, at 8 roots and for the first root
    alone, beside one ``scatter_reduce_(amin)`` fold of the layer
    (phase 0 only); the planner's SELL arm timed on the ksource layer;
+   every measure call of each warm-up run (ksource_bfs, sssp, cc; CSR
+   and SELL) replayed against its plain version bitwise at the shape it
+   took: the degree arm, sssp's ``discovered=False`` and its (24, W)
+   count-only counts, whose largest gives K13's row;
 10. (run after 9) the materialized pipeline at the main path's size,
-   all-auto policy, on CSR (K2 + apportioned stream + K7 + K1) and
+   all-auto policy, on CSR (K2's stream arm + the apportionment + K7 +
+   K1) and
    SELL (K8 over every slab group + K1): timed over 3 runs with the
    peak device memory, held to the main path as in phase 5 (stats
    columns 0-4), no edge truncated; K7 against its plain version on
    the largest captured layer of each direction and on a synthetic
    stream at that scale in each direction (``valid`` not a prefix of a
    row, a slot count that is not a multiple of 16, a hub's run longer
-   than K7's 16-slot chunk), K3's contract.
+   than K7's 16-slot chunk), K3's contract; K2's stream arm and the
+   apportionment against their plain versions on the largest layer of
+   each direction (queue, counts, totals, truncated counts bitwise,
+   ``cum`` on each root's entries, ``valid`` bitwise, ``u``/``v`` where
+   valid) and on a synthetic layer whose stream is cut inside a hub's
+   list, timed beside their bounds; the bottom-up layer's times give
+   K2's and the apportionment's rows.
+
+The ``kernels`` line names each row's timing ``method``: ``events``
+(the median of CUDA events around one call) or ``back_to_back``
+(`device_ms`, with ``event_ms`` beside it for ranking against the
+others).
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -134,11 +167,16 @@ REPLACES = {
     "sell_traversal_fused_batched":
         "src/repro/kernels/traversal_fused.py:519",
     "popcount": "src/repro/kernels/bitmap_kernels.py:39",
+    "measure": "src/repro/kernels/bitmap_kernels.py:39 (K13) and the "
+               "Table-1 counters around it (src/repro/core/engine.py:1038 "
+               "bfs.measure_decide)",
     "frontier_expand_batched": "src/repro/kernels/frontier_expand.py:207",
     "gather_relax_batched": "src/repro/kernels/gather_expand.py:493",
     "sell_relax_batched": "src/repro/kernels/sell_expand.py:766",
     "plan_union": "not a TPU kernel: the planning around the kernels "
                   "(src/repro/core/engine.py:447 plan_active_tiles_batched)",
+    "apportion": "not a TPU kernel: the materialized stream's "
+                 "apportionment (src/repro/core/engine.py:269 apportion)",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -152,20 +190,35 @@ SOURCES = {
     "sell_expand_prefetch": CSRC + "sell_expand.cu",
     "sell_layer_fused_batched": CSRC + "sell_layer_fused.cu",
     "sell_traversal_fused_batched": CSRC + "sell_traversal_fused.cu",
-    "popcount": CSRC + "popcount.cu",
+    "popcount": CSRC + "measure.cu",
+    "measure": CSRC + "measure.cu",
     "frontier_expand_batched": CSRC + "frontier_expand.cu",
     "gather_relax_batched": CSRC + "gather_relax.cu",
     "sell_relax_batched": CSRC + "sell_relax.cu",
     "plan_union": CSRC + "plan_union.cu",
+    "apportion": CSRC + "apportion.cu",
 }
 #: how the work-listed kernels are timed
 KERNEL_ONLY = "kernel alone; its plan is built outside the timed window"
+#: each kernel row's ``method``: the median of CUDA events around one
+#: call (`cuda_ms`, the default), or the device time of calls queued
+#: back to back (`device_ms`, for kernels of a few microseconds, where
+#: events around one call measure the host's launch); rows of one method
+#: rank against each other, and every back-to-back row also has its
+#: ``event_ms``
+EVENTS, BACK_TO_BACK = "events", "back_to_back"
 #: the plain planning functions the union planner replaced: the main
 #: path and the portfolio must call none of them
 PLAIN_PLANNING = (("repro_torch.core.engine", "plan_active_tiles_batched"),
                   ("repro_torch.core.engine", "mark_blocks_from_queue"),
                   ("repro_torch.kernels.gather_expand", "union_worklist"),
                   ("repro_torch.kernels.sell_expand", "plan_slabs_plain"))
+#: the plain-torch counters and apportionment the measure kernel and the
+#: apportionment kernel replaced: no path on the card may call them
+PLAIN_COUNTERS = (("repro_torch.kernels.bitmap_kernels", "measure_plain"),
+                  ("repro_torch.kernels.traversal_fused", "layer_counters"),
+                  ("repro_torch.core.bitmap", "masked_degree_sum"),
+                  ("repro_torch.kernels.apportion", "apportion_plain"))
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -194,7 +247,8 @@ PREFETCH_DEPTHS = (1, 2, 4)
 UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
                  "== sell_expand.cu", "== sell_relax.cu", "== plan_union.cu",
                  "== layer_fused.cu", "== sell_layer_fused.cu",
-                 "== traversal_fused.cu", "== sell_traversal_fused.cu")
+                 "== traversal_fused.cu", "== sell_traversal_fused.cu",
+                 "== measure.cu", "== compact.cu", "== apportion.cu")
 WIDE_BATCH = 33               # two root-mask words
 SYN_HUB_RUN = 4099            # K7's synthetic stream: a hub's run of slots
 SELL_DEPTHS = (0, 1, 2, 4)
@@ -234,6 +288,49 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+#: GPU clock cycles of the sleep kernel that `device_ms` queues launches
+#: behind (~30 ms on an H100, far longer than the host takes to queue
+#: 20 calls); doubled up to 3 times where it was not
+SLEEP_CYCLES = 50_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time (ms) of one call of ``fn``: CUDA events around
+    ``reps`` calls queued behind a sleep kernel, so that they run back
+    to back on the card however long the host takes to launch each (CUDA
+    events around one call of a microsecond kernel measure the host's
+    launch instead).  The card must still be asleep when the last call
+    is queued."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    asleep, start, end = events
+    for attempt in range(4):
+        torch.cuda._sleep(SLEEP_CYCLES << attempt)
+        asleep.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not asleep.query()
+        end.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / reps
+    raise AssertionError("the host could not queue the timed calls within "
+                         "the sleep")
+
+
+def timed_kernel(res: dict, fn, reps: int) -> dict:
+    """``res`` with ``ms`` = `device_ms` (calls queued back to back,
+    ``method`` `BACK_TO_BACK`) and ``event_ms`` (the median of CUDA
+    events around one call, the host's launch included)."""
+    res["event_ms"] = cuda_ms(fn, reps)
+    res["ms"] = device_ms(fn, reps)
+    res["method"] = BACK_TO_BACK
+    return res
 
 
 def level_bfs_depths(src, dst, n_vertices: int, root: int):
@@ -391,10 +488,10 @@ def layer_spy(ops, name: str) -> Spy:
     """A `Spy` of a one-launch layer wrapper (K5 or K9) whose ``calls``
     are each layer's (graph, frontier, visited, bottom_up,
     discoveries)."""
-    from repro_torch.core.engine import row_popcounts
+    from repro_torch.kernels.bitmap_kernels import popcount_plain
     return Spy(ops, {name: None}, each=lambda c, out: (
         c["graph"], c["frontier"], c["visited"], c["kw"]["bottom_up"],
-        int(row_popcounts(out[0]).sum())))
+        int(popcount_plain(out[0]))))
 
 
 def k3_bytes(cap, n_marked: int) -> int:
@@ -521,8 +618,10 @@ def check_marks(cap, p_racy, frontier_b):
 def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
                   label: str = ""):
     """Phase 3: each kernel against its plain version on the card, on
-    the captured layer: K2 on its planning bitmap (the main path no
-    longer runs K2; the materialized path does), the union planner, K3
+    the captured layer: K2 on its planning bitmap (printed as
+    ``frontier_compact_planning``: the main path no longer runs K2, and
+    its kernels-line row is the materialized path's stream arm, phase
+    10b), the union planner, K3
     on the planner's plan (the plan built outside the timed window) and
     K1.  The plain K3's output stays in ``cap["plain_k3"]`` for phase
     3b."""
@@ -545,11 +644,11 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
     err = max(int((q_k - q_p).abs().max()), int((c_k - c_p).abs().max()))
     assert err == 0, f"frontier compaction disagrees: max |err| {err}"
     k2_bytes = 4 * words.numel() + 4 * n_batch * size + 4 * n_batch
-    results["frontier_compact_batched"] = dict(
+    results["frontier_compact_planning"] = timed_kernel(dict(
         max_abs_err=err, bytes=k2_bytes,
-        ms=cuda_ms(lambda: ck.compact_cuda(words, size, fill), reps),
         plain_ms=cuda_ms(lambda: ck.compact_plain(words, size, fill),
-                         max(3, reps // 4)))
+                         max(3, reps // 4))),
+        lambda: ck.compact_cuda(words, size, fill), reps)
 
     # the union planner on the same layer
     results["plan_union"] = plan_row(plan_call, reps)
@@ -610,9 +709,12 @@ def phase_kernels(cap, n_vertices: int, v_pad: int, reps: int,
 def log_row(name: str, r: dict, **extra) -> None:
     """One kernel's JSON line: its numbers and the facts beside them."""
     log(json.dumps({"kernel": name, **extra, **{
-        k: r[k] for k in ("ms", "plain_ms", "replaced_ms", "bytes",
-                          "bound_ms", "max_abs_err", "active_tiles",
-                          "union_blocks", "timing") if k in r}}))
+        k: r[k] for k in ("ms", "event_ms", "method", "plain_ms",
+                          "replaced_ms", "bytes", "bound_ms", "max_abs_err",
+                          "active_tiles", "union_blocks", "timing",
+                          "ms_without_unvisited", "ms_count_only", "layer",
+                          "roots", "entries", "direction", "valid_slots",
+                          "slots", "shape") if k in r}}))
 
 
 def plan_bytes(graph, words, plan) -> int:
@@ -1165,7 +1267,9 @@ def k8_plain(cap):
 
 def phase_sell_kernels(cap, g, reps: int):
     """K8 (depths 0, 1, 2, 4) on the captured SELL layer, on the union
-    planner's plan of that layer, and K13 on its frontier words, each
+    planner's plan of that layer, and K13 on its frontier words (printed
+    as ``popcount_sell_frontier``; K13's kernels-line row is the sssp
+    portfolio's count-only measure, phase 9), each
     against its plain version on the card; the planner on that layer
     beside the planning it replaced (`plan_slabs_plain` + the fold)."""
     from repro_torch.kernels import bitmap_kernels as bk
@@ -1212,16 +1316,16 @@ def phase_sell_kernels(cap, g, reps: int):
     got, want_n = bk.popcount_cuda(words), bk.popcount_plain(words)
     err = abs(int(got) - int(want_n))
     assert err == 0, f"popcount disagrees: {int(got)} vs {int(want_n)}"
-    res["popcount"] = dict(
+    res["popcount_sell_frontier"] = timed_kernel(dict(
         max_abs_err=err, bytes=4 * words.numel() + 4,
-        ms=cuda_ms(lambda: bk.popcount_cuda(words), reps),
-        plain_ms=cuda_ms(lambda: bk.popcount_plain(words), reps))
+        plain_ms=cuda_ms(lambda: bk.popcount_plain(words), reps)),
+        lambda: bk.popcount_cuda(words), reps)
     for name, r in res.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         log(json.dumps({"kernel": name, **{
-            k: r[k] for k in ("ms", "plain_ms", "bytes", "bound_ms",
-                              "max_abs_err", "union_blocks", "timing")
-            if k in r}}))
+            k: r[k] for k in ("ms", "event_ms", "method", "plain_ms",
+                              "bytes", "bound_ms", "max_abs_err",
+                              "union_blocks", "timing") if k in r}}))
     log(f"K8 layer: {cap['key']} listed (root, group) pairs over "
         f"{n_union} union groups, {n_marked} marked, bottom_up={bu}")
     # the SELL fused_gather planning of the same layer
@@ -1259,10 +1363,13 @@ def phase_sell_layer(g, roots, reps: int, label: str = ""):
     assert isinstance(fmt, formats.SellFormat), type(fmt)
     dirs = direction_spies(ops, "sell_batched")
     with Spy(ops, {"sell_batched": listed}) as spy, \
+            MeasureCapture(ops) as measured, \
             contextlib.ExitStack() as stack:
         for d in dirs.values():
             stack.enter_context(d)
         bfs.plan(fmt, bfs.TraversalSpec()).run_batched(roots)
+    measure_gates(measured.calls, f"_sell{label}")
+    del measured
     res = layer_kernel_both_ways("sell", spy.best["sell_batched"], dirs,
                                  reps, label, g)
     # after K9's profiled launch checks: on the card, a profiler session
@@ -1550,10 +1657,13 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     with plan_layers_spy(ops) as layers, \
             Spy(ops, {"plan_union": None,
                       "gather_expand_batched": listed}) as spy, \
+            MeasureCapture(ops) as measured, \
             contextlib.ExitStack() as stack:
         for d in dirs.values():
             stack.enter_context(d)
         ct.run_batched(roots)
+    measure_gates(measured.calls, label)
+    del measured
     plan_gates(layers.calls, {"csr": None, "sell": sell_graph}, label)
     cap = spy.best["gather_expand_batched"]
     k3 = phase_kernels(cap, g.n_vertices, g.n_vertices_padded, reps,
@@ -1574,8 +1684,8 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     phase_relax_kernels(relax, reps, label=label, fold=False)
     wide_traversal_gates(g, sell, roots, label)
     log(f"wide batch: {WIDE_BATCH} roots (2 mask words) at "
-        f"V={g.n_vertices}: the planner, K3, K4, K5, K6, K8, K9, K10, K11 "
-        f"and K12 equal their plain versions")
+        f"V={g.n_vertices}: the measure kernel, the planner, K3, K4, K5, "
+        f"K6, K8, K9, K10, K11 and K12 equal their plain versions")
 
 
 def sssp_certificate(g, res, roots, src, dst, w) -> None:
@@ -1634,7 +1744,10 @@ def phase_portfolio(g, roots, oracle, reps: int):
     values, parents, layers and stats columns 0-4.  Returns ({kernel:
     results}, {kernel: launches}): K11 and K12 are timed on the largest
     layers of the ksource_bfs runs, so their launches are those runs'
-    (the sssp and cc runs' are printed beside them)."""
+    (the sssp and cc runs' are printed beside them).  Every measure call
+    of each warm-up run is replayed against its plain version
+    (`measure_gates`); K13's row is the count-only arm on the sssp CSR
+    run's (3B, W) counts (`count_only_row`), whose launches it counts."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import errors, formats
@@ -1666,13 +1779,19 @@ def phase_portfolio(g, roots, oracle, reps: int):
             if alg != "cc" else contextlib.nullcontext())
         for lay, fmt in layouts.items():
             ct = bfs.plan(fmt, bfs.TraversalSpec(algorithm=alg, **fields))
-            with capture:                        # warm-up and capture
+            with capture, MeasureCapture(ops) as measured:  # warm-up
                 ct.run_batched(alg_roots)
             torch.cuda.synchronize()
+            # every measure call of the run, at the shapes it took
+            measure_gates(measured.calls, f"_{alg}_{lay}",
+                          both_directions=False)
+            if alg == "sssp" and lay == "csr":
+                popcount_row = count_only_row(measured.calls, reps)
+            del measured
             errors.DEGRADES.clear()
             ops.reset_kernel_launches()
             times = []
-            with CallCount(PLAIN_PLANNING) as plain:
+            with CallCount(PLAIN_PLANNING + PLAIN_COUNTERS) as plain:
                 for _ in range(3):
                     t0 = time.perf_counter()
                     res = ct.run_batched(alg_roots)
@@ -1688,12 +1807,16 @@ def phase_portfolio(g, roots, oracle, reps: int):
             per_run[f"{alg} {lay}"] = counted[k]
             if alg == "ksource_bfs":
                 launches[k] = counted[k]
+            if alg == "sssp" and lay == "csr":
+                launches["popcount"] = counted["popcount"]
             n_layers = int(res.state.layer)
             assert n_layers < ct.resolved.max_layers, \
                 f"{alg} {lay}: hit max_layers"
             assert counted["plan_union"] == counted[k] == n_layers, \
                 f"{alg} {lay}: {counted['plan_union']} planner and " \
                 f"{counted[k]} {k} launches for {n_layers} layers"
+            assert counted["measure"] == n_layers + 1, \
+                f"{alg} {lay}: {counted['measure']} measure launches"
             assert int(ops.popcount(res.state.frontier)) == 0
             vals = res.values[:, :n]
             if alg == "ksource_bfs":
@@ -1722,8 +1845,9 @@ def phase_portfolio(g, roots, oracle, reps: int):
             log(f"portfolio {alg} {lay}: {len(alg_roots)} roots, "
                 f"{n_layers} layers, runs {[round(t, 6) for t in times]} s; "
                 f"launches {k}={counted[k]}, plan_union="
-                f"{counted['plan_union']}, popcount={counted['popcount']}, "
-                f"no plain planning" + (
+                f"{counted['plan_union']}, measure={counted['measure']}, "
+                f"popcount={counted['popcount']}, no plain planning or "
+                f"counters" + (
                     "; equals CSR bitwise (values, parents, layers, stats "
                     "0-4)" if lay == "sell" else ""))
             results[(alg, lay)] = times
@@ -1738,7 +1862,9 @@ def phase_portfolio(g, roots, oracle, reps: int):
     log_row("plan_union_sell", sell_plan, algorithm="ksource_bfs")
     del cap
     torch.cuda.empty_cache()
-    rows = {name: dict(kres["ksource_bfs"][name]) for name in launches}
+    rows = {name: dict(kres["ksource_bfs"][name])
+            for name in kernel_of.values()}
+    rows["popcount"] = popcount_row
     return rows, launches, sell_plan
 
 
@@ -1885,16 +2011,17 @@ def phase_expand_streams(ct, g, roots, reps: int, seed: int):
 def phase_materialized(g, roots, base, oracle, edges: int, reps: int,
                        seed: int):
     """Phase 10: the materialized pipeline at the main path's size, on
-    CSR (K2 + the apportioned stream + K7 + K1) and on the autotuner's
-    SELL layout (K8 over every slab group + K1), all-auto policy: each
-    timed over 3 runs with its peak device memory, held to the main
-    path (`run_path`); K7 against its plain version on the largest
-    captured layer of each direction and on a synthetic stream at that
-    scale (`phase_expand_streams`).  Returns ({kernel: results},
-    {kernel: launches}):
-    K7's and K2's launches (K2 plans this path's layers); K8's stay
-    those of phase 5b's work-listed run, whose layer its time is
-    measured on (its full sweep here is printed)."""
+    CSR (K2's stream arm + the apportionment + K7 + K1) and on the
+    autotuner's SELL layout (K8 over every slab group + K1), all-auto
+    policy: each timed over 3 runs with its peak device memory, held to
+    the main path (`run_path`); K7 against its plain version on the
+    largest captured layer of each direction and on a synthetic stream
+    at that scale (`phase_expand_streams`); K2's stream arm and the
+    apportionment on the same layers and a synthetic hub
+    (`phase_stream`).  Returns ({kernel: results}, {kernel: launches}):
+    K7's, K2's and the apportionment's launches and rows (K2's stream
+    arm and the apportionment timed on the bottom-up layer); K8's stay those of phase 5b's work-listed run, whose layer
+    its time is measured on (its full sweep here is printed)."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch import formats
@@ -1918,15 +2045,330 @@ def phase_materialized(g, roots, base, oracle, edges: int, reps: int,
             f"{peak / 2**30:.3f} GiB")
         if name == "materialized":
             # K2 runs here, no longer on the main path
-            for k in (kernels[0], "frontier_compact_batched"):
+            for k in (kernels[0], "frontier_compact_batched", "apportion"):
                 assert launched[k] > 0, f"{name}: {k} never launched"
                 launches[k] = launched[k]
             kres["frontier_expand_batched"] = phase_expand_streams(
                 ct, g, roots, reps, seed)
+            torch.cuda.empty_cache()
+            kres["frontier_compact_batched"], kres["apportion"] = \
+                phase_stream(ct, g, roots, reps)
         del ct
         bfs.clear_plan_cache()
         torch.cuda.empty_cache()
     return kres, launches
+
+
+class MeasureCapture:
+    """Records every `ops.measure` call of the traversals run inside the
+    block: the words (copied), the degree array, the layer and, copied,
+    the layer log as it stood before the call (the wrapper is wrapped,
+    not changed).  ``calls`` lists them in order."""
+
+    def __init__(self, ops):
+        self.ops, self.calls = ops, []
+
+    def __enter__(self):
+        self._orig = orig = self.ops.measure
+
+        def wrapped(frontier, visited=None, deg=None, *, log=None, layer=0,
+                    discovered=True):
+            self.calls.append(dict(
+                frontier=frontier.clone(),
+                visited=None if visited is None else visited.clone(),
+                deg=deg, log=None if log is None else copy_log(log),
+                layer=layer, discovered=discovered))
+            return orig(frontier, visited, deg, log=log, layer=layer,
+                        discovered=discovered)
+        self.ops.measure = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.measure = self._orig
+        return False
+
+
+def copy_log(log):
+    """A `bitmap_kernels.LayerLog` with its buffers copied."""
+    return log._replace(stats=log.stats.clone(), depths=log.depths.clone(),
+                        ctrl=log.ctrl.clone(), acc=log.acc.clone())
+
+
+def measure_gate(call) -> int:
+    """One captured measure call replayed by the kernel and by its plain
+    version, each on a copy of the call's log (and with its
+    ``discovered``): as captured and, where it was not already, without
+    the unvisited pair and by the count-only arm.  Counters, batch sums,
+    total, stats, depths, ``ctrl`` and the accumulator bitwise; returns
+    the mode the layer took (-1 without a log)."""
+    import torch
+    from repro_torch.kernels import bitmap_kernels as bk
+    variants = [(call["visited"], call["deg"]), (None, call["deg"]),
+                (None, None)]
+    first = 2 if call["deg"] is None else 0 if call["visited"] is not None \
+        else 1
+    mode = -1
+    for visited, deg in variants[first:]:
+        kw = dict(layer=call["layer"], discovered=call["discovered"])
+        logs = [None if call["log"] is None else copy_log(call["log"])
+                for _ in range(2)]
+        got = bk.measure_cuda(call["frontier"], visited, deg, log=logs[0],
+                              **kw)
+        want = bk.measure_plain(call["frontier"], visited, deg, log=logs[1],
+                                **kw)
+        pairs = list(zip(got, want))
+        if logs[0] is not None:
+            pairs += list(zip(logs[0][:4], logs[1][:4]))
+            if mode < 0 and int(logs[1].ctrl[0]):
+                mode = int(logs[1].ctrl[1])
+        for a, b in pairs:
+            assert torch.equal(a, b), \
+                f"measure disagrees with its plain version at layer " \
+                f"{call['layer']} (unvisited={visited is not None}, " \
+                f"degrees={deg is not None})"
+    return mode
+
+
+def measure_gates(calls, label: str, both_directions: bool = True) -> None:
+    """`measure_gate` on every captured call; with ``both_directions``
+    (the BFS host loop) the layers must take both directions."""
+    modes = [measure_gate(c) for c in calls]
+    if both_directions:
+        assert 2 in modes and 1 in modes, \
+            f"measure{label}: one direction only"
+    shapes = sorted({tuple(c["frontier"].shape) for c in calls})
+    arms = {"unvisited pair": sum(c["visited"] is not None for c in calls),
+            "degrees only": sum(c["visited"] is None and c["deg"] is not None
+                                for c in calls),
+            "count-only": sum(c["deg"] is None for c in calls),
+            "discovered=False": sum(not c["discovered"] for c in calls)}
+    log(f"measure{label}: {len(calls)} calls at shapes {shapes} ({arms}; "
+        f"{modes.count(1)} top-down, {modes.count(2)} bottom-up layers, "
+        f"{modes.count(-1) + modes.count(0)} other) equal measure_plain "
+        f"bitwise as captured and by the arms below each (counters, sums, "
+        f"total, mode, stats columns 0-4, depths)")
+
+
+def count_only_row(calls, reps: int) -> dict:
+    """K13's row: the measure kernel's count-only arm timed on the
+    captured count-only call with the most set bits, as the path
+    launches it; bytes: the words read once, the counters written."""
+    from repro_torch.kernels import bitmap_kernels as bk
+    call = max((c for c in calls if c["deg"] is None),
+               key=lambda c: int(bk.popcount_plain(c["frontier"])))
+    f = call["frontier"]
+    res = dict(max_abs_err=0, bytes=4 * f.numel() + 4 * (4 * f.shape[0] + 5),
+               plain_ms=cuda_ms(lambda: bk.measure_plain(f),
+                                max(3, reps // 4)),
+               shape=list(f.shape))
+    timed_kernel(res, lambda: bk.measure_cuda(f), reps)
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    log_row("popcount", res)
+    return res
+
+
+def measure_row(calls, reps: int) -> dict:
+    """The measure kernel timed on the captured layer with the largest
+    frontier, as the main path launches it (with the unvisited pair and
+    its log) and without the pair; bytes: the words and the degree
+    array read once, the counters and the log's row written."""
+    from repro_torch.kernels import bitmap_kernels as bk
+    call = max(calls, key=lambda c: int(bk.popcount_plain(c["frontier"])))
+    f, vis, deg = call["frontier"], call["visited"], call["deg"]
+    scratch = copy_log(call["log"])
+    n_batch, n_words = f.shape
+    run = lambda v: lambda: bk.measure_cuda(f, v, deg, log=scratch,
+                                            layer=call["layer"])
+    res = dict(max_abs_err=0,
+               bytes=4 * f.numel() * (2 if vis is not None else 1)
+               + 4 * deg.numel() + 4 * (4 * n_batch + 9) + 4 * n_batch,
+               ms_without_unvisited=device_ms(run(None), reps),
+               ms_count_only=device_ms(lambda: bk.measure_cuda(f), reps),
+               plain_ms=cuda_ms(lambda: bk.measure_plain(
+                   f, vis, deg, log=copy_log(call["log"]),
+                   layer=call["layer"]), max(3, reps // 4)),
+               layer=call["layer"], roots=n_batch)
+    timed_kernel(res, run(vis), reps)
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    log_row("measure", res)
+    return res
+
+
+def measure_wide_row(deg, n_words: int, seed: int, reps: int) -> dict:
+    """The measure kernel at `WIDE_BATCH` roots at the main path's width
+    on random words (1 bit in 16 of the frontier set, half the vertices
+    visited): against its plain version (`measure_gate`: the three arms
+    bitwise), timed back to back with and without the unvisited pair,
+    beside its bound (the words and the degrees read once, as the
+    kernel reads the degrees for up to 512 roots)."""
+    import torch
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import bitmap_kernels as bk
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def words(p):
+        return bm.pack_bool(torch.rand((WIDE_BATCH, 32 * n_words),
+                                       generator=gen, device="cuda") < p)
+    f, vis = words(1 / 16), words(1 / 2)
+    measure_gate(dict(frontier=f, visited=vis, deg=deg, log=None, layer=0,
+                      discovered=True))
+    res = dict(max_abs_err=0,
+               bytes=8 * f.numel() + 4 * deg.numel()
+               + 4 * (4 * WIDE_BATCH + 5),
+               roots=WIDE_BATCH,
+               ms_without_unvisited=device_ms(
+                   lambda: bk.measure_cuda(f, None, deg), reps),
+               plain_ms=cuda_ms(lambda: bk.measure_plain(f, vis, deg),
+                                max(3, reps // 4)))
+    timed_kernel(res, lambda: bk.measure_cuda(f, vis, deg), reps)
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    log_row(f"measure_b{WIDE_BATCH}_main_width", res)
+    log(f"measure at {WIDE_BATCH} roots, {n_words} words: the three arms "
+        f"equal measure_plain bitwise")
+    return res
+
+
+def stream_bytes(q, words) -> int:
+    """Bytes K2's stream arm must move: the words read once, the degrees
+    of the set bits (a 32-byte sector, 8 vertices' degrees, for every
+    byte of the words with a set bit: the least the card reads them
+    in), the queue written, and cum for each entry, the counts, totals
+    and truncated counts."""
+    import torch
+    n_batch, size = q.queue.shape
+    sectors = int((words.contiguous().view(torch.uint8) != 0).sum())
+    return (4 * words.numel() + 32 * sectors + 4 * n_batch * size
+            + 4 * int(q.count.clamp(max=size).sum()) + 12 * n_batch)
+
+
+def apportion_bytes(q, valid, colstarts_read: int) -> int:
+    """Bytes the apportionment must move: every slot's valid flag, u and
+    v and a rows entry for each valid slot, the queue and cum entries
+    and one colstarts entry for each real entry read once."""
+    n_valid = int(valid.sum())
+    entries = int(q.count.clamp(max=q.queue.shape[1]).sum())
+    return (valid.numel() + 12 * n_valid + 8 * entries
+            + 4 * colstarts_read + 8 * q.count.numel())
+
+
+def stream_gate(words, kw, colstarts, rows, what: str):
+    """K2's stream arm and the apportionment against their plain versions
+    on one layer's words: the queue, counts, totals and truncated counts
+    bitwise, cum on each root's entries, the stream's valid flags
+    bitwise, u and v wherever valid holds.  Returns (CUDA queue, CUDA
+    stream, plain stream)."""
+    import torch
+    from repro_torch.kernels import apportion as ap
+    from repro_torch.kernels import compact as ck
+    args = (kw["size"], kw["fill"], kw["deg"], kw["n_vertices"],
+            kw["n_slots"])
+    got = ck.queue_cuda(words, *args)
+    want = ck.queue_plain(words, *args)
+    for name in ("queue", "count", "total", "truncated"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), \
+            f"frontier_queue ({what}): {name} differs from its plain version"
+    size = want.queue.shape[1]
+    for b in range(want.queue.shape[0]):
+        k = min(int(want.count[b]), size)
+        assert torch.equal(got.cum[b, :k], want.cum[b, :k]), \
+            f"frontier_queue ({what}): cum of root {b} differs"
+    del want
+    stream_k = ap.apportion_cuda(colstarts, rows, got, kw["n_slots"])
+    stream_p = ap.apportion_plain(colstarts, rows, got.queue,
+                                  kw["n_vertices"], kw["n_slots"])
+    valid = stream_p[2]
+    assert torch.equal(stream_k[2], valid) and \
+        torch.equal(stream_k[3], stream_p[3]), \
+        f"apportion ({what}): valid or truncated differ"
+    for i, name in ((0, "u"), (1, "v")):
+        assert torch.equal(stream_k[i][valid], stream_p[i][valid]), \
+            f"apportion ({what}): {name} differs where valid"
+    return got, stream_k, stream_p
+
+
+def phase_stream(ct, g, roots, reps: int) -> dict:
+    """Phase 10b: K2's stream arm and the apportionment on the largest
+    layer of each direction of a materialized CSR run, against their
+    plain versions (`stream_gate`), timed with CUDA events beside their
+    bounds, then on a synthetic layer whose stream is cut inside a hub's
+    list (a hub keeps its list prefix).  Returns the rows of
+    ``frontier_compact_batched`` (the stream arm) and ``apportion`` on the
+    bottom-up layer."""
+    import torch
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import apportion as ap
+    from repro_torch.kernels import bitmap_kernels as bk
+    from repro_torch.kernels import compact as ck
+    from repro_torch.kernels import ops
+    calls = []
+    orig = ops.frontier_queue
+
+    def wrapped(words, **kw):
+        calls.append((words.clone(), kw))
+        return orig(words, **kw)
+    ops.frontier_queue = wrapped
+    try:
+        res = ct.run_batched(roots)
+    finally:
+        ops.frontier_queue = orig
+    modes = res.stats[:len(calls), 3].tolist()
+    assert len(calls) == int(res.state.layer), (len(calls), res.state.layer)
+    colstarts, rows = g.colstarts, g.rows
+    rows_out = {}
+    for mode, name in ((1, "top-down"), (2, "bottom-up")):
+        layer = max((i for i, m in enumerate(modes) if m == mode),
+                    key=lambda i: int(bk.popcount_plain(calls[i][0])))
+        words, kw = calls[layer]
+        q, stream_k, stream_p = stream_gate(words, kw, colstarts, rows, name)
+        entries = int(q.count.clamp(max=q.queue.shape[1]).sum())
+        n_valid = int(stream_p[2].sum())
+        del stream_k, stream_p
+        args = (kw["size"], kw["fill"], kw["deg"], kw["n_vertices"],
+                kw["n_slots"])
+        k2 = dict(max_abs_err=0, bytes=stream_bytes(q, words),
+                  plain_ms=cuda_ms(lambda: ck.queue_plain(words, *args), 3),
+                  layer=layer, entries=entries, direction=name)
+        timed_kernel(k2, lambda: ck.queue_cuda(words, *args), reps)
+        torch.cuda.empty_cache()
+        out = ap.apportion_cuda(colstarts, rows, q, kw["n_slots"])
+        valid = out[2]
+        del out
+        app = dict(max_abs_err=0,
+                   bytes=apportion_bytes(q, valid, entries),
+                   plain_ms=cuda_ms(lambda: ap.apportion_plain(
+                       colstarts, rows, q.queue, kw["n_vertices"],
+                       kw["n_slots"]), 1),
+                   layer=layer, valid_slots=n_valid,
+                   slots=valid.numel(), direction=name)
+        timed_kernel(app, lambda: ap.apportion_cuda(
+            colstarts, rows, q, kw["n_slots"]), max(3, reps // 4))
+        del valid, q
+        torch.cuda.empty_cache()
+        for r in (k2, app):
+            r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        log_row("frontier_queue", k2)
+        log_row("apportion", app)
+        rows_out[name] = (k2, app)
+    # a stream cut inside a hub's list: each root queues the highest-
+    # degree vertex and a few low-degree ones
+    deg = calls[0][1]["deg"]
+    hub = int(torch.argmax(deg))
+    low = torch.nonzero((deg > 0) & (deg < 8)).flatten()[:3].tolist()
+    dense = torch.zeros(deg.shape, dtype=torch.bool, device=deg.device)
+    dense[[hub] + low] = True
+    words = bm.pack_bool(dense).expand(calls[0][0].shape).contiguous()
+    kw = dict(calls[0][1], n_slots=int(deg[low].sum()) + int(deg[hub]) // 2)
+    q, stream_k, _ = stream_gate(words, kw, colstarts, rows, "synthetic hub")
+    assert bool((q.truncated > 0).all()) and \
+        int(stream_k[2].sum(dim=1).min()) == kw["n_slots"], \
+        "the synthetic hub did not overrun the stream"
+    log(f"frontier_queue + apportion (synthetic): a hub of degree "
+        f"{int(deg[hub])} cut at {kw['n_slots']} slots keeps its list "
+        f"prefix; {int(q.truncated[0])} edges truncated per root; equal "
+        f"their plain versions")
+    del calls, q, stream_k
+    torch.cuda.empty_cache()
+    return rows_out["bottom-up"]
 
 
 def profile_run(ct, roots, label: str = "main path", top: int = 15):
@@ -1968,10 +2410,11 @@ SPLIT_KERNELS = {
     "gather_expand (K3)": ("gather_expand_kernel",),
     "restoration (K1)": ("restoration_kernel",),
     "popcount (K13)": ("popcount_kernel",),
+    "measure (K13)": ("measure_kernel",),
 }
 
 
-def planning_split(ct, roots) -> dict:
+def planning_split(ct, roots, required: bool = True) -> dict | None:
     """One traversal of ``ct`` under ``torch.profiler``, its device time
     split into the planning and the Table-1 counters (the device time of
     the torch kernels launched inside the functions of `SPLIT_RANGES`,
@@ -2017,6 +2460,10 @@ def planning_split(ct, roots) -> dict:
     finally:
         for mod, fn_name, fn in wrapped:
             setattr(mod, fn_name, fn)
+    if not kernels and not required:
+        log("profile_split: the profiler recorded no device event; the "
+            "split is not measured in this run")
+        return None
     assert kernels, "the profiler recorded no device event"
     named = lambda name: any(part in name for parts in SPLIT_KERNELS.values()
                              for part in parts)
@@ -2100,14 +2547,17 @@ def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
     errors.DEGRADES.clear()
     ops.reset_kernel_launches()
     times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = ct.run_batched(roots)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if len(times) == 1:
-            launches = dict(ops.KERNEL_LAUNCHES)
+    with CallCount(PLAIN_COUNTERS) as plain:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = ct.run_batched(roots)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if len(times) == 1:
+                launches = dict(ops.KERNEL_LAUNCHES)
     assert not errors.DEGRADES, f"{name}: degraded: {errors.DEGRADES}"
+    assert not any(plain.counts.values()), \
+        f"{name}: plain counters or apportionment ran: {plain.counts}"
     for kernel in kernels:
         assert launches[kernel] > 0, f"{name}: {kernel} was never launched"
     n_layers = int(base.state.layer)
@@ -2131,7 +2581,7 @@ def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
         f"-> {edges / times[0]:.6e} TEPS (first run); launches "
         f"{ {k: launches[k] for k in kernels} }; trees valid, "
         f"visited/depths/stats {cols}/direction log equal the main path; "
-        f"no degrade")
+        f"no degrade; no plain counters or apportionment")
     return ct, launches, times
 
 
@@ -2203,19 +2653,26 @@ def main(argv=None) -> int:
     with plan_layers_spy(ops) as plan_layers, \
             Spy(ops, {"plan_union": None,
                       "gather_expand_batched": listed}) as spy, \
+            MeasureCapture(ops) as measured, \
             contextlib.ExitStack() as stack:
         for d in dirs.values():
             stack.enter_context(d)
         ct.run_batched(roots)
     cap = spy.best["gather_expand_batched"]
     torch.cuda.synchronize()
+    # 3a. the measure kernel on every layer of the main path
+    measure_gates(measured.calls, "")
+    kres = {"measure": measure_row(measured.calls, args.reps)}
+    measure_wide_row(measured.calls[0]["deg"], g.n_vertices_padded // 32,
+                     args.seed, args.reps)
+    del measured
 
     # 3. kernels vs plain versions (the planner on every layer); 3b K4;
     # 3c K5 and 3d K9 (both directions, depths 0 and 2);
     # the planner, K2 and K3 at B = 1
     plan_gates(plan_layers.calls, {"csr": None})
-    kres = phase_kernels(cap, g.n_vertices, g.n_vertices_padded,
-                         args.reps)
+    kres.update(phase_kernels(cap, g.n_vertices, g.n_vertices_padded,
+                              args.reps))
     kres["gather_expand_prefetch"] = phase_prefetch(
         cap, args.reps, kres["gather_expand_batched"])
     kres["layer_fused_batched"] = layer_kernel_both_ways(
@@ -2237,7 +2694,8 @@ def main(argv=None) -> int:
     # 4. main path (the counted run)
     ops.reset_kernel_launches()
     torch.cuda.synchronize()
-    with CallCount(PLAIN_PLANNING) as plain:
+    with CallCount(PLAIN_PLANNING) as plain, \
+            CallCount(PLAIN_COUNTERS) as plain_counters:
         t0 = time.perf_counter()
         res = ct.run_batched(roots)
         torch.cuda.synchronize()
@@ -2250,6 +2708,13 @@ def main(argv=None) -> int:
     log(f"main path planning: {n_layers} plan_union launches for "
         f"{n_layers} layers; no frontier_compact_batched launch, no call "
         f"of {', '.join(sorted(plain.counts))}")
+    assert launches["measure"] == n_layers + 1 \
+        and launches["popcount"] == 0 \
+        and not any(plain_counters.counts.values()), \
+        (launches, plain_counters.counts)
+    log(f"main path counters: {launches['measure']} measure launches for "
+        f"{n_layers} layers (the last finds every frontier empty); no call "
+        f"of {', '.join(sorted(plain_counters.counts))}")
     same_as_parent_planning(ct, roots, res)
     more = []
     for _ in range(2):
@@ -2278,7 +2743,12 @@ def main(argv=None) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if args.profile:
         profile_run(ct, roots)
-        planning_split(ct, roots)
+    split = planning_split(ct, roots, required=args.profile)
+    if split is not None:
+        assert split["counters"] == 0, \
+            f"plain counter kernels ran: {split['counters']} ms"
+        log(f"main path counters: {split['measure (K13)']:.6f} ms of device "
+            f"time in the measure kernel, none in plain-torch counters")
 
     # 5. the fusion paths at the main path's size
     path_launches = {}
@@ -2463,9 +2933,10 @@ def main(argv=None) -> int:
             bound_by="bytes",
             # no kernel has one PyTorch call computing its function; the
             # K11/K12 phase-0 fold is printed on their own lines
-            library_ms=None,
+            library_ms=None, method=k.get("method", EVENTS),
             **{key: k[key] for key in ("union_blocks", "timing",
-                                        "replaced_ms", "sell") if key in k}))
+                                        "replaced_ms", "sell", "event_ms")
+               if key in k}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,10 +22,12 @@ every state array), writing the SAME (max_layers, 8) stats rows, so
   arm).
 
 **The layer loop** is a Python loop with exactly **one host sync per
-layer**, as the BFS engine's: the termination test reads the batch's
-frontier popcount (K13) with one ``item()``; everything else (counters,
-the dense flags, the delta-stepping state, the stats row) stays on the
-device.
+layer**, as the BFS engine's: one measure launch (``ops.measure``, K13
+redesigned) counts the frontier and its degrees per root and writes the
+stats row's counters and the depths, and the termination test reads its
+batch count with one ``item()``; everything else (the dense flags, the
+delta-stepping state and its counts, the rest of the stats row) stays
+on the device.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.algorithms import semiring as sr_mod
 from repro_torch.core import bitmap as bm
 from repro_torch.core import engine
 from repro_torch.core.csr import padding_premarked_visited
+from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import ops
 
 #: frontier fraction above which the CC endgame sweeps the full list
@@ -87,32 +90,40 @@ def traverse_semiring(fmt, roots: torch.Tensor, spec, step=None,
     threshold = torch.full((n_roots,), sr_mod.SSSP_DELTA,
                            dtype=torch.float32, device=dev)
     no_dense = torch.zeros((n_roots,), dtype=torch.bool, device=dev)
-    depths = torch.zeros((n_roots,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((max_layers, engine._N_ST), dtype=torch.int32,
-                        device=dev)
+    log = bk.new_log(n_roots, max_layers, None, dev)
+    deg = deg_mat.reshape(-1)
     layer = 0
     while layer < max_layers:
-        # the layer's one host sync: the termination test (K13)
-        if not ops.popcount(frontier).item():
+        # one measure launch: the counters, stats columns 0, 1 and 4, the
+        # depths and, but for sssp (whose next frontier is not the
+        # improved set), the previous row's discovered column
+        c = ops.measure(frontier, None, deg, log=log, layer=layer,
+                        discovered=not is_sssp)
+        # the layer's one host sync: the termination test
+        if not c.total.item():
             break
-        f_count_b = engine.row_popcounts(frontier)
-        f_edges_b = bm.masked_degree_sum(frontier, deg_mat)
-        dense = (f_count_b * DENSE_FRACTION > n_vertices
+        dense = (c.per_root[:, 0] * DENSE_FRACTION > n_vertices
                  if sr.all_vertices_frontier else no_dense)
         new_vals, p_layer, aux = step(frontier, vals, dense)
 
         improved = sr.improved(vals, new_vals)          # (B, V_pad)
         parent = torch.where(improved, p_layer, parent)
         imp_words = bm.pack_bool(improved)
+        row = log.stats[layer]
         if is_sssp:
             # delta-stepping: expanded vertices leave pending, improved
             # ones (re-)enter; a drained bucket advances its threshold
             # in the same layer, so the next frontier is non-empty
             # whenever work remains
             pending = (pending & ~frontier) | imp_words
-            has_pend = engine.row_popcounts(pending) > 0
             near = bm.pack_bool(new_vals < threshold[:, None])
-            drained = engine.row_popcounts(pending & near) == 0
+            # discovered, pending and pending-and-near counts in one
+            # count-only measure
+            counts = ops.measure(torch.cat(
+                [imp_words, pending, pending & near])).per_root[:, 0]
+            row[engine._ST_DISCOVERED] = counts[:n_roots].sum()
+            has_pend = counts[n_roots:2 * n_roots] > 0
+            drained = counts[2 * n_roots:] == 0
             minpend = torch.where(bm.unpack_bool(pending), new_vals,
                                   torch.inf).amin(dim=1)
             threshold = torch.where(drained & has_pend,
@@ -122,18 +133,15 @@ def traverse_semiring(fmt, roots: torch.Tensor, spec, step=None,
         else:
             new_frontier = imp_words
 
-        row = stats[layer]
-        row[engine._ST_FRONTIER] = f_count_b.sum()
-        row[engine._ST_EDGES] = f_edges_b.sum()
-        row[engine._ST_DISCOVERED] = engine.row_popcounts(imp_words).sum()
         row[engine._ST_MODE] = engine.MODE_SIMD
-        row[engine._ST_ACTIVE] = 1
         row[engine._ST_TILES] = aux.tiles
         row[engine._ST_TRUNC] = aux.truncated
         row[engine._ST_LAUNCH] = aux.launches
-        depths += (f_count_b > 0).to(torch.int32)
         frontier, vals = new_frontier, new_vals
         layer += 1
+    if layer == max_layers > 0 and not is_sssp:
+        # the last layer's discovered column: the count of its output
+        ops.measure(frontier, log=log, layer=layer)
 
     # the reached set in the engine's visited convention (padding
     # premarked), so `parents_graph500` and the validators apply
@@ -143,4 +151,4 @@ def traverse_semiring(fmt, roots: torch.Tensor, spec, step=None,
     state = engine.BfsState(
         frontier, visited, parent,
         torch.tensor(layer, dtype=torch.int32, device=dev))
-    return engine.EngineResult(state, depths, stats, vals)
+    return engine.EngineResult(state, log.depths, log.stats, vals)

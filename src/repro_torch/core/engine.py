@@ -7,27 +7,40 @@ reference's four pipelines: ``fused_gather`` (any ``prefetch_depth``),
 
     measure workload  ->  decide direction  ->  expand  ->  restore
 
-* **measure** (`Workload`): the Table 1 counters, computed on the
-  device from word popcounts and the word-aligned degree matrix —
-  int32 per root, then the float32 of their exact int64 batch sum (the
-  reference sums float32 per-root values; the two agree wherever the
-  sum is exact, and this one does not depend on a reduction order, so
-  the whole-traversal kernel decides from the same numbers).
+* **measure** (`ops.measure`, K13 redesigned: `csrc/measure.cu`): the
+  Table 1 counters in one launch per layer — per root the frontier's
+  popcount and degree sum over the format's degree matrix and, for a
+  policy that needs it, the unvisited set's; int32 per root, then the
+  float32 of their exact int64 batch sums (the reference sums float32
+  per-root values; the two agree wherever the sum is exact, and this
+  one does not depend on a reduction order, so the whole-traversal
+  kernel decides from the same numbers).  The same launch writes the
+  layer's stats columns 0, 1 and 4, the previous row's "discovered"
+  column, the depths and the termination test.  It replaced a dozen
+  plain-torch launches per layer (word popcounts, a (B, W, 32) masked
+  degree product), about 12 of the 19 ms of device time of a SCALE-22
+  ``fused_gather`` traversal; it is bounded by reading the words and
+  the degree matrix once.
 * **decide** (`TopDown`, `ThresholdSimd`, `PaperLiteralLayers`,
   `BeamerHybrid`): small frozen objects deciding from those counters
-  with torch ops on the device.
+  with torch ops.  The four registered ones decide inside the measure
+  launch, from their `policy_code` (the numbers the whole-traversal
+  kernels use); any other policy decides in torch from the measure's
+  `Workload`.
 * **expand**: the format's step (``fmt.make_steps``).  On CSR a SIMD
   or bottom-up layer is, for ``fused_gather``,
   `_make_fused_step`: the union planner (`kernels.plan`) lists the
   rows-blocks the frontier's (or the unvisited set's) adjacency touches,
   for every root at once, K3 (K4 at ``prefetch_depth > 0``) gathers and
   expands those blocks with the racy scatter, and K1 restores.  For
-  ``materialized`` it is `_make_simd_step` / `_make_bottomup_step`: K2 compacts the frontier (the unvisited set),
-  the plain `apportion` writes the full (u, v, valid) stream of e_pad
-  slots per root, K7 expands it and K1 restores.  For ``megakernel``
+  ``materialized`` it is `_make_simd_step` / `_make_bottomup_step`: K2
+  compacts the frontier (the unvisited set) with each entry's degree
+  prefix, `ops.apportion` writes the full (u, v, valid) stream of e_pad
+  slots per root from it (`csrc/apportion.cu`), K7 expands it and K1
+  restores.  For ``megakernel``
   it is `_make_megakernel_step`: K5 does all of that in one launch.
-  A scalar layer (`_make_scalar_step`) is K2 plus the plain
-  apportionment and `expand_candidates`, in every pipeline.  SELL's
+  A scalar layer (`_make_scalar_step`) is K2 plus the apportionment
+  and `expand_candidates`, in every pipeline.  SELL's
   steps are in `formats.sell`: the union planner, K8 over its union of
   slab groups and K1 (K8 over every slab group for ``materialized``),
   or K9.  The semiring portfolio has its own driver,
@@ -38,10 +51,10 @@ reference's four pipelines: ``fused_gather`` (any ``prefetch_depth``),
 **The layer loop.**  The reference runs the whole search as one
 ``lax.while_loop`` with no host synchronization.  Here the loop is a
 Python loop with exactly **one host sync per layer**: a single
-``tolist()`` reads the loop condition (is any frontier non-empty: the
-popcount kernel K13 over the batch's frontier words) and the policy's
-mode together, and the host then launches the chosen step.  Everything
-else — counters, stats row, depths — stays on the device.
+``tolist()`` reads the measure's device buffer (is any frontier
+non-empty, and the registered policy's mode), and the host then
+launches the chosen step.  Everything else — counters, stats row,
+depths — stays on the device.
 ``pipeline="persistent"`` has no host loop: the format's
 whole-traversal kernel (K6 on CSR, K10 on SELL) runs the traversal in
 one launch (`_traverse_persistent`).
@@ -60,7 +73,9 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core.csr import padding_premarked_visited
 from repro_torch.errors import record_degrade
+from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import ops
+from repro_torch.kernels.apportion import apportion_plain as apportion
 from repro_torch.kernels import traversal_fused as tf
 from repro_torch.kernels.layer_fused import (FusedCsr, compact_worklist,
                                              fused_csr)
@@ -210,69 +225,11 @@ class BeamerHybrid:
 _DROP_SLOTS = 4096    # dropped marks spread over this many slots
 
 
-def apportion(colstarts, rows, frontier_list, n_vertices: int,
-              n_slots: int):
-    """Map ``n_slots`` edge slots onto the frontier's adjacency lists.
-
-    ``frontier_list`` is (B, L), sentinel-padded (id >= n_vertices is
-    empty).  Returns (u, v, valid, truncated), the streams (B, n_slots)
-    and ``truncated`` (B,) the edges that did not fit: a hub whose
-    adjacency overruns the slots keeps its list prefix.  Owners come
-    from a marker scatter at each adjacency's end offset plus a prefix
-    sum, as in the reference.  Every (B, n_slots) temporary is int32
-    (offsets stay below the edge count, < 2**31) and each is freed as
-    soon as it is used: at SCALE 22 one is 4.3 GB for 8 roots."""
-    n_batch, n_list = frontier_list.shape
-    dev = rows.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    is_real = frontier_list < n_vertices
-    safe = torch.where(is_real, frontier_list, 0).to(torch.int64)
-    deg = torch.where(is_real, colstarts[safe + 1] - colstarts[safe], 0)
-    cum = torch.cumsum(deg, dim=1, dtype=torch.int32)
-    total = cum[:, -1] if n_list else cum.new_zeros((n_batch,))
-    truncated = (total - n_slots).clamp(min=0).to(torch.int32)
-    # sentinel entries end at ``total``, past every valid slot: their
-    # markers go to dropped slots, spread as in `_mark_blocks`
-    drop = n_slots + 1 + torch.arange(n_list, device=dev) % _DROP_SLOTS
-    markers = torch.zeros((n_batch, n_slots + 1 + _DROP_SLOTS), **i32)
-    markers.scatter_add_(
-        1, torch.where(is_real, cum.clamp(max=n_slots).to(torch.int64),
-                       drop),
-        torch.ones((n_batch, n_list), **i32))
-    owner = torch.cumsum(markers[:, :n_slots], dim=1, dtype=torch.int32)
-    del markers
-    owner.clamp_(0, n_list - 1)
-    # per-root rows of the (B, L) lists, flattened for int32 lookups
-    base = (torch.arange(n_batch, **i32) * n_list)[:, None]
-    idx = (owner - 1).clamp_(min=0).add_(base)
-    prev = cum.reshape(-1).index_select(0, idx.reshape(-1)) \
-        .view(n_batch, n_slots)
-    prev.masked_fill_(owner == 0, 0)
-    idx = owner.add_(base)
-    del owner
-    u = frontier_list.to(torch.int32).reshape(-1) \
-        .index_select(0, idx.reshape(-1)).view(n_batch, n_slots)
-    del idx
-    slots = torch.arange(n_slots, **i32)
-    valid = slots < total[:, None]
-    e_idx = colstarts.index_select(
-        0, torch.where(valid, u, 0).reshape(-1)).view(n_batch, n_slots)
-    e_idx.add_(slots).sub_(prev).clamp_(0, rows.shape[0] - 1)
-    del prev
-    v = rows.index_select(0, e_idx.reshape(-1)).view(n_batch, n_slots)
-    return u, v, valid, truncated
-
-
 def restore_plain(parent, out, visited, n_vertices: int):
     """Plain restoration (§3.3.2): repair racy bitmap drops from the
     negative P marks.  Returns (parent, out, visited), all fixed."""
     fixed, repaired = restoration_plain(parent, n_vertices)
     return fixed, out | repaired, visited | repaired
-
-
-def row_popcounts(words: torch.Tensor) -> torch.Tensor:
-    """Set-bit count over the trailing word axis: (B, W) -> (B,) int32."""
-    return bm.popcount32(words).sum(dim=-1).to(torch.int32)
 
 
 def expand_candidates(u, v, valid, frontier, visited, parent,
@@ -371,25 +328,31 @@ def _pad_rows_to_tile(rows, n_vertices: int, tile: int):
     return rows.contiguous()
 
 
-def _batched_edge_stream(colstarts, rows, frontier, list_size: int,
-                         n_vertices: int, n_slots: int):
-    """(B, W) frontier bitmaps -> batched apportioned streams: one K2
-    launch compacts the batch, the apportionment is plain torch."""
-    fl, _ = ops.frontier_compact_batched(frontier, size=list_size,
-                                         fill=n_vertices)
-    return apportion(colstarts, rows, fl, n_vertices, n_slots)
+def _batched_edge_stream(colstarts, rows, deg, words, n_vertices: int,
+                         n_slots: int):
+    """(B, W) bitmaps -> the batched apportioned streams (u, v, valid,
+    truncated): one K2 launch compacts the batch with each entry's
+    degree prefix (``deg``: the padded degree array), `ops.apportion`
+    writes the stream from it."""
+    q = ops.frontier_queue(words, size=words.shape[1] * bm.BITS_PER_WORD,
+                           fill=n_vertices, deg=deg, n_vertices=n_vertices,
+                           n_slots=n_slots)
+    return ops.apportion(colstarts, rows, q, n_vertices=n_vertices,
+                         n_slots=n_slots)
 
 
-def _make_scalar_step(colstarts, rows, n_vertices: int, v_pad: int,
-                      e_pad: int, algorithm: str, tile: int):
-    """Plain Algorithm 2/3 layer over the root batch.  Its StepAux
-    reports the full stream's tile count, as the reference does."""
+def _make_scalar_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
+                      algorithm: str, tile: int):
+    """Plain Algorithm 2/3 layer over the root batch: the apportioned
+    stream (`_batched_edge_stream`; ``deg`` is the format's padded degree
+    array), then `expand_candidates`.  Its StepAux reports the full
+    stream's tile count, as the reference does."""
     tiles_per_root = -(-e_pad // tile)
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
             u, v, valid, trunc = _batched_edge_stream(
-                colstarts, rows, frontier, v_pad, n_vertices, e_pad)
+                colstarts, rows, deg, frontier, n_vertices, e_pad)
             out, visited, parent = expand_candidates(
                 u, v, valid, frontier, visited, parent, n_vertices,
                 algorithm)
@@ -412,18 +375,19 @@ def kernel_expand_restore(nbr, cand, valid, frontier, visited, parent,
     return out_racy | delta, visited | delta, p_fixed
 
 
-def _make_simd_step(colstarts, rows, n_vertices: int, v_pad: int,
-                    e_pad: int, tile: int):
-    """§4 SIMD layer, materialized pipeline: K2 compacts the frontier,
-    the plain apportionment writes the full (u, v, valid) stream of
-    e_pad slots per root, K7 expands it and K1 restores.  Its StepAux
-    reports the full stream's tiles, as the reference does."""
+def _make_simd_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
+                    tile: int):
+    """§4 SIMD layer, materialized pipeline: K2 compacts the frontier
+    with its degree prefix, the apportionment writes the full (u, v,
+    valid) stream of e_pad slots per root, K7 expands it and K1
+    restores.  Its StepAux reports the full stream's tiles, as the
+    reference does."""
     tiles_per_root = -(-e_pad // tile)
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
             u, v, valid, trunc = _batched_edge_stream(
-                colstarts, rows, frontier, v_pad, n_vertices, e_pad)
+                colstarts, rows, deg, frontier, n_vertices, e_pad)
             out, visited, parent = kernel_expand_restore(
                 u, v, valid, frontier, visited, parent, n_vertices)
         aux = StepAux(frontier.shape[0] * tiles_per_root, trunc.sum(),
@@ -433,21 +397,19 @@ def _make_simd_step(colstarts, rows, n_vertices: int, v_pad: int,
     return step
 
 
-def _make_bottomup_step(colstarts, rows, n_vertices: int, v_pad: int,
+def _make_bottomup_step(colstarts, rows, n_vertices: int, deg,
                         e_pad: int, tile: int):
     """Bottom-up layer, materialized pipeline: K2 compacts the unvisited
-    set (``~visited``, exact because padding is premarked), the plain
-    apportionment streams its adjacency, and K7 tests each neighbour
-    against the frontier (``check_frontier``) before K1 restores."""
+    set (``~visited``, exact because padding is premarked) with its
+    degree prefix, the apportionment streams its adjacency, and K7 tests
+    each neighbour against the frontier (``check_frontier``) before K1
+    restores."""
     tiles_per_root = -(-e_pad // tile)
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
-            cands, _ = ops.frontier_compact_batched(~visited, size=v_pad,
-                                                    fill=n_vertices)
-            cand, nbr, valid, trunc = apportion(colstarts, rows, cands,
-                                                n_vertices, e_pad)
-            del cands
+            cand, nbr, valid, trunc = _batched_edge_stream(
+                colstarts, rows, deg, ~visited, n_vertices, e_pad)
             out, visited, parent = kernel_expand_restore(
                 nbr, cand, valid, frontier, visited, parent, n_vertices,
                 check_frontier=True)
@@ -511,10 +473,11 @@ def check_prefetch(tile: int, prefetch_depth: int, n_blocks: int) -> None:
             f"{ops.SMEM_OPTIN_BYTES}: use a smaller depth or tile")
 
 
-def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
+def _make_steps(colstarts, rows, deg, n_vertices, v_pad, e_pad, algorithm,
                 tile, pipeline: str = "fused_gather",
                 prefetch_depth: int = 0):
-    """Per-mode steps of a pipeline.  ``materialized`` is K2 + the
+    """Per-mode steps of a pipeline (``deg``: the format's padded degree
+    array, ``degree_matrix().reshape(-1)``, which K2's stream arm reads).  ``materialized`` is K2 + the
     apportioned stream + K7 + K1 (`_make_simd_step`,
     `_make_bottomup_step`).  ``megakernel`` (and the per-layer
     steps of ``persistent``, which runs them only where its kernel
@@ -539,9 +502,9 @@ def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
                      "layer instead of 1)")
         fused = False
     if pipeline == "materialized":
-        simd = _make_simd_step(colstarts, rows, n_vertices, v_pad, e_pad,
+        simd = _make_simd_step(colstarts, rows, n_vertices, deg, e_pad,
                                tile)
-        bottomup = _make_bottomup_step(colstarts, rows, n_vertices, v_pad,
+        bottomup = _make_bottomup_step(colstarts, rows, n_vertices, deg,
                                        e_pad, tile)
     else:
         graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
@@ -549,18 +512,18 @@ def _make_steps(colstarts, rows, n_vertices, v_pad, e_pad, algorithm,
         simd, bottomup = (make(graph, bu, prefetch_depth)
                           for bu in (False, True))
     return {
-        MODE_SCALAR: _make_scalar_step(colstarts, rows, n_vertices,
-                                       v_pad, e_pad, algorithm, tile),
+        MODE_SCALAR: _make_scalar_step(colstarts, rows, n_vertices, deg,
+                                       e_pad, algorithm, tile),
         MODE_SIMD: simd,
         MODE_BOTTOMUP: bottomup,
     }
 
 
-def encode_policy(policy, n_vertices: int, n_roots: int,
-                  max_layers: int) -> tf.PolicyCode:
-    """The whole-traversal kernel's numbers for a registered policy:
-    the constants its comparisons use, rounded to float32 as the
-    policy's own float32 comparisons round them."""
+def policy_code(policy, n_vertices: int, n_roots: int,
+                max_layers: int) -> tf.PolicyCode | None:
+    """A registered policy as the kernels' numbers (the constants its
+    comparisons use, rounded to float32 as the policy's own float32
+    comparisons round them); None for any other policy."""
     f32 = lambda x: float(np.float32(x))
     if isinstance(policy, TopDown):
         return tf.PolicyCode(tf.TOPDOWN)
@@ -574,11 +537,21 @@ def encode_policy(policy, n_vertices: int, n_roots: int,
         return tf.PolicyCode(
             tf.BEAMER, alpha=f32(policy.alpha),
             v_over_beta=f32(n_vertices * n_roots / policy.beta))
-    raise NotImplementedError(
-        f"pipeline='persistent' runs the registered policies (TopDown, "
-        f"ThresholdSimd, PaperLiteralLayers, BeamerHybrid); "
-        f"{type(policy).__name__} has no in-kernel encoding — use "
-        f"pipeline='megakernel'")
+    return None
+
+
+def encode_policy(policy, n_vertices: int, n_roots: int,
+                  max_layers: int) -> tf.PolicyCode:
+    """The whole-traversal kernel's numbers for a registered policy
+    (`policy_code`); any other policy raises."""
+    code = policy_code(policy, n_vertices, n_roots, max_layers)
+    if code is None:
+        raise NotImplementedError(
+            f"pipeline='persistent' runs the registered policies (TopDown, "
+            f"ThresholdSimd, PaperLiteralLayers, BeamerHybrid); "
+            f"{type(policy).__name__} has no in-kernel encoding — use "
+            f"pipeline='megakernel'")
+    return code
 
 
 # ---------------------------------------------------------------------------
@@ -675,57 +648,42 @@ def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
     n_roots = int(roots.shape[0])
 
     frontier, visited, parent = _init_batched(roots, n_vertices, v_pad)
+    code = policy_code(policy, n_vertices, n_roots, max_layers)
+    log = bk.new_log(n_roots, max_layers, code, dev)
+    deg = deg_mat.reshape(-1)
     bottom_up = torch.zeros((), dtype=torch.bool, device=dev)
-    depths = torch.zeros((n_roots,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((max_layers, _N_ST), dtype=torch.int32,
-                        device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     layer = 0
     while layer < max_layers:
-        f_count_b = row_popcounts(frontier)
-        f_edges_b = bm.masked_degree_sum(frontier, deg_mat)
-        if policy.needs_unvisited:
-            # padding is premarked visited, so the word complement IS
-            # the real undiscovered set
-            u_words = ~visited
-            u_count = _f32_sum(row_popcounts(u_words))
-            u_edges = _f32_sum(bm.masked_degree_sum(u_words, deg_mat))
+        # measure (and, for a registered policy, decide) in one launch
+        c = ops.measure(frontier, visited if policy.needs_unvisited
+                        else None, deg, log=log, layer=layer)
+        if code is not None:
+            # the layer's one host sync: loop condition + mode together
+            active, mode = log.ctrl[:2].tolist()
         else:
-            u_count = u_edges = zero
-        w = Workload(layer, _f32_sum(f_count_b), _f32_sum(f_edges_b),
-                     u_count, u_edges, n_vertices, bottom_up,
-                     n_roots=n_roots)
-        mode_t, next_bottom_up = policy.decide(w)
-        f_count = ops.popcount(frontier)       # K13: the termination test
-        # the layer's one host sync: loop condition + mode together
-        active, mode = torch.stack(
-            [(f_count > 0).to(torch.int32), mode_t]).tolist()
+            w = Workload(layer, *c.sums, n_vertices, bottom_up,
+                         n_roots=n_roots)
+            mode_t, next_bottom_up = policy.decide(w)
+            active, mode = torch.stack([log.ctrl[0], mode_t]).tolist()
         if not active:
             break
-        bottom_up = next_bottom_up
-        new_f, visited, parent, aux = steps[mode](frontier, visited,
-                                                  parent)
-        row = stats[layer]
-        row[_ST_FRONTIER] = f_count
-        row[_ST_EDGES] = f_edges_b.sum()
-        row[_ST_DISCOVERED] = row_popcounts(new_f).sum()
-        row[_ST_MODE] = mode
-        row[_ST_ACTIVE] = 1
+        if code is None:
+            bottom_up = next_bottom_up
+            log.stats[layer, _ST_MODE] = mode
+        frontier, visited, parent, aux = steps[mode](frontier, visited,
+                                                     parent)
+        row = log.stats[layer]
         row[_ST_TILES] = aux.tiles
         row[_ST_TRUNC] = aux.truncated
         row[_ST_LAUNCH] = aux.launches
-        depths += (f_count_b > 0).to(torch.int32)
-        frontier = new_f
         layer += 1
+    if layer == max_layers > 0:
+        # the last layer's discovered column: the count of its output
+        ops.measure(frontier, log=log, layer=layer)
     return EngineResult(
         BfsState(frontier, visited, parent,
                  torch.tensor(layer, dtype=torch.int32, device=dev)),
-        depths, stats)
-
-
-def _f32_sum(per_root: torch.Tensor) -> torch.Tensor:
-    """float32 of the exact batch sum of int32 per-root counters."""
-    return per_root.to(torch.int64).sum().to(torch.float32)
+        log.depths, log.stats)
 
 
 def layer_stats(result: EngineResult) -> list[LayerStats]:

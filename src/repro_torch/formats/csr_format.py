@@ -97,6 +97,7 @@ class CsrFormat(GraphFormat):
     def _build_steps(self, spec) -> dict:
         from repro_torch.core import engine
         return engine._make_steps(self.colstarts, self.rows,
+                                  self.degree_matrix().reshape(-1),
                                   self._n_vertices, self.n_vertices_padded,
                                   self.n_edges_padded, spec.algorithm,
                                   spec.tile, pipeline=spec.pipeline,

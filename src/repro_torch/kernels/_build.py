@@ -28,11 +28,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
            "layer_fused.cu", "traversal_fused.cu", "sell_expand.cu",
-           "sell_layer_fused.cu", "sell_traversal_fused.cu", "popcount.cu",
+           "sell_layer_fused.cu", "sell_traversal_fused.cu", "measure.cu",
            "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu",
-           "plan_union.cu")
+           "plan_union.cu", "apportion.cu")
 HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
-           "traversal_loop.cuh", "relax_common.cuh", "union_phases.cuh")
+           "traversal_loop.cuh", "relax_common.cuh", "union_phases.cuh",
+           "counters.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -42,8 +43,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C signatures: name -> argument types (every function returns int)
 SIGNATURES = {
     "repro_restoration": (_P, _P, _P, _LL, _I, _P),
-    "repro_tile_popcounts": (_P, _P, _I, _I, _I, _P),
-    "repro_rank_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_compact": (_P,) * 8 + (_I,) * 6 + (_P,),
     "repro_gather_expand": (_P,) * 9 + (_I,) * 10 + (_P,),
     "repro_layer_fused_grid": (_I,) * 4 + (_P,),
     "repro_layer_fused": (_P,) * 17 + (_I,) * 11 + (_P,),
@@ -56,7 +56,9 @@ SIGNATURES = {
     "repro_sell_traversal_fused_grid": (_I, _I, _I, _P),
     "repro_sell_traversal_fused": (_P,) * 22 + (_I,) * 9 + (_F,) * 3
     + (_I, _P),
-    "repro_popcount": (_P, _P, _LL, _I, _P),
+    "repro_measure": (_P,) * 11 + (_LL,) + (_I,) * 5 + (_F,) * 3
+    + (_I, _P),
+    "repro_apportion": (_P,) * 9 + (_I,) * 4 + (_P,),
     "repro_gather_relax": (_P,) * 9 + (_I,) * 11 + (_P,),
     "repro_sell_relax": (_P,) * 9 + (_I,) * 9 + (_P,),
     "repro_frontier_expand": (_P,) * 7 + (_I, _LL) + (_I,) * 5 + (_P,),

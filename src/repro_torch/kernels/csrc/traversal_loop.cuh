@@ -9,7 +9,9 @@
 //            BeamerHybrid, the unvisited set's, exact int64 from the
 //            padded degree array `deg`; the batch sums are float32 of
 //            the exact int64 sums, the same numbers the engine's
-//            policies compare);
+//            policies compare; `count4`, `flush_counters` and `decide`
+//            are counters.cuh's, shared with the host loops' measure
+//            kernel, measure.cu);
 //   1. plan  root masks of the CTA's chunk of items from the planning
 //            words (the frontier, or visited bottom-up) and per-CTA
 //            counts (`Layer::masks`, `union_counts`, union_phases.cuh);
@@ -49,24 +51,13 @@
 #include <cuda_runtime.h>
 
 #include "union_phases.cuh"
+#include "counters.cuh"
 
 namespace bfs {
 
-constexpr int kModeScalar = 0, kModeSimd = 1, kModeBottomUp = 2;
-constexpr int kTopDown = 0, kThresholdSimd = 1, kPaperLayers = 2,
-              kBeamer = 3;
-constexpr int kStatCols = 8;
 // K6's and K10's minimum of resident CTAs per SM (`__launch_bounds__`;
 // tools/sweep_launch_bounds.py rebuilds them at other values)
 constexpr int kTraversalCtas = 5;
-
-struct Policy {
-  int kind;
-  float alpha;           // BeamerHybrid: unexplored-edges divisor
-  float v_over_beta;     // BeamerHybrid: V * B / beta, as float32
-  float threshold;       // ThresholdSimd: simd_threshold, as float32
-  const int* simd_layer; // PaperLiteralLayers: (max_layers,) 0/1
-};
 
 struct Traversal {
   const unsigned* f0;
@@ -81,52 +72,6 @@ struct Traversal {
   int* stats;                // (max_layers, 8)
   int n_batch, max_layers, depth;
 };
-
-// The policies of core/engine.py on float32 batch sums.
-__device__ inline int decide(const Policy& pol, int layer, float f_count,
-                             float f_edges, float u_count, float u_edges,
-                             bool* bottom_up) {
-  switch (pol.kind) {
-    case kThresholdSimd:
-      *bottom_up = false;
-      return f_edges >= pol.threshold ? kModeSimd : kModeScalar;
-    case kPaperLayers:
-      *bottom_up = false;
-      return __ldg(pol.simd_layer + layer) ? kModeSimd : kModeScalar;
-    case kBeamer: {
-      const bool bu = *bottom_up;
-      const bool down = !bu && (f_edges > __fdiv_rn(u_edges, pol.alpha));
-      const bool up = bu && (f_count < pol.v_over_beta);
-      *bottom_up = down || (!up && bu);
-      return (*bottom_up && u_count > 0.f) ? kModeBottomUp : kModeSimd;
-    }
-    case kTopDown:
-    default:
-      *bottom_up = false;
-      return kModeScalar;
-  }
-}
-
-// The warp's (count, degree sum) of the vertices whose bits each lane
-// holds in `bits` (bit k: the vertex whose degree is component k of d).
-// Every lane of the warp must call it; every lane gets the sums.
-__device__ __forceinline__ void count4(unsigned bits, const int4& d,
-                                       int* n, int* e) {
-  *n = __reduce_add_sync(0xffffffffu, __popc(bits));
-  *e = __reduce_add_sync(0xffffffffu, ((bits & 1u) ? d.x : 0) +
-                                          ((bits & 2u) ? d.y : 0) +
-                                          ((bits & 4u) ? d.z : 0) +
-                                          ((bits & 8u) ? d.w : 0));
-}
-
-// One root's counters, reduced over the CTA, added to acc (4 values).
-__device__ __forceinline__ void flush_counters(long long (&c)[4],
-                                               unsigned long long* acc) {
-  block_sum(c);
-  if (threadIdx.x == 0)
-    for (int k = 0; k < 4; ++k)
-      if (c[k]) atomicAdd(acc + k, static_cast<unsigned long long>(c[k]));
-}
 
 // The start-up pass (kStart) or a layer's update pass over every root's
 // state, counting the next layer's counters into acc ((B, 4)).  A warp

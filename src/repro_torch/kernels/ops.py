@@ -1,4 +1,5 @@
-"""Public wrappers around the kernels (K1-K13).
+"""Public wrappers around the kernels (K1-K13, the union planner and
+the apportionment).
 
 Each wrapper picks its arm from the device of the tensors it is given:
 a CPU tensor runs the kernel's plain torch version, a CUDA tensor
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import apportion as ap
 from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import compact as ck
 from repro_torch.kernels import frontier_expand as fe
@@ -52,9 +54,9 @@ KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
                    "sell_expand_batched": 0, "sell_expand_prefetch": 0,
                    "sell_layer_fused_batched": 0,
                    "sell_traversal_fused_batched": 0, "popcount": 0,
-                   "frontier_expand_batched": 0,
+                   "measure": 0, "frontier_expand_batched": 0,
                    "gather_relax_batched": 0, "sell_relax_batched": 0,
-                   "plan_union": 0}
+                   "plan_union": 0, "apportion": 0}
 
 #: dynamic shared memory one CTA can opt into on the H100
 SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
@@ -114,6 +116,34 @@ def frontier_compact_batched(words: torch.Tensor, *, size: int,
         KERNEL_LAUNCHES["frontier_compact_batched"] += 1
         return ck.compact_cuda(words, size, fill)
     return ck.compact_plain(words, size, fill)
+
+
+def frontier_queue(words: torch.Tensor, *, size: int, fill: int,
+                   deg: torch.Tensor, n_vertices: int,
+                   n_slots: int) -> ck.EdgeQueue:
+    """K2's stream arm: the (B, size) queue of (B, W) bitmaps with each
+    entry's inclusive degree prefix (``deg``: the (32 W,) padded degree
+    array) and each root's total and truncated edges (`compact.EdgeQueue`),
+    the input of `apportion`.  One K2 launch, charged as K2."""
+    _charge_launch()
+    if _arm(words, "frontier_queue"):
+        KERNEL_LAUNCHES["frontier_compact_batched"] += 1
+        return ck.queue_cuda(words, size, fill, deg, n_vertices, n_slots)
+    return ck.queue_plain(words, size, fill, deg, n_vertices, n_slots)
+
+
+def apportion(colstarts, rows, queue: ck.EdgeQueue, *, n_vertices: int,
+              n_slots: int):
+    """The (u, v, valid) edge stream of ``n_slots`` slots per root over
+    the adjacency of K2's stream-arm queue, and the (B,) truncated
+    edges (`kernels.apportion`).  Charged no launch: the reference
+    writes it in jnp; `KERNEL_LAUNCHES` counts the CUDA arm.  The CUDA
+    arm writes u and v only where valid holds."""
+    if _arm(rows, "apportion"):
+        KERNEL_LAUNCHES["apportion"] += 1
+        return ap.apportion_cuda(colstarts, rows, queue, n_slots)
+    return ap.apportion_plain(colstarts, rows, queue.queue, n_vertices,
+                              n_slots)
 
 
 def frontier_compact(words: torch.Tensor, *, size: int, fill: int):
@@ -362,10 +392,31 @@ def sell_traversal_fused_batched(graph: se.SellGraph, frontier, visited,
                                          code=code, max_layers=max_layers)
 
 
+def measure(frontier: torch.Tensor, visited: torch.Tensor | None = None,
+            deg: torch.Tensor | None = None, *, log: bk.LayerLog | None = None,
+            layer: int = 0, discovered: bool = True) -> bk.Counters:
+    """K13 redesigned, the host loops' measure: the Table 1 counters of
+    (B, W) frontier words (with ``visited``, the unvisited set's too)
+    over the (32 W,) padded degree array ``deg`` (None: the count-only
+    arm), as `bitmap_kernels.Counters`; with ``log``, the layer's stats
+    row, depths and, for a registered policy, its decision written on
+    the device (``discovered``: this layer's count goes into the
+    previous row's discovered column).  Outside every step, so no
+    layer's launches column counts it.  `KERNEL_LAUNCHES` counts the
+    degree arm as ``measure`` and the count-only arm as ``popcount``
+    (K13's function)."""
+    _charge_launch()
+    if _arm(frontier, "measure"):
+        KERNEL_LAUNCHES["popcount" if deg is None else "measure"] += 1
+        return bk.measure_cuda(frontier, visited, deg, log=log, layer=layer,
+                               discovered=discovered)
+    return bk.measure_plain(frontier, visited, deg, log=log, layer=layer,
+                            discovered=discovered)
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
-    """K13: total set bits of an int32 word tensor -> () int32.  The
-    engine's host loop reads its termination test from it, outside any
-    step, so no layer's launches column counts it."""
+    """K13: total set bits of an int32 word tensor -> () int32 (on the
+    card the measure kernel's count-only arm)."""
     _charge_launch()
     if _arm(words, "popcount"):
         KERNEL_LAUNCHES["popcount"] += 1

@@ -14,6 +14,7 @@ from repro.core.csr import padding_premarked_visited as ref_premarked
 from _torch_parity import (BUILDERS, POLICY_IDS, check_slice, rmat_graph,
                            run_port, run_reference, to_port, words_np)
 from repro_torch import interop
+from repro_torch.core import bitmap as t_bm
 from repro_torch.core import csr as t_csr
 from repro_torch.core import engine as t_engine
 
@@ -105,7 +106,9 @@ def test_scalar_step_matches_reference(rmat8, algorithm):
                                             e_pad, algorithm, 256)
     f, vis, p, _ = ref_step(f, vis, p)         # advance to layer 1
     out_r, vis_r, p_r, aux_r = ref_step(f, vis, p)
-    t_step = t_engine._make_scalar_step(gt.colstarts, gt.rows, n, v_pad,
+    t_step = t_engine._make_scalar_step(gt.colstarts, gt.rows, n,
+                                        t_bm.degree_matrix(
+                                            gt.degrees(), v_pad).reshape(-1),
                                         e_pad, algorithm, 256)
     out_t, vis_t, p_t, aux_t = t_step(
         interop.words_to_torch(np.asarray(f), "cpu"),

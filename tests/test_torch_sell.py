@@ -370,21 +370,23 @@ def test_popcount_matches_reference(n_words):
 
 
 def test_popcount_is_the_engines_termination_test(rmat):
-    """The host loop reads its loop condition from K13; the launches
-    column does not count it (the reference's engine counts with jnp)."""
+    """The host loop reads its loop condition from K13, now the measure
+    kernel (one call per layer, and the one that finds every frontier
+    empty); the launches column does not count it (the reference's
+    engine counts with jnp)."""
     calls = []
-    orig = ops.popcount
+    orig = ops.measure
 
-    def counting(words):
+    def counting(words, *args, **kw):
         calls.append(words.shape)
-        return orig(words)
+        return orig(words, *args, **kw)
 
-    ops.popcount = counting
+    ops.measure = counting
     try:
         res = tbfs.plan(to_port(rmat), tbfs.TraversalSpec(policy="beamer"),
                         device="cpu").run_batched([3, 7])
     finally:
-        ops.popcount = orig
+        ops.measure = orig
     n_layers = int(res.state.layer)
     assert len(calls) == n_layers + 1 and calls[0] == (2, res.state
                                                        .frontier.shape[1])
