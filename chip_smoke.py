@@ -126,7 +126,36 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    ``cum`` on each root's entries, ``valid`` bitwise, ``u``/``v`` where
    valid) and on a synthetic layer whose stream is cut inside a hub's
    list, timed beside their bounds; the bottom-up layer's times give
-   K2's and the apportionment's rows.
+   K2's and the apportionment's rows;
+11. (run after 10) rule 3 at the main path's size: a. ``packed=False``
+   on CSR ``fused_gather`` (depths 0 and 2), ``materialized``,
+   ``megakernel`` and ``persistent`` and on SELL ``fused_gather``, each
+   timed over 3 runs and held to the main path as in phase 5 (its
+   launches column 2 per layer on the dense CSR ``fused_gather`` and
+   ``materialized`` arms), no K2 and no planner launch on those two,
+   the dense materialized path's peak memory, and the dense planning on
+   every layer equal to the union planner's and timed beside it (device
+   time per traversal, its peak memory); one more dense materialized
+   run replays every call of K7, K1 and the apportionment through the
+   kernel and its plain version on copies of its inputs, and holds
+   every dense queue to K2's stream arm on the same words (`replayed`);
+   b. `CompiledTraversal.layer_step`
+   ticked from the initial state until every frontier is empty on
+   ``fused_gather``, ``megakernel`` and ``persistent``: visited, frontier
+   and the tick count equal the ``ThresholdSimd(0)`` traversal's, trees
+   valid; c. on the first root, ``run_bfs`` (simd, nonsimd),
+   ``run_bfs_jit``, ``run_bfs_vectorized`` (threshold, ``simd_layers``),
+   ``run_bfs_hybrid`` (its log equal to the BeamerHybrid plan's),
+   ``traverse`` and ``traverse_hostloop`` (ThresholdSimd, BeamerHybrid;
+   per-layer frontier, edges and discovered equal to the traversal's
+   stats columns 0-2), each tree valid with the oracle's depths, each
+   wall printed, and each warm-up run under `replayed` (the hostloop's
+   K7 at B = 1 on its pow2 buckets, K1 on one root's P, the
+   apportionment on its dense queues), as many replayed calls as the
+   timed run launched; d. at SCALE 16, ``plan(EdgeList)`` equal to
+   ``plan(from_edges(...))`` and ``persistent`` under a subclass of
+   ThresholdSimd recording exactly one ``pipeline_unsupported`` degrade
+   and equal to the megakernel's run.
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -1904,6 +1933,38 @@ def synthetic_k7_stream(cap, check_frontier: bool, seed: int) -> dict:
                 kw=dict(n_vertices=n, check_frontier=check_frontier))
 
 
+def k7_gate(cap, g, what: str, marks: bool = True):
+    """K7 against its plain version on one call's inputs (``cap``: the
+    streams, the bitmaps, ``out_init`` and ``p_init``, copied for each
+    arm, and ``kw``), under K3's contract: the marked sets, ``out|delta``
+    and ``visited|delta`` bitwise; with ``marks``, every mark a frontier
+    neighbour of its vertex.  Returns (0, the kernel's racy P)."""
+    import torch
+    from repro_torch.kernels import frontier_expand as fe
+    from repro_torch.kernels import restoration as rest
+    n = g.n_vertices
+    streams = (cap["nbr"], cap["cand"], cap["valid"], cap["frontier"],
+               cap["visited"])
+    out_k, p_k = cap["out_init"].clone(), cap["p_init"].clone()
+    fe.frontier_expand_cuda(*streams, out_k, p_k, **cap["kw"])
+    out_p, p_p = cap["out_init"].clone(), cap["p_init"].clone()
+    fe.frontier_expand_plain(*streams, out_p, p_p, **cap["kw"])
+    torch.cuda.synchronize()
+    _, delta_k = rest.restoration_plain(p_k, n)
+    _, delta_p = rest.restoration_plain(p_p, n)
+    err = int(((p_k < 0) != (p_p < 0)).sum())
+    for a, b in ((out_k | delta_k, out_p | delta_p),
+                 (cap["visited"] | delta_k, cap["visited"] | delta_p)):
+        err = max(err, int((a != b).sum()))
+    assert err == 0, f"frontier_expand ({what}) disagrees with its plain " \
+                     f"version"
+    del out_p, p_p, delta_k, delta_p
+    if marks:
+        check_marks(dict(kw=dict(n_vertices=n), rows=g.rows,
+                         colstarts=g.colstarts), p_k, cap["frontier"])
+    return err, p_k
+
+
 def phase_expand_kernel(cap, g, reps: int, stream: str = "captured"):
     """K7 against its plain version on a stream (``cap``: a captured
     layer's call, or `synthetic_k7_stream`), under K3's contract: the
@@ -1912,29 +1973,13 @@ def phase_expand_kernel(cap, g, reps: int, stream: str = "captured"):
     a real vertex (bottom-up: in the frontier) on a synthetic one."""
     import torch
     from repro_torch.kernels import frontier_expand as fe
-    from repro_torch.kernels import restoration as rest
     n, kw = g.n_vertices, cap["kw"]
     streams = (cap["nbr"], cap["cand"], cap["valid"], cap["frontier"],
                cap["visited"])
-    out_k, p_k = cap["out_init"].clone(), cap["p_init"].clone()
-    fe.frontier_expand_cuda(*streams, out_k, p_k, **kw)
-    out_p, p_p = cap["out_init"].clone(), cap["p_init"].clone()
-    fe.frontier_expand_plain(*streams, out_p, p_p, **kw)
-    torch.cuda.synchronize()
-    _, delta_k = rest.restoration_plain(p_k, n)
-    _, delta_p = rest.restoration_plain(p_p, n)
-    err = int(((p_k < 0) != (p_p < 0)).sum())
-    for a, b in ((out_k | delta_k, out_p | delta_p),
-                 (cap["visited"] | delta_k, cap["visited"] | delta_p)):
-        err = max(err, int((a != b).sum()))
-    assert err == 0, f"frontier_expand ({stream}) disagrees with its plain " \
-                     f"version"
+    err, p_k = k7_gate(cap, g, stream, stream == "captured")
     n_marked = int((p_k < 0).sum())
     assert n_marked > 0, f"frontier_expand ({stream}): nothing discovered"
-    if stream == "captured":
-        check_marks(dict(kw=dict(n_vertices=n), rows=g.rows,
-                         colstarts=g.colstarts), p_k, cap["frontier"])
-    else:
+    if stream != "captured":
         gate = (p_k[p_k < 0] + n).long()
         assert bool(((gate >= 0) & (gate < n)).all()), "parent out of range"
         if kw["check_frontier"]:
@@ -1942,7 +1987,6 @@ def phase_expand_kernel(cap, g, reps: int, stream: str = "captured"):
             fw = cap["frontier"][rows, gate >> 5]
             assert bool((((fw >> (gate & 31).int()) & 1) == 1).all()), \
                 "a marked parent is not in the frontier"
-    del out_p, p_p, delta_k, delta_p
     out_buf, p_buf = cap["out_init"].clone(), cap["p_init"].clone()
 
     def reset():
@@ -2258,7 +2302,6 @@ def stream_gate(words, kw, colstarts, rows, what: str):
     bitwise, u and v wherever valid holds.  Returns (CUDA queue, CUDA
     stream, plain stream)."""
     import torch
-    from repro_torch.kernels import apportion as ap
     from repro_torch.kernels import compact as ck
     args = (kw["size"], kw["fill"], kw["deg"], kw["n_vertices"],
             kw["n_slots"])
@@ -2273,9 +2316,20 @@ def stream_gate(words, kw, colstarts, rows, what: str):
         assert torch.equal(got.cum[b, :k], want.cum[b, :k]), \
             f"frontier_queue ({what}): cum of root {b} differs"
     del want
-    stream_k = ap.apportion_cuda(colstarts, rows, got, kw["n_slots"])
-    stream_p = ap.apportion_plain(colstarts, rows, got.queue,
-                                  kw["n_vertices"], kw["n_slots"])
+    return (got,) + apportion_gate(colstarts, rows, got, kw["n_vertices"],
+                                   kw["n_slots"], what)
+
+
+def apportion_gate(colstarts, rows, q, n_vertices: int, n_slots: int,
+                   what: str):
+    """The apportionment against its plain version on one queue ``q``:
+    the valid flags and truncated counts bitwise, u and v wherever valid
+    holds.  Returns (CUDA stream, plain stream)."""
+    import torch
+    from repro_torch.kernels import apportion as ap
+    stream_k = ap.apportion_cuda(colstarts, rows, q, n_slots)
+    stream_p = ap.apportion_plain(colstarts, rows, q.queue, n_vertices,
+                                  n_slots)
     valid = stream_p[2]
     assert torch.equal(stream_k[2], valid) and \
         torch.equal(stream_k[3], stream_p[3]), \
@@ -2283,7 +2337,113 @@ def stream_gate(words, kw, colstarts, rows, what: str):
     for i, name in ((0, "u"), (1, "v")):
         assert torch.equal(stream_k[i][valid], stream_p[i][valid]), \
             f"apportion ({what}): {name} differs where valid"
-    return got, stream_k, stream_p
+    return stream_k, stream_p
+
+
+def queue_gate(colstarts, words, q, list_size: int, n_vertices: int,
+               n_slots: int, what: str) -> None:
+    """A dense-mask queue ``q`` of ``words`` (`engine.dense_queue`)
+    against K2's stream arm on the same words: queue, counts, totals and
+    truncated counts bitwise, cum on each root's entries."""
+    import torch
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import compact as ck
+    deg = bm.degree_matrix(colstarts[1:] - colstarts[:-1],
+                           words.shape[1] * bm.BITS_PER_WORD).reshape(-1)
+    want = ck.queue_cuda(words.contiguous(), list_size, n_vertices, deg,
+                         n_vertices, n_slots)
+    for name in ("queue", "count", "total", "truncated"):
+        assert torch.equal(getattr(q, name), getattr(want, name)), \
+            f"dense queue ({what}): {name} differs from K2's stream arm"
+    for b in range(want.queue.shape[0]):
+        k = min(int(want.count[b]), list_size)
+        assert torch.equal(q.cum[b, :k], want.cum[b, :k]), \
+            f"dense queue ({what}): cum of root {b} differs from K2's"
+
+
+#: the wrappers `replayed` gates, by module
+REPLAYED = (("repro_torch.kernels.ops", "expand_batched"),
+            ("repro_torch.kernels.ops", "restore"),
+            ("repro_torch.kernels.ops", "apportion"),
+            ("repro_torch.core.engine", "dense_queue"))
+
+
+@contextlib.contextmanager
+def replayed(g, what: str):
+    """While the block runs, every call of `ops.expand_batched` (K7; the
+    B = 1 calls of `ops.expand` go through it), `ops.restore` (K1) and
+    `ops.apportion` is first replayed through the kernel and its plain
+    version on copies of its inputs (`k7_gate`, K1 bitwise, the
+    apportionment by `apportion_gate`), then runs as it was made; every
+    `engine.dense_queue` is held to K2's stream arm on its words
+    (`queue_gate`).  The replays call the kernels directly, so they
+    count no launch.  The wrappers are wrapped, not changed.  Yields
+    {wrapper: [the shape of each call's P, stream or words]}."""
+    import importlib
+    import torch
+    from repro_torch.kernels import restoration as rest
+    seen = {name: [] for _, name in REPLAYED}
+    orig = {name: getattr(importlib.import_module(m), name)
+            for m, name in REPLAYED}
+
+    def expand_batched(nbr, cand, valid, frontier, visited, out_init,
+                       p_init, *, n_vertices, check_frontier=False):
+        kw = dict(n_vertices=n_vertices, check_frontier=check_frontier)
+        k7_gate(dict(nbr=nbr, cand=cand, valid=valid, frontier=frontier,
+                     visited=visited, out_init=out_init.clone(),
+                     p_init=p_init.clone(), kw=kw), g, what)
+        seen["expand_batched"].append(tuple(nbr.shape))
+        return orig["expand_batched"](nbr, cand, valid, frontier, visited,
+                                      out_init, p_init, **kw)
+
+    def restore(parent, *, n_vertices):
+        got = rest.restoration_cuda(parent.clone(), n_vertices)
+        want = rest.restoration_plain(parent.clone(), n_vertices)
+        assert all(map(torch.equal, got, want)), \
+            f"restoration ({what}) disagrees with its plain version"
+        seen["restore"].append(tuple(parent.shape))
+        return orig["restore"](parent, n_vertices=n_vertices)
+
+    def apportion(colstarts, rows, queue, *, n_vertices, n_slots):
+        apportion_gate(colstarts, rows, queue, n_vertices, n_slots, what)
+        torch.cuda.empty_cache()
+        seen["apportion"].append((tuple(queue.queue.shape), n_slots))
+        return orig["apportion"](colstarts, rows, queue,
+                                 n_vertices=n_vertices, n_slots=n_slots)
+
+    def dense_queue(colstarts, words, list_size, n_vertices, n_slots):
+        q = orig["dense_queue"](colstarts, words, list_size, n_vertices,
+                                n_slots)
+        queue_gate(colstarts, words, q, list_size, n_vertices, n_slots,
+                   what)
+        seen["dense_queue"].append(tuple(words.shape))
+        return q
+
+    wrappers = dict(expand_batched=expand_batched, restore=restore,
+                    apportion=apportion, dense_queue=dense_queue)
+    for m, name in REPLAYED:
+        setattr(importlib.import_module(m), name, wrappers[name])
+    try:
+        yield seen
+    finally:
+        for m, name in REPLAYED:
+            setattr(importlib.import_module(m), name, orig[name])
+
+
+#: `KERNEL_LAUNCHES` counter of each replayed wrapper
+REPLAYED_COUNTER = {"expand_batched": "frontier_expand_batched",
+                    "restore": "restoration", "apportion": "apportion"}
+
+
+def replay_report(seen, launches, what: str) -> str:
+    """Asserts that the replayed run made as many calls of each gated
+    kernel as ``launches`` (a run of the same path) counts; returns the
+    calls' shapes, printable."""
+    for name, counter in REPLAYED_COUNTER.items():
+        assert len(seen[name]) == launches.get(counter, 0), \
+            f"{what}: {len(seen[name])} replayed {name} calls, " \
+            f"{launches.get(counter, 0)} launches"
+    return json.dumps({k: sorted(set(v)) for k, v in seen.items() if v})
 
 
 def phase_stream(ct, g, roots, reps: int) -> dict:
@@ -2487,6 +2647,333 @@ def planning_split(ct, roots, required: bool = True) -> dict | None:
                     "idle_share": 1 - busy / wall_ms,
                     "device_ms": split}))
     return split
+
+
+#: phase 11a: the dense-mask arm (``packed=False``) on the main path's
+#: graph: (path name, SELL layout?, TraversalSpec fields, the kernels it
+#: must launch, its launches column per layer, stats columns held to the
+#: main path)
+DENSE_PATHS = (
+    ("dense_fused_gather", False, dict(packed=False),
+     ("gather_expand_batched", "restoration"), 2, range(7)),
+    ("dense_fused_gather_d2", False, dict(packed=False, prefetch_depth=2),
+     ("gather_expand_prefetch", "restoration"), 2, range(7)),
+    ("dense_materialized", False, dict(packed=False,
+                                       pipeline="materialized"),
+     ("frontier_expand_batched", "restoration", "apportion"), 2,
+     (0, 1, 2, 3, 4, 6)),
+    ("dense_megakernel", False, dict(packed=False, pipeline="megakernel"),
+     ("layer_fused_batched",), 1, range(7)),
+    ("dense_persistent", False, dict(packed=False, pipeline="persistent"),
+     ("traversal_fused_batched",), 0, range(7)),
+    ("dense_sell_fused_gather", True, dict(packed=False),
+     ("sell_expand_batched", "restoration"), 2, (0, 1, 2, 3, 4, 6)),
+)
+#: phase 11b: the pipelines `CompiledTraversal.layer_step` ticks through
+TICK_PIPELINES = ("fused_gather", "megakernel", "persistent")
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """While the block runs, ``module.<name>`` is wrapped (not changed)
+    and each call's (args, kwargs) appended to the yielded list."""
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def tree_ok(g, parent, root: int, oracle) -> None:
+    """One root's (V_pad,) P: a valid tree with the oracle's depths."""
+    import torch
+    from repro_torch.core.validate import validate
+    p = parent[:g.n_vertices]
+    v = validate(g, torch.where(p >= g.n_vertices, -1, p), root,
+                 reference_depth=oracle(root))
+    assert v.ok, f"root {root}: tree invalid {v[:7]}"
+
+
+def dense_planning(ct, calls, reps: int) -> dict:
+    """The dense arm's planning on every captured layer of a dense
+    ``fused_gather`` run (`engine._plan_dense` folded by
+    `UnionPlan.of_lists`) against the union planner on the same words:
+    the plans equal, each one's device time per traversal (calls queued
+    back to back, summed over the layers) and the dense planning's peak
+    of device memory above what was allocated."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import gather_expand as ge
+    from repro_torch.kernels import ops
+    graph = ct.fmt.fused_graph(ct.resolved)
+    dense_ms = planner_ms = dense_ev = planner_ev = 0.0
+    peak = 0
+    for args, _ in calls:
+        colstarts, active, n_vertices, tile, n_blocks = args
+        dense = lambda: ge.UnionPlan.of_lists(*engine._plan_dense(
+            colstarts, active, n_vertices, tile, n_blocks), n_blocks)
+        planner = lambda: ops.plan_union(graph, active)
+        for x, y in zip(dense(), planner()):
+            assert torch.equal(x, y), "the dense planning's union differs " \
+                "from the union planner's"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dense()
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        dense_ms += device_ms(dense, reps)
+        planner_ms += device_ms(planner, reps)
+        dense_ev += cuda_ms(dense, reps)
+        planner_ev += cuda_ms(planner, reps)
+    return {"layers": len(calls), "dense_device_ms": dense_ms,
+            "planner_device_ms": planner_ms, "dense_event_ms": dense_ev,
+            "planner_event_ms": planner_ev, "dense_peak_bytes": peak,
+            "batch": int(calls[0][0][1].shape[0]) if calls else 0}
+
+
+def phase_dense(g, roots, base, oracle, edges: int,
+                profile: bool = False) -> dict:
+    """Phase 11a: ``packed=False`` at the main path's size (`DENSE_PATHS`,
+    each through `run_path`: timed over 3 runs, held to the main path,
+    its launches column 2 per layer on the dense CSR arms); the dense
+    CSR arms launch no K2 and no planner; the dense materialized path's
+    peak memory; the dense planning against the planner
+    (`dense_planning`); with ``profile``, the dense CSR ``fused_gather``
+    and ``materialized`` runs traced.  Returns {path: its first run's
+    launches}."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import formats
+    from repro_torch.core import engine
+    launched_by = {}
+    sell = formats.build(g, "auto")
+    for name, on_sell, fields, kernels, per_layer, cols in DENSE_PATHS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded(engine, "_plan_dense") as calls:
+            ct, launched, _ = run_path(sell if on_sell else g, g, roots,
+                                       name, fields, kernels, per_layer,
+                                       base, oracle, edges, cols)
+        peak = torch.cuda.max_memory_allocated()
+        assert ct.resolved.packed is False, ct.resolved
+        if not on_sell:
+            for k in ("frontier_compact_batched", "plan_union"):
+                assert launched[k] == 0, f"{name}: {k} was launched"
+        launched_by[name] = {k: launched[k] for k in kernels}
+        if profile and name in ("dense_fused_gather", "dense_materialized"):
+            profile_run(ct, roots, name, top=15)
+            if name == "dense_materialized":      # the packed arm, beside
+                profile_run(bfs.plan(g, bfs.TraversalSpec(
+                    pipeline="materialized")), roots, "materialized", top=8)
+        log(f"path {name}: batch {len(roots)}, peak device memory "
+            f"{peak / 2**30:.3f} GiB; no K2 and no plan_union launch"
+            if not on_sell else f"path {name}: SELL ignores packed")
+        if name == "dense_materialized":
+            with replayed(g, name) as seen:
+                ct.run_batched(roots)
+            torch.cuda.empty_cache()
+            assert len(seen["dense_queue"]) == len(seen["apportion"]) \
+                == int(base.state.layer), seen
+            log(f"path {name} replayed: every K7, K1 and apportionment "
+                f"call of one run equals its plain version on copies of "
+                f"its inputs, and every dense queue K2's stream arm on "
+                f"its words; calls {replay_report(seen, launched, name)}")
+        if name == "dense_fused_gather":
+            n_layers = int(base.state.layer)
+            calls = calls[-n_layers:]          # the last timed run's
+            assert len(calls) == n_layers, (len(calls), n_layers)
+            split = dense_planning(ct, calls, 5)
+            log(json.dumps({"dense_planning": split}))
+            log(f"dense planning: {split['dense_device_ms']:.4f} ms of "
+                f"device time per traversal ({split['layers']} layers, "
+                f"8 roots) against the union planner's "
+                f"{split['planner_device_ms']:.4f} ms on the same words; "
+                f"peak {split['dense_peak_bytes'] / 2**30:.3f} GiB above "
+                f"the resident state; every layer's plans equal")
+        del ct, calls
+        bfs.clear_plan_cache()
+    torch.cuda.empty_cache()
+    return launched_by
+
+
+def phase_ticks(g, roots, oracle) -> None:
+    """Phase 11b: `CompiledTraversal.layer_step` from the initial state
+    until every frontier is empty (one host read per tick) on
+    `TICK_PIPELINES`: visited, frontier and the tick count equal the
+    ThresholdSimd(0) traversal (the SIMD step on every layer); trees
+    valid."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch.core import engine
+    for pipeline in TICK_PIPELINES:
+        ct = bfs.plan(g, bfs.TraversalSpec(pipeline=pipeline))
+        want = bfs.plan(g, bfs.TraversalSpec(
+            policy=bfs.ThresholdSimd(0), pipeline=pipeline)) \
+            .run_batched(roots)
+        walls = []
+        for _ in range(2):                   # a warm-up, then timed
+            f, v, p = engine._init_batched(
+                torch.tensor(roots, dtype=torch.int32, device=g.device),
+                g.n_vertices, g.n_vertices_padded)
+            st = bfs.BfsState(f, v, p, torch.zeros((), dtype=torch.int32,
+                                                   device=g.device))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ticks = 0
+            while bool(st.frontier.any()):    # the tick's one host read
+                st = ct.layer_step(st)
+                ticks += 1
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        assert torch.equal(st.visited, want.state.visited), pipeline
+        assert torch.equal(st.frontier, want.state.frontier), pipeline
+        assert ticks == int(st.layer) == int(want.state.layer), \
+            (pipeline, ticks, int(want.state.layer))
+        for b, r in enumerate(roots):
+            tree_ok(g, st.parent[b], r, oracle)
+        log(f"layer_step {pipeline}: {ticks} ticks of {len(roots)} roots "
+            f"in {walls[-1]:.6f} s (warm-up {walls[0]:.6f} s); visited, "
+            f"frontier and layers equal the ThresholdSimd(0) traversal; "
+            f"trees valid")
+        del ct, want, st
+        bfs.clear_plan_cache()
+
+
+def phase_legacy(g, root: int, oracle) -> None:
+    """Phase 11c: the legacy entry points and `traverse_hostloop` on one root
+    at the main path's size: trees valid with the oracle's depths, each
+    wall and kernel launches printed; `run_bfs_hybrid`'s log equals the
+    BeamerHybrid plan's; the hostloop's per-layer frontier, edges and
+    discovered equal the traversal's stats columns 0-2 under the same
+    policy."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import errors
+    from repro_torch.core import bfs_hybrid, bfs_parallel, bfs_vectorized
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    errors.DEGRADES.clear()
+    replays = {}
+
+    def timed(name, fn):
+        """fn's result and its wall and kernel launches, printable, of a
+        run after a warm-up run under `replayed`."""
+        with replayed(g, name) as seen:
+            fn()
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in ops.KERNEL_LAUNCHES.items() if n}
+        replays[name] = seen
+        return out, f"{wall:.6f} s, launches {json.dumps(launches)}, " \
+            f"replayed {replay_report(seen, launches, name)}"
+
+    legacy = (
+        ("run_bfs simd", lambda: bfs_parallel.run_bfs(g, root)),
+        ("run_bfs nonsimd", lambda: bfs_parallel.run_bfs(
+            g, root, algorithm="nonsimd")),
+        ("run_bfs_jit", lambda: bfs_parallel.run_bfs_jit(
+            g.colstarts, g.rows, root, g.n_vertices)),
+        ("run_bfs_vectorized threshold",
+         lambda: bfs_vectorized.run_bfs_vectorized(g, root)),
+        ("run_bfs_vectorized simd_layers",
+         lambda: bfs_vectorized.run_bfs_vectorized(g, root,
+                                                   simd_layers=(1, 2))),
+        ("traverse", lambda: bfs.traverse(g, root,
+                                          spec=bfs.TraversalSpec()).state),
+    )
+    for name, fn in legacy:
+        st, took = timed(name, fn)
+        tree_ok(g, st.parent, root, oracle)
+        log(f"legacy {name}: root {root}, {int(st.layer)} layers, "
+            f"{took}; tree valid, depths equal the oracle")
+    (st, hyb_log), took = timed("run_bfs_hybrid", lambda: (
+        bfs_hybrid.run_bfs_hybrid(g, root, collect_stats=True)))
+    tree_ok(g, st.parent, root, oracle)
+    plan_log = bfs.direction_log(bfs.plan(g, bfs.TraversalSpec(
+        policy=bfs.BeamerHybrid(), max_layers=1024)).run(root))
+    assert hyb_log == plan_log, (hyb_log, plan_log)
+    log(f"legacy run_bfs_hybrid: root {root}, {took}; log "
+        f"{hyb_log} equals the BeamerHybrid plan's; tree valid")
+    for pol in (bfs.ThresholdSimd(), bfs.BeamerHybrid()):
+        hostloop = f"hostloop {type(pol).__name__}"
+        (st, stats, hl_log), took = timed(hostloop, lambda: (
+            engine.traverse_hostloop(g, root, policy=pol,
+                                     collect_stats=True)))
+        seen = replays[hostloop]
+        assert {s[0] for s in seen["expand_batched"]} == {1} and \
+            {len(s) for s in seen["restore"]} == {1} and \
+            len(seen["dense_queue"]) == len(seen["apportion"]) \
+            == len(stats), (hostloop, seen, len(stats))
+        tree_ok(g, st.parent, root, oracle)
+        fused = bfs.plan(g, bfs.TraversalSpec(policy=pol)).run(root)
+        want = [tuple(s[1:4]) for s in bfs.layer_stats(fused)]
+        got = [tuple(s[1:4]) for s in stats]
+        assert got == want, (type(pol).__name__, got, want)
+        assert hl_log == bfs.direction_log(fused)
+        log(f"{hostloop}: root {root}, {len(stats)} "
+            f"layers, {took}; per-layer frontier/edges/discovered "
+            f"equal the traversal's stats columns 0-2; log {hl_log}; tree "
+            f"valid")
+    assert not errors.DEGRADES, errors.DEGRADES
+    bfs.clear_plan_cache()
+
+
+def phase_repairs(seed: int, device) -> None:
+    """Phase 11d at SCALE 16: ``plan(EdgeList)`` equals ``plan(Csr)``;
+    ``persistent`` with a subclass of ThresholdSimd records exactly one
+    ``pipeline_unsupported`` degrade and equals the megakernel's run
+    (columns 0-6 and everything else)."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import errors
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core import rmat
+    edges = rmat.generate(seed, 16, 16, device=device)
+    g16 = csr_mod.from_edges(edges, device=device)
+    roots16 = pick_roots(g16, BATCH, seed + 3)
+    a = bfs.plan(edges, bfs.TraversalSpec()).run_batched(roots16)
+    b = bfs.plan(g16, bfs.TraversalSpec()).run_batched(roots16)
+    for what, x, y in (("stats", a.stats, b.stats),
+                       ("visited", a.state.visited, b.state.visited),
+                       ("depths", a.depths, b.depths)):
+        assert torch.equal(x, y), f"plan(EdgeList): {what} differ"
+    assert bfs.direction_log(a) == bfs.direction_log(b)
+    log("repair plan(EdgeList) @ SCALE 16: stats, visited, depths and "
+        "direction log equal plan(from_edges(...))")
+
+    class Custom(bfs.ThresholdSimd):
+        pass
+    errors.DEGRADES.clear()
+    got = bfs.plan(g16, bfs.TraversalSpec(
+        policy=Custom(), pipeline="persistent")).run_batched(roots16)
+    sites = [e.site for e in errors.DEGRADES]
+    assert sites == ["pipeline_unsupported"], errors.DEGRADES
+    errors.DEGRADES.clear()
+    mega = bfs.plan(g16, bfs.TraversalSpec(
+        policy=Custom(), pipeline="megakernel")).run_batched(roots16)
+    assert not errors.DEGRADES, errors.DEGRADES
+    for what, x, y in (("stats columns 0-6", got.stats[:, :7],
+                        mega.stats[:, :7]),
+                       ("stats", got.stats, mega.stats),
+                       ("visited", got.state.visited, mega.state.visited),
+                       ("depths", got.depths, mega.depths)):
+        assert torch.equal(x, y), f"persistent(Custom): {what} differ"
+    log("repair persistent(unregistered policy) @ SCALE 16: one "
+        "pipeline_unsupported degrade, equal to the megakernel's run")
+    del edges, g16
+    bfs.clear_plan_cache()
 
 
 def make_graph(scale: int, seed: int, device: str):
@@ -2806,6 +3293,15 @@ def main(argv=None) -> int:
         args.seed)
     kres.update(mat_kres)
     launches.update(mat_launches)
+
+    # 11. rule 3: packed=False, layer_step, the legacy entry points and
+    # the two repairs
+    dense_launches = phase_dense(g, roots, res, oracle_depths.__getitem__,
+                                 edges, args.profile)
+    log(json.dumps({"dense_launches": dense_launches}))
+    phase_ticks(g, roots, oracle_depths.__getitem__)
+    phase_legacy(g, roots[0], oracle_depths.__getitem__)
+    phase_repairs(args.seed, "cuda")
     del ct, res, parents, g, oracle_depths
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()

@@ -6,8 +6,9 @@
     res = ct.run_batched([3, 7, 11])    # leading root axis
     ct.resolved                         # the fully-concrete spec
 
-The graph is a `Csr` or any built `formats.GraphFormat` (CSR, SELL-C-σ,
-bitmap): ``plan(formats.build(csr, "auto"), spec)`` runs the layout the
+The graph is a `Csr`, an `EdgeList` (built into a CSR on the plan's
+device) or any built `formats.GraphFormat` (CSR, SELL-C-σ, bitmap):
+``plan(formats.build(csr, "auto"), spec)`` runs the layout the
 autotuner picks.  `plan` validates the graph, resolves the spec's
 ``"auto"`` fields once and binds a cached `_Executable`: the format's
 padded arrays, the degree matrix and the per-mode steps (or, for
@@ -16,7 +17,8 @@ constants), built once per (format, geometry, resolved spec).  The key
 holds the resolved spec, so each pipeline and prefetch depth has its
 own entry.  The format part of the key is the identity of the format's
 arrays, which the cache entry holds, so two graphs of equal geometry
-never share padded arrays.
+never share padded arrays.  `CompiledTraversal.layer_step` advances a
+state by one layer through the same steps (the serve tick).
 
 A spec whose ``algorithm`` is in the semiring portfolio (``sssp``,
 ``cc``, ``ksource_bfs``: `TraversalSpec.is_semiring`) binds the
@@ -34,7 +36,8 @@ import torch
 
 from repro_torch.api.spec import TraversalSpec
 from repro_torch.core import engine as _engine
-from repro_torch.core.csr import Csr, check_structure
+from repro_torch.core.csr import Csr, check_structure, from_edges
+from repro_torch.core.rmat import EdgeList
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.errors import GraphValidationError
 from repro_torch.formats.base import GraphFormat
@@ -67,47 +70,60 @@ def check_roots(roots, n_vertices: int) -> None:
 
 def as_format(graph) -> GraphFormat:
     """View a `Csr` as a `CsrFormat`; a built `GraphFormat` is taken as
-    it is."""
+    it is (an `EdgeList` is built into a `Csr` first, by `plan`)."""
     if isinstance(graph, GraphFormat):
         return graph
     if isinstance(graph, Csr):
         return CsrFormat.from_csr(graph)
     raise TypeError(
         f"cannot plan a traversal over {type(graph).__name__}; expected "
-        f"a Csr or a repro_torch.formats GraphFormat")
+        f"a Csr, EdgeList or repro_torch.formats GraphFormat")
 
 
 class _Executable:
     """The cached unit: steps (with the padded arrays) and the degree
     matrix for one (format, geometry, resolved spec).  The persistent
-    pipeline builds no per-layer steps: its loop constants are built
-    here (and kept on the format); only a degrade builds steps, at
-    run time.  A semiring spec binds the format's one relax step."""
+    pipeline builds its loop constants here (kept on the format) and
+    its per-layer (megakernel) steps only when they first run: for a
+    degrade or a `CompiledTraversal.layer_step` tick.  A semiring spec
+    binds the format's one relax step."""
 
     def __init__(self, fmt: GraphFormat, spec: TraversalSpec):
         self.fmt = fmt
         self.spec = spec
         self.semiring_step = None
+        self._steps = None
         if spec.is_semiring:
             from repro_torch.algorithms import semiring
-            self.steps = None
             self.semiring_step = fmt.make_semiring_step(
                 spec, semiring.get(spec.algorithm))
         elif spec.pipeline == "persistent":
             fmt.persistent_graph(spec)
-            self.steps = None
         else:
-            self.steps = fmt.make_steps(spec)
+            self._steps = fmt.make_steps(spec)
         self.deg_mat = fmt.degree_matrix()
 
+    def steps(self) -> dict:
+        """The per-mode layer steps, built once."""
+        if self._steps is None:
+            self._steps = self.fmt.make_steps(self.spec)
+        return self._steps
+
     def run(self, roots: torch.Tensor) -> _engine.EngineResult:
-        if self.spec.is_semiring:
+        spec = self.spec
+        if spec.is_semiring:
             from repro_torch.algorithms.traversal import traverse_semiring
-            return traverse_semiring(self.fmt, roots, self.spec,
+            return traverse_semiring(self.fmt, roots, spec,
                                      step=self.semiring_step,
                                      deg_mat=self.deg_mat)
-        return _engine._traverse_impl(self.fmt, roots, self.spec,
-                                      steps=self.steps,
+        if spec.pipeline == "persistent":
+            spec = _engine.persistent_fallback(self.fmt,
+                                               int(roots.shape[0]), spec)
+            if spec is None:
+                return _engine._traverse_persistent(self.fmt, roots,
+                                                    self.spec)
+        return _engine._traverse_impl(self.fmt, roots, spec,
+                                      steps=self.steps(),
                                       deg_mat=self.deg_mat)
 
 
@@ -204,6 +220,28 @@ class CompiledTraversal:
                 None if res.values is None else res.values[:n])
         return self.executable.run(r)
 
+    def layer_step(self, state, visited=None, parent=None):
+        """Advance every root of a (B, ...) state by exactly one layer
+        (the serve tick): the spec's SIMD step for ``algorithm="simd"``,
+        its scalar step for ``"nonsimd"``; a ``persistent`` plan ticks
+        through its megakernel steps.  Takes a `BfsState` (returns one
+        with ``layer + 1``) or the bare ``(frontier, visited, parent)``
+        triple (returns the triple).  P is updated in place."""
+        spec = self.resolved
+        if spec.is_semiring:
+            raise NotImplementedError(
+                f"semiring algorithm {spec.algorithm!r} has no "
+                f"single-layer tick: the portfolio's traversal loop owns the "
+                f"value/frontier carry — use run()/run_batched() for "
+                f"whole traversals")
+        step = self.executable.steps()[
+            _engine.MODE_SIMD if spec.algorithm == "simd"
+            else _engine.MODE_SCALAR]
+        if visited is None:
+            f, v, p, _ = step(state.frontier, state.visited, state.parent)
+            return _engine.BfsState(f, v, p, state.layer + 1)
+        return step(state, visited, parent)[:3]
+
     def stats(self, result) -> list[_engine.LayerStats]:
         """Decode a result's stats buffer (Table 1 rows)."""
         return _engine.layer_stats(result)
@@ -223,13 +261,16 @@ def plan(graph, spec: TraversalSpec | None = None, *,
     executable on ``device``.
 
     Args:
-      graph: a `Csr` or a built `formats.GraphFormat`.
+      graph: a `Csr`, an `EdgeList` (built into a CSR on ``device``) or
+        a built `formats.GraphFormat`.
       spec: a `TraversalSpec` (default: all ``"auto"``).
       batch: optional fixed batch width (`run_batched` pads up to it).
       device: where the traversal runs (default ``"cuda"``; raises
         without CUDA).
     """
     dev = resolve_device(device)
+    if isinstance(graph, EdgeList):
+        graph = from_edges(graph, device=dev)
     if isinstance(graph, Csr):
         check_structure(graph)
     fmt = as_format(graph).to(dev)

@@ -19,14 +19,15 @@ built-in defaults only (no benchmark table is read):
 ``"megakernel"`` and ``"persistent"``, at any ``prefetch_depth``, where
 the format supports them (its ``supports_*`` flags; the reference's
 messages); the auto choice stays ``fused_gather`` at depth 0 (changing
-it needs measurements).  ``algorithm`` also takes the semiring
-portfolio (``"sssp"``, ``"cc"``, ``"ksource_bfs"``: `is_semiring`),
-which runs the ``fused_gather`` relax arm only, on formats that list it
-in ``supported_semirings``.
-
-Values the reference accepts but this port does not run yet raise a
-typed `NotImplementedError` naming the ROADMAP item that brings them;
-nothing degrades silently.
+it needs measurements).  ``persistent`` with a policy its kernel cannot
+encode runs the ``megakernel`` steps, with a recorded
+``pipeline_unsupported`` degrade (`engine.persistent_fallback`).
+``packed=False`` is the dense-mask arm of the CSR planning and queues;
+SELL and bitmap ignore it, as in the reference.  ``algorithm`` also
+takes the semiring portfolio (``"sssp"``, ``"cc"``, ``"ksource_bfs"``:
+`is_semiring`), which runs the ``fused_gather`` relax arm only, on
+formats that list it in ``supported_semirings``.  Every value the
+reference accepts resolves and runs.
 """
 from __future__ import annotations
 
@@ -55,24 +56,11 @@ POLICIES = {
 }
 _POLICY_NAMES = {cls: name for name, cls in POLICIES.items()}
 
-#: unsupported-but-valid values -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    ("packed", False): "6 (the dense-mask packed=False arm)",
-}
-
 
 def _is_policy(obj: Any) -> bool:
     """Duck-typed DirectionPolicy: decides a mode from a Workload."""
     return callable(getattr(obj, "decide", None)) \
         and hasattr(obj, "modes")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP item {item}); "
-        f"the port runs the fused_gather, materialized, megakernel and "
-        f"persistent pipelines, packed=True, on the csr, sell and bitmap "
-        f"formats")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +100,8 @@ class TraversalSpec:
 
     # -- validation --------------------------------------------------------
     def validate(self) -> "TraversalSpec":
-        """Reject invalid values (ValueError, the reference's messages)
-        and valid values this port does not run yet
-        (NotImplementedError).  Returns self."""
+        """Reject invalid values (ValueError, the reference's messages).
+        Returns self."""
         p = self.policy
         if not (_is_policy(p) or p == AUTO or
                 (isinstance(p, str) and p in POLICIES)):
@@ -178,16 +165,11 @@ class TraversalSpec:
             raise ValueError(
                 f"max_layers must be an int >= 1 or 'auto', got "
                 f"{self.max_layers!r}")
-        for field in ("pipeline", "packed"):
-            item = _NOT_PORTED.get((field, getattr(self, field)))
-            if item is not None:
-                raise not_ported(f"{field}={getattr(self, field)!r}", item)
         return self
 
     def _validate_for(self, fmt) -> None:
         """The format-dependent checks of the reference's ``validate``
-        (the same messages, read from the format's capability flags),
-        plus the persistent kernel's policies."""
+        (the same messages, read from the format's capability flags)."""
         fmt_label = getattr(fmt, "name", type(fmt).__name__)
         if self.is_semiring:
             allowed = getattr(fmt, "supported_semirings", ())
@@ -235,13 +217,6 @@ class TraversalSpec:
                     f"{self.algorithm!r}: the in-kernel layer "
                     f"loop has no plain-jnp scalar arm — use one "
                     f"of {allowed}, or pipeline='megakernel'")
-            if _is_policy(self.policy) \
-                    and type(self.policy) not in _POLICY_NAMES:
-                raise NotImplementedError(
-                    f"pipeline='persistent' runs the registered policies "
-                    f"{sorted(POLICIES)}; {type(self.policy).__name__} "
-                    f"has no in-kernel encoding in repro_torch — use "
-                    f"pipeline='megakernel'")
 
     # -- auto resolution (exactly once, at plan time) --------------------
     def resolve(self, fmt) -> "TraversalSpec":

@@ -12,10 +12,9 @@
     fmt = formats.build(csr, "auto")  # the autotuner's layout (SELL on R-MAT)
     bfs.plan(fmt, spec).run_batched([3, 7, 11])
 
-The same contracts as ``repro.bfs`` for the main path.  ``__all__`` is
-its subset so far: the legacy ``traverse`` shim, ``SpanTracer``,
-``TraceRun`` and ``trace_run`` arrive with later slices (ROADMAP items
-6 and 10).
+The same contracts as ``repro.bfs``.  ``__all__`` is its subset:
+``SpanTracer``, ``TraceRun`` and ``trace_run`` arrive with the
+observability slice.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ from repro_torch.core.bfs_parallel import parents_graph500
 from repro_torch.core.engine import (BeamerHybrid, BfsState, EngineResult,
                                      LayerStats, PaperLiteralLayers,
                                      ThresholdSimd, TopDown,
-                                     direction_log, layer_stats)
+                                     direction_log, layer_stats, traverse)
 
 __all__ = [
     "BeamerHybrid",
@@ -46,4 +45,5 @@ __all__ = [
     "parents_graph500",
     "plan",
     "plan_cache_info",
+    "traverse",
 ]

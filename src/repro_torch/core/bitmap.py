@@ -155,16 +155,39 @@ def popcount(bitmap: torch.Tensor) -> torch.Tensor:
     return popcount32(bitmap).sum().to(torch.int32)
 
 
+#: the lanes a compaction or a range-mark drops land on this many slots
+#: past the live ones (millions of writes to one address serialize on
+#: the card)
+DROP_SLOTS = 4096
+
+
+def compact_mask(mask: torch.Tensor, size: int, fill_value: int):
+    """Bool (B, n) -> ((B, size) int32 ascending indices of the set lanes,
+    padded with ``fill_value``, lanes ranked past ``size`` dropped; (B,)
+    int32 counts of the set lanes, not capped at ``size``).  A prefix sum
+    ranks the set lanes and a scatter puts each index at its rank: no
+    ``nonzero``, no host sync."""
+    n_batch, n = mask.shape
+    ids = torch.arange(n, device=mask.device)
+    rank = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+    slot = torch.where(mask & (rank < size), rank.to(torch.int64),
+                       size + ids % DROP_SLOTS)
+    out = torch.full((n_batch, size + DROP_SLOTS), int(fill_value),
+                     dtype=torch.int32, device=mask.device)
+    out.scatter_(1, slot, ids.to(torch.int32).expand(n_batch, -1)
+                 .contiguous())
+    return out[:, :size].contiguous(), mask.sum(dim=1, dtype=torch.int32)
+
+
 def compact(bitmap: torch.Tensor, size: int, fill_value: int
             ) -> torch.Tensor:
-    """(W,) bitmap -> ``size`` ascending set-bit vertex ids, padded with
-    ``fill_value`` (ids past ``size`` are dropped)."""
-    idx = torch.nonzero(unpack_bool(bitmap)).flatten()[:size] \
-        .to(torch.int32)
-    out = torch.full((size,), int(fill_value), dtype=torch.int32,
-                     device=bitmap.device)
-    out[:idx.shape[0]] = idx
-    return out
+    """(..., W) bitmap -> ``size`` ascending set-bit vertex ids per row,
+    padded with ``fill_value`` (ids past ``size`` are dropped):
+    `compact_mask` of the unpacked bits."""
+    dense = unpack_bool(bitmap)
+    lead, n = dense.shape[:-1], dense.shape[-1]
+    out, _ = compact_mask(dense.reshape(-1, n), size, fill_value)
+    return out.reshape(*lead, size)
 
 
 def bit2vertex(word_idx: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,23 @@ depths — stays on the device.
 whole-traversal kernel (K6 on CSR, K10 on SELL) runs the traversal in
 one launch (`_traverse_persistent`).
 
+**The dense-mask arm** (``packed=False``, CSR): the reference's
+legacy parity and ablation baseline.  ``fused_gather`` plans from the
+unpacked (B, V) mask (`_plan_dense`, per-root lists folded by
+`gather_expand.UnionPlan.of_lists`) with no planner and no K2 launch,
+then K3/K4 and K1; ``materialized`` and scalar layers build their queue
+from the mask (`dense_queue`) in place of K2, then the apportionment,
+K7 and K1.  Counters stay on the measure kernel (the reference's dense
+``masked_edge_sum`` gives the same integers).  Every stats column but
+the launches equals the packed arm's.
+
+**Legacy entry points**: `traverse`, `traverse_arrays`,
+`traverse_format`, `layer_step_format` (shims over `api.plan`, loose
+knobs deprecated), `layer_step` (the scalar step on raw arrays),
+`traverse_hostloop` (one root, pow2 buckets, one host read per layer),
+and the single-root `edge_stream`, `scalar_expand`,
+`candidate_scatter`, `plan_active_tiles` and `compact_worklist`.
+
 State arrays carry a leading root axis (B, ...).  Bitmap words are
 int32 (see `repro_torch.core.bitmap`).
 """
@@ -66,19 +83,23 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core import bitmap as bm
-from repro_torch.core.csr import padding_premarked_visited
+from repro_torch.core.csr import Csr, padding_premarked_visited
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.errors import record_degrade
 from repro_torch.kernels import bitmap_kernels as bk
+from repro_torch.kernels import gather_expand as ge
+from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import ops
 from repro_torch.kernels.apportion import apportion_plain as apportion
 from repro_torch.kernels import traversal_fused as tf
-from repro_torch.kernels.layer_fused import (FusedCsr, compact_worklist,
-                                             fused_csr)
+from repro_torch.kernels.compact import EdgeQueue
+from repro_torch.kernels.layer_fused import FusedCsr, fused_csr
 from repro_torch.kernels.restoration import restoration_plain
 
 MODE_SCALAR = 0     # plain torch Algorithm 2/3 layer
@@ -222,9 +243,6 @@ class BeamerHybrid:
 # Shared per-layer building blocks
 # ---------------------------------------------------------------------------
 
-_DROP_SLOTS = 4096    # dropped marks spread over this many slots
-
-
 def restore_plain(parent, out, visited, n_vertices: int):
     """Plain restoration (§3.3.2): repair racy bitmap drops from the
     negative P marks.  Returns (parent, out, visited), all fixed."""
@@ -233,16 +251,43 @@ def restore_plain(parent, out, visited, n_vertices: int):
 
 
 def expand_candidates(u, v, valid, frontier, visited, parent,
-                      n_vertices: int, algorithm: str):
+                      n_vertices: int, algorithm: str, semiring=None,
+                      vals=None):
     """The post-gather Algorithm 2/3 body on a (B, N) edge stream.
 
     ``"simd"``: Algorithm 3 — racy bitmap scatter + restoration;
     ``"nonsimd"``: Algorithm 2 — exact dense updates.  Returns
-    (out, visited, parent).  (The reference's semiring branch, its
-    pure-jnp relax oracle, waits for ROADMAP.md §1 item 1.)"""
+    (out, visited, parent).
+
+    With a `algorithms.semiring.Semiring` and its (B, V_pad) ``vals``,
+    the generic relaxation instead (the reference's pure-jnp relax
+    oracle): each frontier edge's ``vals[u] ⊗ w`` candidate is folded
+    into ``vals`` by scatter-min (order-independent: no race, no
+    restoration), then each improved vertex takes the least u whose
+    candidate equals its new value.  Returns (improved words, new vals,
+    parent)."""
     n_batch, v_pad = parent.shape
     n_words = v_pad // bm.BITS_PER_WORD
     rows_b = torch.arange(n_batch, device=parent.device)[:, None]
+    if semiring is not None:
+        mask = valid & bm.test_bits(frontier, u) & (v < n_vertices)
+        u_c = u.clamp(0, v_pad - 1).to(torch.int64)
+        v_c = v.clamp(0, v_pad - 1).to(torch.int64)
+        cand = semiring.mul(torch.gather(vals, 1, u_c), u, v)
+        idx = torch.where(mask, v, v_pad).to(torch.int64)
+        new_vals = torch.cat([vals, vals[:, :1]], 1) \
+            .scatter_reduce(1, idx, cand, "amin")[:, :v_pad]
+        cur = torch.gather(new_vals, 1, v_c)
+        win = mask & (cand == cur) \
+            & semiring.improved(torch.gather(vals, 1, v_c), cur)
+        p_layer = torch.full((n_batch, v_pad + 1), ge.P_UNSET,
+                             dtype=torch.int32, device=parent.device)
+        p_layer.scatter_reduce_(1, torch.where(win, v, v_pad)
+                                .to(torch.int64), u.to(torch.int32),
+                                "amin")
+        improved = semiring.improved(vals, new_vals)
+        parent = torch.where(improved, p_layer[:, :v_pad], parent)
+        return bm.pack_bool(improved), new_vals, parent
     if algorithm == "nonsimd":         # Algorithm 2: exact dense updates
         vis_dense = bm.unpack_bool(visited)
         mask = valid & ~torch.gather(
@@ -274,21 +319,32 @@ def expand_candidates(u, v, valid, frontier, visited, parent,
 
 def _mark_blocks(start, end, has, tile: int, n_blocks: int):
     """Range-mark + compact: a +1/-1 difference scatter, a prefix sum,
-    `compact_worklist`.  Invalid ranges land on dropped slots past
-    ``n_blocks``; they are spread over `_DROP_SLOTS` slots because
-    millions of atomic adds on one address serialize on the card."""
-    n_batch, n_list = start.shape
+    `layer_fused.compact_worklist`.  ``has`` is (B, L); ``start`` and
+    ``end`` broadcast to it.  Invalid ranges land on dropped slots past
+    ``n_blocks``, spread over `bitmap.DROP_SLOTS` slots."""
+    n_batch, n_list = has.shape
     blk_lo = start // tile
     blk_hi = (end - 1) // tile
-    drop = n_blocks + 1 + torch.arange(n_list, device=start.device) \
-        % _DROP_SLOTS
-    diff = torch.zeros((n_batch, n_blocks + 1 + _DROP_SLOTS),
-                       dtype=torch.int32, device=start.device)
-    ones = torch.ones_like(blk_lo, dtype=torch.int32)
+    drop = n_blocks + 1 + torch.arange(n_list, device=has.device) \
+        % bm.DROP_SLOTS
+    diff = torch.zeros((n_batch, n_blocks + 1 + bm.DROP_SLOTS),
+                       dtype=torch.int32, device=has.device)
+    ones = torch.ones((n_batch, n_list), dtype=torch.int32,
+                      device=has.device)
     diff.scatter_add_(1, torch.where(has, blk_lo, drop), ones)
     diff.scatter_add_(1, torch.where(has, blk_hi + 1, drop), -ones)
     covered = torch.cumsum(diff[:, :n_blocks + 1], dim=1)[:, :n_blocks] > 0
-    return compact_worklist(covered, n_blocks)
+    return lf.compact_worklist(covered, n_blocks)
+
+
+def compact_worklist(active, n: int):
+    """Bool mask (B, n) -> (work-lists (B, n) int32, counts (B,) int32):
+    the work-list contract, `layer_fused.compact_worklist`; a (n,) mask
+    runs it at B = 1 and gives ((n,), ())."""
+    if active.ndim == 1:
+        wl, na = lf.compact_worklist(active[None], n)
+        return wl[0], na[0]
+    return lf.compact_worklist(active, n)
 
 
 def mark_blocks_from_queue(colstarts, queue, n_vertices: int, tile: int,
@@ -303,18 +359,47 @@ def mark_blocks_from_queue(colstarts, queue, n_vertices: int, tile: int,
                         n_blocks)
 
 
+def _plan_dense(colstarts, active_words, n_vertices: int, tile: int,
+                n_blocks: int):
+    """The dense-mask planning arm: (B, W) active bitmaps unpacked to a
+    (B, V) mask, every marked vertex's adjacency range marked.  No K2
+    and no planner launch; the same lists as the packed arm."""
+    dense = bm.unpack_bool(active_words)[:, :n_vertices]
+    cs = colstarts.to(torch.int64)
+    start, end = cs[:-1], cs[1:]
+    return _mark_blocks(start, end, dense & (end > start), tile, n_blocks)
+
+
 def plan_active_tiles_batched(colstarts, active_words, n_vertices: int,
-                              tile: int, n_blocks: int):
-    """Batched planning, packed arm: (B, W) active bitmaps -> ((B,
-    n_blocks) work-lists, (B,) live counts).  One K2 launch compacts the
-    batch; the block marking is plain torch.  The reference's planner,
-    kept as the yardstick of the union planner (`kernels.plan`), which
-    gives the same lists and which the engine runs."""
+                              tile: int, n_blocks: int,
+                              packed: bool = True):
+    """Batched planning: (B, W) active bitmaps -> ((B, n_blocks)
+    work-lists, (B,) live counts).  The packed arm compacts the batch
+    in one K2 launch and marks blocks from the queues; the dense arm
+    (``packed=False``, the ``fused_gather`` steps' planning there) marks
+    them from the unpacked mask.  The packed arm is the reference's
+    planner, kept as the yardstick of the union planner
+    (`kernels.plan`), which gives the same lists and which the packed
+    engine runs."""
+    if not packed:
+        return _plan_dense(colstarts, active_words, n_vertices, tile,
+                           n_blocks)
     v_pad = active_words.shape[1] * bm.BITS_PER_WORD
     queues, _ = ops.frontier_compact_batched(active_words, size=v_pad,
                                              fill=n_vertices)
     return mark_blocks_from_queue(colstarts, queues, n_vertices, tile,
                                   n_blocks)
+
+
+def plan_active_tiles(colstarts, active_words, n_vertices: int, tile: int,
+                      n_blocks: int, packed: bool = False):
+    """One root's planning ((W,) -> ((n_blocks,) work-list, () count)):
+    `plan_active_tiles_batched` at B = 1 (default the dense arm, as in
+    the reference)."""
+    wl, na = plan_active_tiles_batched(colstarts, active_words[None],
+                                       n_vertices, tile, n_blocks,
+                                       packed=packed)
+    return wl[0], na[0]
 
 
 def _pad_rows_to_tile(rows, n_vertices: int, tile: int):
@@ -328,21 +413,104 @@ def _pad_rows_to_tile(rows, n_vertices: int, tile: int):
     return rows.contiguous()
 
 
+def dense_queue(colstarts, words, list_size: int, n_vertices: int,
+                n_slots: int) -> EdgeQueue:
+    """The dense-mask arm's queue of (B, W) bitmaps: `bitmap.compact_mask`
+    of each row's bits (ascending ids, ``n_vertices``-filled, counts not
+    capped: K2's queue and counts) with each entry's inclusive degree
+    prefix, read from ``colstarts`` (past a root's count it holds its
+    total, where K2 writes nothing), and each root's total and truncated
+    edges — the `compact.EdgeQueue` that `ops.apportion` takes.  Plain
+    torch, with no host sync."""
+    queue, count = bm.compact_mask(bm.unpack_bool(words), list_size,
+                                   n_vertices)
+    is_real = queue < n_vertices
+    safe = torch.where(is_real, queue, 0).to(torch.int64)
+    deg = torch.where(is_real, colstarts[safe + 1] - colstarts[safe], 0)
+    cum = torch.cumsum(deg, dim=1, dtype=torch.int32)
+    total = cum[:, -1].contiguous() if list_size \
+        else cum.new_zeros((queue.shape[0],))
+    truncated = (total - n_slots).clamp(min=0).to(torch.int32)
+    return EdgeQueue(queue, count, cum, total, truncated)
+
+
 def _batched_edge_stream(colstarts, rows, deg, words, n_vertices: int,
-                         n_slots: int):
+                         n_slots: int, packed: bool = True):
     """(B, W) bitmaps -> the batched apportioned streams (u, v, valid,
-    truncated): one K2 launch compacts the batch with each entry's
-    degree prefix (``deg``: the padded degree array), `ops.apportion`
-    writes the stream from it."""
-    q = ops.frontier_queue(words, size=words.shape[1] * bm.BITS_PER_WORD,
-                           fill=n_vertices, deg=deg, n_vertices=n_vertices,
-                           n_slots=n_slots)
+    truncated): the queue with each entry's degree prefix — one K2
+    launch (``deg``: the padded degree array), or the dense-mask queue
+    (`dense_queue`) under ``packed=False`` — then `ops.apportion` writes
+    the stream from it."""
+    size = words.shape[1] * bm.BITS_PER_WORD
+    if packed:
+        q = ops.frontier_queue(words, size=size, fill=n_vertices, deg=deg,
+                               n_vertices=n_vertices, n_slots=n_slots)
+    else:
+        q = dense_queue(colstarts, words, size, n_vertices, n_slots)
     return ops.apportion(colstarts, rows, q, n_vertices=n_vertices,
                          n_slots=n_slots)
 
 
+def edge_stream(colstarts, rows, frontier_words, list_size: int,
+                n_vertices: int, n_slots: int, packed: bool = False):
+    """One root's apportioned (u, v, valid, truncated) stream of
+    ``n_slots`` slots over the adjacency of a (W,) bitmap's first
+    ``list_size`` vertices: the queue by K2's stream arm (``packed``) or
+    the dense mask (default, as in the reference), then
+    `ops.apportion`; the batched calls at B = 1."""
+    words = frontier_words[None].contiguous()
+    if packed:
+        deg = bm.degree_matrix(colstarts[1:] - colstarts[:-1],
+                               words.shape[1] * bm.BITS_PER_WORD)
+        q = ops.frontier_queue(words, size=list_size, fill=n_vertices,
+                               deg=deg.reshape(-1), n_vertices=n_vertices,
+                               n_slots=n_slots)
+    else:
+        q = dense_queue(colstarts, words, list_size, n_vertices, n_slots)
+    u, v, valid, trunc = ops.apportion(colstarts, rows, q,
+                                       n_vertices=n_vertices,
+                                       n_slots=n_slots)
+    return u[0], v[0], valid[0], trunc[0]
+
+
+def _bottomup_stream(colstarts, rows, visited_words, n_vertices: int,
+                     c_size: int, e_size: int):
+    """One root's stream over the adjacency of its unvisited vertices
+    (``~visited``: padding is premarked, so the complement is the real
+    undiscovered set), dense arm: the candidates are the stream's
+    owners."""
+    return edge_stream(colstarts, rows, ~visited_words, c_size,
+                       n_vertices, e_size)
+
+
+def scalar_expand(colstarts, rows, n_vertices: int, frontier, visited,
+                  parent, f_size: int, e_size: int, algorithm: str):
+    """One plain top-down CSR layer of one root (Algorithm 2/3): the
+    dense-arm `edge_stream` and `expand_candidates`.  The hostloop and
+    ``bfs_parallel.expand_*`` call it.  Returns (out, visited, parent,
+    truncated)."""
+    u, v, valid, truncated = edge_stream(colstarts, rows, frontier, f_size,
+                                         n_vertices, e_size)
+    out, visited, parent = expand_candidates(
+        u[None], v[None], valid[None], frontier[None], visited[None],
+        parent[None], n_vertices, algorithm)
+    return out[0], visited[0], parent[0], truncated
+
+
+def candidate_scatter(u, v, valid, visited, n_vertices: int, v_cap: int):
+    """A layer's discoveries as a min-parent candidate array of one
+    root: ``n_vertices`` (INF) everywhere, the least discovering parent
+    where a valid undiscovered candidate exists — the deterministic
+    merge primitive of the distributed step."""
+    mask = valid & ~bm.test_bits(visited, v) & (v < n_vertices)
+    idx = torch.where(mask, v, v_cap).to(torch.int64)
+    cand = torch.full((v_cap + 1,), n_vertices, dtype=torch.int32,
+                      device=u.device)
+    return cand.scatter_reduce_(0, idx, u.to(torch.int32), "amin")[:v_cap]
+
+
 def _make_scalar_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
-                      algorithm: str, tile: int):
+                      algorithm: str, tile: int, packed: bool = True):
     """Plain Algorithm 2/3 layer over the root batch: the apportioned
     stream (`_batched_edge_stream`; ``deg`` is the format's padded degree
     array), then `expand_candidates`.  Its StepAux reports the full
@@ -352,7 +520,7 @@ def _make_scalar_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
             u, v, valid, trunc = _batched_edge_stream(
-                colstarts, rows, deg, frontier, n_vertices, e_pad)
+                colstarts, rows, deg, frontier, n_vertices, e_pad, packed)
             out, visited, parent = expand_candidates(
                 u, v, valid, frontier, visited, parent, n_vertices,
                 algorithm)
@@ -364,11 +532,14 @@ def _make_scalar_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
 
 
 def kernel_expand_restore(nbr, cand, valid, frontier, visited, parent,
-                          n_vertices: int, check_frontier: bool = False):
+                          n_vertices: int, check_frontier: bool = False,
+                          single: bool = False):
     """The materialized layer's expand -> restore -> OR-delta sequence:
-    K7 over the apportioned stream, K1, and the delta merged into
-    ``out`` and ``visited``.  Returns (out, visited, parent)."""
-    out_racy, p_racy = ops.expand_batched(
+    K7 over the apportioned stream (K7s on one root's (N,) stream and
+    (W,) state where ``single``), K1, and the delta merged into ``out``
+    and ``visited``.  Returns (out, visited, parent)."""
+    expand = ops.expand if single else ops.expand_batched
+    out_racy, p_racy = expand(
         nbr, cand, valid, frontier, visited, torch.zeros_like(frontier),
         parent, n_vertices=n_vertices, check_frontier=check_frontier)
     p_fixed, delta = ops.restore(p_racy, n_vertices=n_vertices)
@@ -376,18 +547,18 @@ def kernel_expand_restore(nbr, cand, valid, frontier, visited, parent,
 
 
 def _make_simd_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
-                    tile: int):
+                    tile: int, packed: bool = True):
     """§4 SIMD layer, materialized pipeline: K2 compacts the frontier
-    with its degree prefix, the apportionment writes the full (u, v,
-    valid) stream of e_pad slots per root, K7 expands it and K1
-    restores.  Its StepAux reports the full stream's tiles, as the
-    reference does."""
+    with its degree prefix (``packed=False``: the dense-mask queue), the
+    apportionment writes the full (u, v, valid) stream of e_pad slots
+    per root, K7 expands it and K1 restores.  Its StepAux reports the
+    full stream's tiles, as the reference does."""
     tiles_per_root = -(-e_pad // tile)
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
             u, v, valid, trunc = _batched_edge_stream(
-                colstarts, rows, deg, frontier, n_vertices, e_pad)
+                colstarts, rows, deg, frontier, n_vertices, e_pad, packed)
             out, visited, parent = kernel_expand_restore(
                 u, v, valid, frontier, visited, parent, n_vertices)
         aux = StepAux(frontier.shape[0] * tiles_per_root, trunc.sum(),
@@ -398,18 +569,18 @@ def _make_simd_step(colstarts, rows, n_vertices: int, deg, e_pad: int,
 
 
 def _make_bottomup_step(colstarts, rows, n_vertices: int, deg,
-                        e_pad: int, tile: int):
+                        e_pad: int, tile: int, packed: bool = True):
     """Bottom-up layer, materialized pipeline: K2 compacts the unvisited
     set (``~visited``, exact because padding is premarked) with its
-    degree prefix, the apportionment streams its adjacency, and K7 tests
-    each neighbour against the frontier (``check_frontier``) before K1
-    restores."""
+    degree prefix (``packed=False``: the dense-mask queue), the
+    apportionment streams its adjacency, and K7 tests each neighbour
+    against the frontier (``check_frontier``) before K1 restores."""
     tiles_per_root = -(-e_pad // tile)
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
             cand, nbr, valid, trunc = _batched_edge_stream(
-                colstarts, rows, deg, ~visited, n_vertices, e_pad)
+                colstarts, rows, deg, ~visited, n_vertices, e_pad, packed)
             out, visited, parent = kernel_expand_restore(
                 nbr, cand, valid, frontier, visited, parent, n_vertices,
                 check_frontier=True)
@@ -421,17 +592,26 @@ def _make_bottomup_step(colstarts, rows, n_vertices: int, deg,
 
 
 def _make_fused_step(graph: FusedCsr, bottom_up: bool,
-                     prefetch_depth: int = 0):
+                     prefetch_depth: int = 0, packed: bool = True):
     """One fused_gather layer, both directions: the union planner lists
     the active rows-blocks of the frontier's adjacency (bottom-up: of
     the unvisited set's, ``~visited``, exact because padding is
     premarked) with their root masks, K3 (K4 at ``prefetch_depth > 0``)
-    gathers and expands them, K1 restores."""
+    gathers and expands them, K1 restores.  ``packed=False`` plans from
+    the dense mask instead (`_plan_dense`, the per-root lists folded by
+    `gather_expand.UnionPlan.of_lists`): the planner's ablation
+    baseline, with no planner launch."""
 
     def step(frontier, visited, parent):
         with ops.count_launches() as c:
-            plan = ops.plan_union(graph, visited if bottom_up else frontier,
-                                  complement=bottom_up)
+            if packed:
+                plan = ops.plan_union(graph, visited if bottom_up
+                                      else frontier, complement=bottom_up)
+            else:
+                wl, na = _plan_dense(graph.colstarts, ~visited if bottom_up
+                                     else frontier, graph.n_vertices,
+                                     graph.tile, graph.n_blocks)
+                plan = ge.UnionPlan.of_lists(wl, na, graph.n_blocks)
             out_racy, p_racy = ops.gather_expand_batched(
                 plan, graph.rows, graph.colstarts, frontier, visited,
                 torch.zeros_like(frontier), parent,
@@ -475,15 +655,18 @@ def check_prefetch(tile: int, prefetch_depth: int, n_blocks: int) -> None:
 
 def _make_steps(colstarts, rows, deg, n_vertices, v_pad, e_pad, algorithm,
                 tile, pipeline: str = "fused_gather",
-                prefetch_depth: int = 0):
+                prefetch_depth: int = 0, packed: bool = True):
     """Per-mode steps of a pipeline (``deg``: the format's padded degree
-    array, ``degree_matrix().reshape(-1)``, which K2's stream arm reads).  ``materialized`` is K2 + the
-    apportioned stream + K7 + K1 (`_make_simd_step`,
-    `_make_bottomup_step`).  ``megakernel`` (and the per-layer
-    steps of ``persistent``, which runs them only where its kernel
-    degrades) is K5, unless its budget does not fit: then it degrades,
-    observably, to the ``fused_gather`` steps.  Scalar layers are the
-    plain step in every pipeline."""
+    array, ``degree_matrix().reshape(-1)``, which K2's stream arm reads).
+    ``materialized`` is K2 + the apportioned stream + K7 + K1
+    (`_make_simd_step`, `_make_bottomup_step`).  ``megakernel`` (and
+    the per-layer steps of ``persistent``: its degrades and its
+    `CompiledTraversal.layer_step` tick) is K5, unless its budget does
+    not fit: then it degrades, observably, to the ``fused_gather``
+    steps.  Scalar layers are the plain step in every pipeline.
+    ``packed=False`` is the dense-mask arm of the planning (``fused_gather``)
+    and of the queues (``materialized``, scalar layers); K5 ignores it,
+    as in the reference."""
     rows = rows.contiguous()
     colstarts = colstarts.contiguous()
     rows_t = _pad_rows_to_tile(rows, n_vertices, tile)
@@ -503,17 +686,22 @@ def _make_steps(colstarts, rows, deg, n_vertices, v_pad, e_pad, algorithm,
         fused = False
     if pipeline == "materialized":
         simd = _make_simd_step(colstarts, rows, n_vertices, deg, e_pad,
-                               tile)
+                               tile, packed)
         bottomup = _make_bottomup_step(colstarts, rows, n_vertices, deg,
-                                       e_pad, tile)
+                                       e_pad, tile, packed)
     else:
         graph = fused_csr(colstarts, rows_t, n_vertices, tile, v_pad)
-        make = _make_megakernel_step if fused else _make_fused_step
-        simd, bottomup = (make(graph, bu, prefetch_depth)
-                          for bu in (False, True))
+        if fused:
+            simd, bottomup = (_make_megakernel_step(graph, bu,
+                                                    prefetch_depth)
+                              for bu in (False, True))
+        else:
+            simd, bottomup = (_make_fused_step(graph, bu, prefetch_depth,
+                                               packed)
+                              for bu in (False, True))
     return {
         MODE_SCALAR: _make_scalar_step(colstarts, rows, n_vertices, deg,
-                                       e_pad, algorithm, tile),
+                                       e_pad, algorithm, tile, packed),
         MODE_SIMD: simd,
         MODE_BOTTOMUP: bottomup,
     }
@@ -523,17 +711,19 @@ def policy_code(policy, n_vertices: int, n_roots: int,
                 max_layers: int) -> tf.PolicyCode | None:
     """A registered policy as the kernels' numbers (the constants its
     comparisons use, rounded to float32 as the policy's own float32
-    comparisons round them); None for any other policy."""
+    comparisons round them); None for any other policy, a subclass of a
+    registered one included (its ``decide`` may differ)."""
     f32 = lambda x: float(np.float32(x))
-    if isinstance(policy, TopDown):
+    kind = type(policy)
+    if kind is TopDown:
         return tf.PolicyCode(tf.TOPDOWN)
-    if isinstance(policy, ThresholdSimd):
+    if kind is ThresholdSimd:
         return tf.PolicyCode(tf.THRESHOLD_SIMD,
                              threshold=f32(policy.simd_threshold))
-    if isinstance(policy, PaperLiteralLayers):
+    if kind is PaperLiteralLayers:
         return tf.PolicyCode(tf.PAPER_LAYERS, simd_layers=tuple(
             int(l) for l in policy.simd_layers if 0 <= l < max_layers))
-    if isinstance(policy, BeamerHybrid):
+    if kind is BeamerHybrid:
         return tf.PolicyCode(
             tf.BEAMER, alpha=f32(policy.alpha),
             v_over_beta=f32(n_vertices * n_roots / policy.beta))
@@ -543,14 +733,15 @@ def policy_code(policy, n_vertices: int, n_roots: int,
 def encode_policy(policy, n_vertices: int, n_roots: int,
                   max_layers: int) -> tf.PolicyCode:
     """The whole-traversal kernel's numbers for a registered policy
-    (`policy_code`); any other policy raises."""
+    (`policy_code`); any other policy raises (the engine degrades such
+    a policy to the megakernel steps before it gets here:
+    `persistent_fallback`)."""
     code = policy_code(policy, n_vertices, n_roots, max_layers)
     if code is None:
         raise NotImplementedError(
-            f"pipeline='persistent' runs the registered policies (TopDown, "
-            f"ThresholdSimd, PaperLiteralLayers, BeamerHybrid); "
-            f"{type(policy).__name__} has no in-kernel encoding — use "
-            f"pipeline='megakernel'")
+            f"the whole-traversal kernels run the registered policies "
+            f"(TopDown, ThresholdSimd, PaperLiteralLayers, BeamerHybrid); "
+            f"{type(policy).__name__} has no in-kernel encoding")
     return code
 
 
@@ -607,35 +798,46 @@ def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
                         depths, stats)
 
 
-def _persistent_degrade(fmt, n_roots: int, spec):
-    """Where the whole-traversal kernel's budget does not fit: record
-    the degrade and return the spec of the per-layer fallback."""
-    record_degrade(
-        "smem_fallback",
-        reason=(f"persistent(format={fmt.name}, "
-                f"v_pad={fmt.n_vertices_padded}, roots={n_roots}, "
-                f"tile={spec.tile}, max_layers={spec.max_layers}, "
-                f"depth={spec.prefetch_depth}) needs "
-                f"{fmt.persistent_budget(spec)} bytes of shared memory "
-                f"per CTA, over {ops.SMEM_OPTIN_BYTES}"),
-        fallback="pipeline='megakernel' per-layer steps (>=1 launch/layer "
-                 "instead of 1/traversal)")
+def persistent_fallback(fmt, n_roots: int, spec):
+    """None where the whole-traversal kernel runs ``spec``; else, with
+    the degrade recorded, the ``megakernel`` spec of its per-layer
+    steps: for a policy the kernel cannot encode (the reference traces
+    any policy into its kernel and pins ``megakernel`` bit-identical to
+    it, so only the launches column differs), or where its shared
+    memory budget does not fit."""
+    if policy_code(spec.policy, fmt.n_vertices, n_roots,
+                   spec.max_layers) is None:
+        record_degrade(
+            "pipeline_unsupported",
+            reason=(f"pipeline='persistent' on {fmt.name!r}: "
+                    f"{type(spec.policy).__name__} is not a registered "
+                    f"policy and has no in-kernel encoding"),
+            fallback="pipeline='megakernel' per-layer steps (>=1 "
+                     "launch/layer instead of 1/traversal)")
+    elif fmt.persistent_fits(n_roots, spec):
+        return None
+    else:
+        record_degrade(
+            "smem_fallback",
+            reason=(f"persistent(format={fmt.name}, "
+                    f"v_pad={fmt.n_vertices_padded}, roots={n_roots}, "
+                    f"tile={spec.tile}, max_layers={spec.max_layers}, "
+                    f"depth={spec.prefetch_depth}) needs "
+                    f"{fmt.persistent_budget(spec)} bytes of shared "
+                    f"memory per CTA, over {ops.SMEM_OPTIN_BYTES}"),
+            fallback="pipeline='megakernel' per-layer steps (>=1 "
+                     "launch/layer instead of 1/traversal)")
     return spec.replace(pipeline="megakernel")
 
 
 def _traverse_impl(fmt, roots: torch.Tensor, spec, steps=None,
                    deg_mat=None) -> EngineResult:
-    """The engine body over a `formats.GraphFormat` and a *resolved*
+    """The host layer loop over a `formats.GraphFormat` and a *resolved*
     `api.spec.TraversalSpec`; ``roots`` is a (B,) int32 tensor on the
     graph's device.  ``steps``/``deg_mat`` come from the plan cache
-    (built here when absent).  ``pipeline="persistent"`` goes to the
-    format's whole-traversal kernel when its budget fits, else degrades
-    to the megakernel steps."""
-    if spec.pipeline == "persistent":
-        if fmt.persistent_fits(int(roots.shape[0]), spec):
-            return _traverse_persistent(fmt, roots, spec)
-        spec = _persistent_degrade(fmt, int(roots.shape[0]), spec)
-        steps = None
+    (built here when absent).  A ``persistent`` spec has no host loop:
+    the plan runs `_traverse_persistent`, or this loop over the
+    megakernel steps where `persistent_fallback` degrades it."""
     policy = spec.policy
     max_layers = spec.max_layers
     n_vertices = fmt.n_vertices
@@ -709,3 +911,245 @@ def direction_log(result: EngineResult) -> list[str]:
     buf = np.asarray(result.stats.cpu())
     return [MODE_NAMES[int(buf[i, _ST_MODE])]
             for i in range(buf.shape[0]) if buf[i, _ST_ACTIVE]]
+
+
+# ---------------------------------------------------------------------------
+# Tiles
+# ---------------------------------------------------------------------------
+
+def _next_pow2(n: int, lo: int = 128) -> int:
+    n = max(int(n), lo)
+    return 1 << (n - 1).bit_length()
+
+
+def default_tile_csr() -> int:
+    """Legacy alias: the auto CSR tile, `csr_format.DEFAULT_TILE` (no
+    benchmark table, no environment override)."""
+    from repro_torch.formats.csr_format import DEFAULT_TILE
+    return DEFAULT_TILE
+
+
+def _resolve_tile_csr(tile: int | None, e_pad: int) -> int:
+    """Legacy alias: `CsrFormat.resolve_tile` for ``e_pad`` rows slots."""
+    from repro_torch.formats.csr_format import CsrFormat
+    return CsrFormat(None, torch.empty((e_pad,), device="meta"), 0,
+                     0).resolve_tile(tile)
+
+
+# ---------------------------------------------------------------------------
+# The legacy entry points: thin shims over `api.plan`
+# ---------------------------------------------------------------------------
+
+_UNSET = object()       # legacy-shim sentinel: "knob not passed"
+
+def make_spec(*, policy=None, algorithm: str = "simd",
+              tile: int | None = None, max_layers: int = 64,
+              pipeline: str = "fused_gather", packed: bool = True,
+              prefetch_depth: int = 0):
+    """A `TraversalSpec` from legacy knob values (``policy=None`` ->
+    `TopDown()`, ``tile=None`` -> the format's auto rule): the one
+    knob -> spec constructor of the shims and the ``run_bfs*``
+    functions."""
+    from repro_torch.api.spec import TraversalSpec
+    return TraversalSpec(
+        policy=policy if policy is not None else TopDown(),
+        algorithm=algorithm, pipeline=pipeline, packed=packed,
+        tile="auto" if tile is None else tile,
+        prefetch_depth=prefetch_depth, max_layers=max_layers)
+
+
+def _spec_from_knobs(entry: str, spec, knobs: dict):
+    """The shims' spec: ``spec`` itself, or the loose knobs (name ->
+    value or `_UNSET`) over `make_spec`'s defaults, with a DeprecationWarning
+    when any is passed; ``spec=`` together with loose knobs raises
+    ValueError.  Unresolved: `api.plan.plan` resolves it."""
+    explicit = {k: v for k, v in knobs.items() if v is not _UNSET}
+    if spec is not None:
+        if explicit:
+            raise ValueError(
+                f"{entry}: pass either spec= or the loose knobs "
+                f"({sorted(explicit)}), not both")
+        return spec
+    if explicit:
+        warnings.warn(
+            f"{entry}: the loose-knob form "
+            f"({', '.join(sorted(explicit))}) is deprecated; pass "
+            f"spec=repro_torch.bfs.TraversalSpec(...) instead",
+            DeprecationWarning, stacklevel=3)
+    return make_spec(**explicit)
+
+
+def traverse_arrays(colstarts, rows, roots, *, n_vertices: int,
+                    policy=_UNSET, algorithm=_UNSET, tile=_UNSET,
+                    max_layers=_UNSET, pipeline=_UNSET, packed=_UNSET,
+                    prefetch_depth=_UNSET, spec=None,
+                    device=DEFAULT_DEVICE) -> EngineResult:
+    """The engine on raw CSR arrays, viewed through `CsrFormat`: a shim
+    over `api.plan.plan` (``spec=``; the loose knobs are deprecated).
+    Returns batched results."""
+    from repro_torch.api.plan import plan
+    from repro_torch.formats.csr_format import CsrFormat
+    fmt = CsrFormat(colstarts, rows, n_vertices, int(colstarts[-1]))
+    s = _spec_from_knobs(
+        "traverse_arrays", spec,
+        dict(policy=policy, algorithm=algorithm, tile=tile,
+             max_layers=max_layers, pipeline=pipeline, packed=packed,
+             prefetch_depth=prefetch_depth))
+    return plan(fmt, s, device=device).run_batched(roots)
+
+
+def traverse_format(fmt, roots, *, policy=_UNSET, algorithm=_UNSET,
+                    tile=_UNSET, max_layers=_UNSET, pipeline=_UNSET,
+                    packed=_UNSET, prefetch_depth=_UNSET, spec=None,
+                    device=DEFAULT_DEVICE) -> EngineResult:
+    """The engine on any built `GraphFormat`: a shim over
+    `api.plan.plan`.  Returns batched results."""
+    from repro_torch.api.plan import plan
+    s = _spec_from_knobs(
+        "traverse_format", spec,
+        dict(policy=policy, algorithm=algorithm, tile=tile,
+             max_layers=max_layers, pipeline=pipeline, packed=packed,
+             prefetch_depth=prefetch_depth))
+    return plan(fmt, s, device=device).run_batched(roots)
+
+
+def traverse(graph, roots, *, policy=_UNSET, algorithm=_UNSET,
+             tile=_UNSET, max_layers=_UNSET, pipeline=_UNSET,
+             packed=_UNSET, prefetch_depth=_UNSET, spec=None,
+             device=DEFAULT_DEVICE) -> EngineResult:
+    """Run the engine for one root (an int: unbatched results) or a
+    sequence of roots: a shim over `api.plan.plan(graph, spec).run`.
+
+    ``graph`` is a `Csr`, an `EdgeList` or a built `GraphFormat`;
+    ``spec`` a `TraversalSpec`.  The loose knobs (``policy=None`` ->
+    `TopDown()`, ``tile=None`` -> the format's auto rule) are the
+    deprecated form of the same fields."""
+    from repro_torch.api.plan import plan
+    s = _spec_from_knobs(
+        "traverse", spec,
+        dict(policy=policy, algorithm=algorithm, tile=tile,
+             max_layers=max_layers, pipeline=pipeline, packed=packed,
+             prefetch_depth=prefetch_depth))
+    return plan(graph, s, device=device).run(roots)
+
+
+def layer_step(colstarts, rows, frontier, visited, parent, *,
+               n_vertices: int, algorithm: str = "simd"):
+    """Advance every root of a (B, ...) batch by one scalar layer on raw
+    CSR arrays, where the state lies; roots with an empty frontier pass
+    through unchanged.  Returns (frontier, visited, parent); P is
+    updated in place."""
+    v_pad = int(parent.shape[-1])
+    e_pad = int(rows.shape[0])
+    deg = bm.degree_matrix(colstarts[1:] - colstarts[:-1], v_pad)
+    step = _make_scalar_step(colstarts.contiguous(), rows.contiguous(),
+                             n_vertices, deg.reshape(-1), e_pad, algorithm,
+                             _resolve_tile_csr(None, e_pad))
+    return step(frontier, visited, parent)[:3]
+
+
+def layer_step_format(fmt, frontier, visited, parent, *,
+                      algorithm=_UNSET, pipeline=_UNSET, packed=_UNSET,
+                      prefetch_depth=_UNSET, spec=None):
+    """One layer of a (B, ...) batch through a format's steps, where the
+    state lies: a shim over `api.plan.plan(fmt, spec).layer_step`."""
+    from repro_torch.api.plan import plan
+    s = _spec_from_knobs(
+        "layer_step_format", spec,
+        dict(algorithm=algorithm, pipeline=pipeline, packed=packed,
+             prefetch_depth=prefetch_depth))
+    return plan(fmt, s, device=frontier.device).layer_step(
+        frontier, visited, parent)
+
+
+# ---------------------------------------------------------------------------
+# The legacy host loop (pow2 buckets; one host read per layer)
+# ---------------------------------------------------------------------------
+
+def _hostloop_layer(colstarts, rows, frontier, visited, parent, *,
+                    n_vertices: int, mode: int, algorithm: str,
+                    f_size: int, e_size: int):
+    """One root's layer at its pow2 bucket, any mode, on the
+    materialized stream (dense arm): K7s + K1 for the SIMD and
+    bottom-up modes, the plain body for the scalar one.  Returns (out,
+    visited, parent, truncated)."""
+    if mode == MODE_SCALAR:
+        return scalar_expand(colstarts, rows, n_vertices, frontier,
+                             visited, parent, f_size, e_size, algorithm)
+    if mode == MODE_SIMD:
+        u, v, valid, trunc = edge_stream(colstarts, rows, frontier,
+                                         f_size, n_vertices, e_size)
+        return kernel_expand_restore(u, v, valid, frontier, visited,
+                                     parent, n_vertices,
+                                     single=True) + (trunc,)
+    # MODE_BOTTOMUP: f_size buckets the unvisited-candidate list
+    cand, nbr, valid, trunc = _bottomup_stream(colstarts, rows, visited,
+                                               n_vertices, f_size, e_size)
+    return kernel_expand_restore(nbr, cand, valid, frontier, visited,
+                                 parent, n_vertices, check_frontier=True,
+                                 single=True) + (trunc,)
+
+
+def traverse_hostloop(csr: Csr, root: int, *, policy=None,
+                      algorithm: str = "simd", tile: int | None = None,
+                      max_layers: int = 1024, collect_stats: bool = False,
+                      device=DEFAULT_DEVICE):
+    """The legacy layer loop of one root, with power-of-two buckets:
+    each layer measures its counters (the measure kernel), lets the
+    policy decide, reads the counters and the mode in one host read and
+    streams exactly the bucket's slots.  Returns (state, stats,
+    direction log); ``stats`` (with ``collect_stats``) are
+    `LayerStats` with the bucket's tile count (at ``tile``, default
+    `csr_format.DEFAULT_TILE`) and no launches."""
+    from repro_torch.formats.csr_format import DEFAULT_TILE
+    policy = policy if policy is not None else TopDown()
+    dev = resolve_device(device)
+    colstarts = csr.colstarts.to(dev).contiguous()
+    rows = csr.rows.to(dev).contiguous()
+    n_vertices = csr.n_vertices
+    deg = bm.degree_matrix(colstarts[1:] - colstarts[:-1],
+                           csr.n_vertices_padded).reshape(-1)
+    frontier, visited, parent = init_root_state(
+        root, padding_premarked_visited(n_vertices, device=dev), n_vertices)
+    bottom_up = torch.zeros((), dtype=torch.bool, device=dev)
+    rows_of: list[tuple] = []
+    log: list[str] = []
+    layer = 0
+    count = 0
+    while layer < max_layers:
+        c = ops.measure(frontier[None], visited[None]
+                        if policy.needs_unvisited else None, deg)
+        w = Workload(layer, *c.per_root[0], n_vertices, bottom_up)
+        mode_t, next_bottom_up = policy.decide(w)
+        # the layer's one host read: its counters and the mode
+        count, edges, u_count, u_edges, mode = torch.cat(
+            [c.per_root[0], mode_t.reshape(1)]).tolist()
+        if count == 0:
+            break
+        bottom_up = next_bottom_up
+        if mode == MODE_BOTTOMUP:
+            f_size, e_size = _next_pow2(u_count), _next_pow2(max(u_edges, 1))
+        else:
+            f_size, e_size = _next_pow2(count), _next_pow2(max(edges, 1))
+        frontier, visited, parent, trunc = _hostloop_layer(
+            colstarts, rows, frontier, visited, parent,
+            n_vertices=n_vertices, mode=mode, algorithm=algorithm,
+            f_size=f_size, e_size=e_size)
+        log.append(MODE_NAMES[mode])
+        t = tile if tile is not None else DEFAULT_TILE
+        rows_of.append((count, edges, -(-e_size // t), trunc))
+        layer += 1
+    else:
+        count = int(bm.popcount(frontier))
+    stats = []
+    if collect_stats and rows_of:
+        truncs = torch.stack([r[3] for r in rows_of]).tolist()
+        found = [r[0] for r in rows_of[1:]] + [count]
+        stats = [LayerStats(layer=i, frontier_vertices=f, edges_examined=e,
+                            discovered=d, active_tiles=n_tiles,
+                            truncated_edges=tr)
+                 for i, ((f, e, n_tiles, _), d, tr)
+                 in enumerate(zip(rows_of, found, truncs))]
+    state = BfsState(frontier, visited, parent,
+                     torch.tensor(layer, dtype=torch.int32, device=dev))
+    return state, stats, log

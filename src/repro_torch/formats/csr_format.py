@@ -3,7 +3,9 @@
 An adapter around `core/csr.py`: geometry, ``degrees``, the CSR tile
 rule (`resolve_tile`), the per-mode steps of `engine._make_steps` (the
 union planner, K3/K4 and K1 for ``fused_gather``; K2, the apportioned
-stream, K7 and K1 for ``materialized``; K5 for ``megakernel``), the
+stream, K7 and K1 for ``materialized``; K5 for ``megakernel``; under
+``packed=False`` the dense-mask planning and queues in place of the
+planner and K2), the
 whole-traversal kernel K6 (``persistent_graph`` / ``persistent_fits`` /
 ``persistent_run``) and the semiring relax step (the union planner +
 K11).  The baseline every other layout is measured against.
@@ -101,7 +103,8 @@ class CsrFormat(GraphFormat):
                                   self._n_vertices, self.n_vertices_padded,
                                   self.n_edges_padded, spec.algorithm,
                                   spec.tile, pipeline=spec.pipeline,
-                                  prefetch_depth=spec.prefetch_depth)
+                                  prefetch_depth=spec.prefetch_depth,
+                                  packed=spec.packed)
 
     def _build_semiring_step(self, spec, semiring):
         """The union planner lists the frontier's rows-blocks, K11 relaxes

@@ -19,12 +19,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.bitmap import DROP_SLOTS
 from repro_torch.kernels.compact import EdgeQueue
 
 THREADS = 256
 CTAS_PER_SM = 8        # grid cap: a grid-stride loop over warp units
 UNIT_SLOTS = 2048      # slots per warp unit (csrc/apportion.cu)
-DROP_SLOTS = 4096      # the plain version's dropped markers spread here
 
 
 def apportion_plain(colstarts, rows, frontier_list, n_vertices: int,
@@ -49,8 +49,7 @@ def apportion_plain(colstarts, rows, frontier_list, n_vertices: int,
     total = cum[:, -1] if n_list else cum.new_zeros((n_batch,))
     truncated = (total - n_slots).clamp(min=0).to(torch.int32)
     # sentinel entries end at ``total``, past every valid slot: their
-    # markers go to dropped slots, spread as in
-    # `engine._mark_blocks`
+    # markers go to dropped slots, spread over `bitmap.DROP_SLOTS`
     drop = n_slots + 1 + torch.arange(n_list, device=dev) % DROP_SLOTS
     markers = torch.zeros((n_batch, n_slots + 1 + DROP_SLOTS), **i32)
     markers.scatter_add_(

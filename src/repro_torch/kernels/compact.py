@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.bitmap import BITS_PER_WORD, word_bits
+from repro_torch.core.bitmap import BITS_PER_WORD, compact_mask, unpack_bool
 
 TILE_WORDS = 256    # words per CTA in the CUDA kernel (csrc/compact.cu)
 
@@ -40,20 +40,10 @@ class EdgeQueue(NamedTuple):
 
 
 def compact_plain(words: torch.Tensor, size: int, fill: int):
-    """(B, W) words -> ((B, size) int32 queue, (B,) int32 counts): rank
-    every set bit by an exclusive prefix sum over the lanes and scatter
-    its id to its rank (ranks past ``size`` land in a dropped slot)."""
-    n_batch, n_words = words.shape
-    bits = word_bits(words).reshape(n_batch, -1)
-    rank = torch.cumsum(bits, dim=1) - bits
-    col = torch.where(bits != 0, rank, size).clamp(max=size)
-    vid = torch.arange(n_words * BITS_PER_WORD, dtype=torch.int32,
-                       device=words.device).expand(n_batch, -1)
-    queue = torch.full((n_batch, size + 1), int(fill), dtype=torch.int32,
-                       device=words.device)
-    queue.scatter_(1, col, vid)
-    return queue[:, :size].contiguous(), \
-        bits.sum(dim=1).to(torch.int32)
+    """(B, W) words -> ((B, size) int32 queue, (B,) int32 counts):
+    `bitmap.compact_mask` of the unpacked bits (a prefix sum ranks every
+    set bit and a scatter puts its id at its rank)."""
+    return compact_mask(unpack_bool(words), size, fill)
 
 
 def queue_plain(words: torch.Tensor, size: int, fill: int,

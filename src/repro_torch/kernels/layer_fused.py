@@ -84,20 +84,10 @@ def fused_csr(colstarts: torch.Tensor, rows_t: torch.Tensor,
 def compact_worklist(active: torch.Tensor, n: int):
     """Bool mask (B, n) -> (worklist (B, n) int32, n_active (B,) int32).
 
-    Active indices first; every entry past ``n_active`` is clamped to
-    the last active index (all zeros when nothing is active) — the
-    work-list contract of the reference.  Built from a prefix sum and a
-    scatter, with no ``nonzero`` and no host sync."""
-    n_batch = active.shape[0]
-    n_active = active.sum(dim=1).to(torch.int32)
-    rank = torch.cumsum(active.to(torch.int64), dim=1) - 1
-    slot = torch.where(active, rank, n)
-    wl = torch.zeros((n_batch, n + 1), dtype=torch.int32,
-                     device=active.device)
-    wl.scatter_(1, slot, torch.arange(n, dtype=torch.int32,
-                                      device=active.device)
-                .expand(n_batch, -1).contiguous())
-    wl = wl[:, :n]
+    Active indices first (`bitmap.compact_mask`); every entry past
+    ``n_active`` is clamped to the last active index (all zeros when
+    nothing is active) — the work-list contract of the reference."""
+    wl, n_active = bm.compact_mask(active, n, 0)
     last = torch.gather(
         wl, 1, (n_active.to(torch.int64) - 1).clamp(0, n - 1)[:, None])
     pos = torch.arange(n, device=active.device)

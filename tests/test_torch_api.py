@@ -1,6 +1,6 @@
-"""The port's public surface: spec dicts shared with the reference, the
-typed refusal of what is not ported, the device rule, auto resolution,
-the plan cache, the run() contracts and import hygiene."""
+"""The port's public surface: spec dicts shared with the reference, every
+reference value ported, the device rule, auto resolution, the plan
+cache, the run() contracts, an `EdgeList` graph and import hygiene."""
 import os
 import subprocess
 import sys
@@ -69,11 +69,11 @@ def test_resolved_spec_dict_loads_in_reference(rmat):
 
 #: values ported since the parametrization below was written: they now
 #: resolve and run (the fusion levels, K4-K6; the materialized pipeline,
-#: K7; the semiring portfolio, K11-K12)
+#: K7; the semiring portfolio, K11-K12; the dense-mask arm) — all of them
 PORTED = {("pipeline", "megakernel"), ("pipeline", "persistent"),
           ("prefetch_depth", 2), ("pipeline", "materialized"),
           ("algorithm", "sssp"), ("algorithm", "cc"),
-          ("algorithm", "ksource_bfs")}
+          ("algorithm", "ksource_bfs"), ("packed", False)}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -83,32 +83,27 @@ PORTED = {("pipeline", "megakernel"), ("pipeline", "persistent"),
     ("algorithm", "ksource_bfs"),
 ])
 def test_unported_values_raise_not_implemented(rmat, field, value):
-    """Values not ported raise a typed refusal naming their ROADMAP
-    item; the values of `PORTED` resolve, load from a reference dict and
-    run on the CPU: the BFS pipelines like the default pipeline, the
-    portfolio with values and, but for cc (which labels every vertex),
-    the default's reached set."""
+    """Every value the reference accepts is ported (`PORTED`): it
+    resolves, loads from a reference dict and runs on the CPU: the BFS
+    pipelines and arms like the default pipeline, the portfolio with
+    values and, but for cc (which labels every vertex), the default's
+    reached set."""
+    assert (field, value) in PORTED
     spec = bfs.TraversalSpec(**{field: value})
-    if (field, value) in PORTED:
-        ct = bfs.plan(rmat, spec, device="cpu")
-        assert getattr(ct.resolved, field) == value
-        assert bfs.TraversalSpec.from_dict(
-            RefSpec(**{field: value}).to_dict()) == spec
-        got = ct.run_batched([17, 3])
-        base = bfs.plan(rmat, bfs.TraversalSpec(), device="cpu") \
-            .run_batched([17, 3])
-        if field == "algorithm":
-            assert got.values is not None
-            if value != "cc":
-                assert torch.equal(got.state.visited, base.state.visited)
-            return
-        assert torch.equal(got.state.visited, base.state.visited)
-        assert torch.equal(got.depths, base.depths)
+    ct = bfs.plan(rmat, spec, device="cpu")
+    assert getattr(ct.resolved, field) == value
+    assert bfs.TraversalSpec.from_dict(
+        RefSpec(**{field: value}).to_dict()) == spec
+    got = ct.run_batched([17, 3])
+    base = bfs.plan(rmat, bfs.TraversalSpec(), device="cpu") \
+        .run_batched([17, 3])
+    if field == "algorithm":
+        assert got.values is not None
+        if value != "cc":
+            assert torch.equal(got.state.visited, base.state.visited)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        bfs.plan(rmat, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        bfs.TraversalSpec.from_dict(RefSpec(**{field: value}).to_dict())
+    assert torch.equal(got.state.visited, base.state.visited)
+    assert torch.equal(got.depths, base.depths)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -201,6 +196,31 @@ def test_check_roots_matches_reference(roots):
     with pytest.raises(GraphValidationError) as got_err:
         check_roots(roots, 512)
     assert str(got_err.value) == str(ref_err.value)
+
+
+def test_plan_takes_an_edge_list():
+    """An `EdgeList` is built into a CSR on the plan's device, as the
+    reference wraps one: the reference's result (stats, visited,
+    depths, direction log)."""
+    from repro.core import rmat as ref_rmat
+    import jax
+    from _torch_parity import ref_spec
+    from repro_torch.core.rmat import EdgeList
+    edges = ref_rmat.generate(jax.random.PRNGKey(5), scale=8,
+                              edgefactor=8)
+    ct = ref_bfs.plan(edges, ref_spec(ref_engine.BeamerHybrid()))
+    ref = ct.run_batched(np.asarray([3, 9], np.int32))
+    t_edges = EdgeList(torch.from_numpy(np.asarray(edges.src)),
+                       torch.from_numpy(np.asarray(edges.dst)),
+                       edges.n_vertices)
+    got = bfs.plan(t_edges, bfs.TraversalSpec(
+        policy=bfs.BeamerHybrid(), tile=ct.resolved.tile, max_layers=128),
+        device="cpu").run_batched([3, 9])
+    np.testing.assert_array_equal(got.stats.numpy(), np.asarray(ref.stats))
+    np.testing.assert_array_equal(interop.words_to_numpy(got.state.visited),
+                                  np.asarray(ref.state.visited))
+    np.testing.assert_array_equal(got.depths.numpy(), np.asarray(ref.depths))
+    assert bfs.direction_log(got) == ref_engine.direction_log(ref)
 
 
 def test_plan_rejects_a_broken_graph():

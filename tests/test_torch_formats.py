@@ -352,8 +352,20 @@ def test_sell_persistent_rejects_nonsimd(graphs):
 
 
 def test_unported_values_name_the_formats(graphs):
-    with pytest.raises(NotImplementedError, match="csr, sell and bitmap"):
-        tbfs.TraversalSpec(packed=False).validate()
+    """``packed=False``, the last value that was not ported, now
+    validates, resolves and runs on each of the three formats, with the
+    packed arm's visited sets and depths."""
+    tbfs.TraversalSpec(packed=False).validate()
+    roots = FORMAT_ROOTS["rmat9"][1]
+    for name in ("csr", "sell", "bitmap"):
+        _, fmt = _pair(name, graphs["rmat9"])
+        ct = tbfs.plan(fmt, tbfs.TraversalSpec(packed=False), device="cpu")
+        assert ct.resolved.packed is False
+        got = ct.run_batched(roots)
+        want = tbfs.plan(fmt, tbfs.TraversalSpec(),
+                         device="cpu").run_batched(roots)
+        assert torch.equal(got.state.visited, want.state.visited)
+        assert torch.equal(got.depths, want.depths)
 
 
 # ---------------------------------------------------------------------------

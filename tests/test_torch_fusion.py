@@ -326,13 +326,41 @@ def test_prefetch_ring_past_shared_memory_is_refused(graphs):
                       device="cpu")
 
 
-def test_persistent_refuses_an_unregistered_policy(graphs):
+def test_persistent_degrades_an_unregistered_policy(graphs):
+    """A policy the whole-traversal kernel cannot encode runs the
+    megakernel steps with exactly one recorded ``pipeline_unsupported``
+    degrade: the megakernel's result (columns 0-6 as contracted), and
+    the registered policy's persistent run's but for the launches and,
+    on scalar layers, K6's planned tiles."""
     class Custom(t_engine.ThresholdSimd):
         pass
-    with pytest.raises(NotImplementedError, match="in-kernel encoding"):
-        tbfs.plan(to_port(graphs["rmat9"]),
-                  tbfs.TraversalSpec(policy=Custom(), pipeline="persistent"),
-                  device="cpu")
+    gt = to_port(graphs["rmat9"])
+    roots = [3, 7, 11]
+    errors.DEGRADES.clear()
+    with pytest.warns(RuntimeWarning, match="pipeline_unsupported"):
+        got = tbfs.plan(gt, tbfs.TraversalSpec(
+            policy=Custom(), pipeline="persistent"),
+            device="cpu").run_batched(roots)
+    assert [e.site for e in errors.DEGRADES] == ["pipeline_unsupported"]
+    assert "megakernel" in errors.DEGRADES[0].fallback
+    errors.DEGRADES.clear()
+    mega = tbfs.plan(gt, tbfs.TraversalSpec(policy=Custom(),
+                                            pipeline="megakernel"),
+                     device="cpu").run_batched(roots)
+    persistent = tbfs.plan(gt, tbfs.TraversalSpec(
+        policy=t_engine.ThresholdSimd(), pipeline="persistent"),
+        device="cpu").run_batched(roots)
+    assert not errors.DEGRADES
+    assert torch.equal(got.stats, mega.stats)
+    assert torch.equal(got.stats[:, :7], mega.stats[:, :7])
+    scalar = got.stats[:, 3] == t_engine.MODE_SCALAR
+    for col in range(7):
+        rows = ~scalar if col == 5 else slice(None)
+        assert torch.equal(got.stats[rows, col],
+                           persistent.stats[rows, col])
+    for res in (mega, persistent):
+        assert torch.equal(got.state.visited, res.state.visited)
+        assert torch.equal(got.depths, res.depths)
 
 
 def test_budgets_clamp_depth_to_the_block_count():
