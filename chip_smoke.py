@@ -155,7 +155,30 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    timed run launched; d. at SCALE 16, ``plan(EdgeList)`` equal to
    ``plan(from_edges(...))`` and ``persistent`` under a subclass of
    ThresholdSimd recording exactly one ``pipeline_unsupported`` degrade
-   and equal to the megakernel's run.
+   and equal to the megakernel's run;
+12. (run after 11) the port's serve tier, observability and Graph500
+   harness on the main path's graph (`configs.bfs_graph500`
+   ``rmat-22``): a. `core.stats.run_harness` over 64 roots from
+   ``--seed``, unfiltered and degree > 0, with the main path's plan
+   ``run(root)``: every run valid against the level-synchronous BFS,
+   the zero-edge runs exactly the degree-0 roots, a ``graph500`` JSON
+   line per draw (harmonic-mean and max TEPS, zero runs, mean seconds);
+   b. `serve.graph_engine.GraphEngine` (CSR, `SERVE.batch_slots`
+   slots) answering the 64 connected roots: every tree valid with the
+   oracle's depths, per tick one planner call, K3, K1 and one measure
+   count launch (counted, and by the profiler over three ticks), no
+   plain counter; latency and tick percentiles, the harvest copy and
+   the per-tick state snapshot timed; the same queries on the
+   autotuner's SELL layout; a chaos run (two failed ticks, a stall,
+   two poisoned slots) delivering every query exactly once and none
+   corrupted, with the counters as injected; retry exhaustion
+   re-queuing and raising `TickRetriesExhausted`; the portfolio
+   queries equal to phase 9's results bitwise; c. `trace_run` on the
+   main path's plan and roots: per-layer frontier, edges and discovered
+   equal to the ThresholdSimd(0) traversal of phase 11b, one span per
+   layer, one measure launch per layer + 1 and no plain counter, the
+   Chrome JSON parsed, `torch_profiler`'s trace naming K3, and the
+   persistent branch one span whose stats equal ``run_batched``'s.
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -181,8 +204,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.bfs_graph500 import GRAPHS, SERVE  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-BATCH = 8                     # BfsServeConfig.batch_slots
+#: the main path's workload: Graph500 R-MAT SCALE 22, edgefactor 16
+MAIN = GRAPHS["rmat-22"]
+BATCH = SERVE.batch_slots     # 8 roots per traversal and serve slots
 REPLACES = {
     "restoration": "src/repro/kernels/restoration.py:65",
     "frontier_compact_batched": "src/repro/kernels/compact.py:211",
@@ -1771,7 +1798,9 @@ def phase_portfolio(g, roots, oracle, reps: int):
     an empty frontier and passes the edge certificate; cc (one root)
     equals scipy's min-id components; CSR and SELL agree bitwise on
     values, parents, layers and stats columns 0-4.  Returns ({kernel:
-    results}, {kernel: launches}): K11 and K12 are timed on the largest
+    results}, {kernel: launches}, the SELL planner's row, {algorithm:
+    (values, parents) of the CSR run, on the host}): K11 and K12 are
+    timed on the largest
     layers of the ksource_bfs runs, so their launches are those runs'
     (the sssp and cc runs' are printed beside them).  Every measure call
     of each warm-up run is replayed against its plain version
@@ -1779,8 +1808,9 @@ def phase_portfolio(g, roots, oracle, reps: int):
     run's (3B, W) counts (`count_only_row`), whose launches it counts."""
     import torch
     import repro_torch.bfs as bfs
-    from repro_torch import errors, formats
+    from repro_torch import formats
     from repro_torch.algorithms.semiring import INT_INF, edge_weight
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.kernels import ops
     n = g.n_vertices
     layouts = {"csr": g, "sell": formats.build(g, "auto")}
@@ -1797,6 +1827,7 @@ def phase_portfolio(g, roots, oracle, reps: int):
     per_run = {}
     cap = {}
     results = {}
+    kept = {}
     for alg, alg_roots, fields in (
             ("ksource_bfs", roots, {}), ("sssp", roots,
                                          dict(max_layers=512)),
@@ -1817,7 +1848,7 @@ def phase_portfolio(g, roots, oracle, reps: int):
             if alg == "sssp" and lay == "csr":
                 popcount_row = count_only_row(measured.calls, reps)
             del measured
-            errors.DEGRADES.clear()
+            clear_degrade_log()
             ops.reset_kernel_launches()
             times = []
             with CallCount(PLAIN_PLANNING + PLAIN_COUNTERS) as plain:
@@ -1828,7 +1859,7 @@ def phase_portfolio(g, roots, oracle, reps: int):
                     times.append(time.perf_counter() - t0)
                     if len(times) == 1:
                         counted = dict(ops.KERNEL_LAUNCHES)
-            assert not errors.DEGRADES, errors.DEGRADES
+            assert not degrade_log(), degrade_log()
             k = kernel_of[lay]
             assert counted[k] > 0, f"{alg} {lay}: {k} never launched"
             assert not any(plain.counts.values()), \
@@ -1860,6 +1891,8 @@ def phase_portfolio(g, roots, oracle, reps: int):
                 assert torch.equal(vals[0], cc_want), f"cc {lay}: labels"
             if lay == "csr":
                 base = res
+                kept[alg] = (res.values[:, :n].cpu(),
+                             res.state.parent[:, :n].cpu())
             else:
                 for what, a, b in (
                         ("values", res.values.view(torch.int32),
@@ -1894,7 +1927,7 @@ def phase_portfolio(g, roots, oracle, reps: int):
     rows = {name: dict(kres["ksource_bfs"][name])
             for name in kernel_of.values()}
     rows["popcount"] = popcount_row
-    return rows, launches, sell_plan
+    return rows, launches, sell_plan, kept
 
 
 def synthetic_k7_stream(cap, check_frontier: bool, seed: int) -> dict:
@@ -2804,12 +2837,13 @@ def phase_dense(g, roots, base, oracle, edges: int,
     return launched_by
 
 
-def phase_ticks(g, roots, oracle) -> None:
+def phase_ticks(g, roots, oracle) -> list:
     """Phase 11b: `CompiledTraversal.layer_step` from the initial state
     until every frontier is empty (one host read per tick) on
     `TICK_PIPELINES`: visited, frontier and the tick count equal the
     ThresholdSimd(0) traversal (the SIMD step on every layer); trees
-    valid."""
+    valid.  Returns the ``fused_gather`` ThresholdSimd(0) traversal's
+    `LayerStats` (phase 12c's reference)."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch.core import engine
@@ -2843,8 +2877,11 @@ def phase_ticks(g, roots, oracle) -> None:
             f"in {walls[-1]:.6f} s (warm-up {walls[0]:.6f} s); visited, "
             f"frontier and layers equal the ThresholdSimd(0) traversal; "
             f"trees valid")
+        if pipeline == "fused_gather":
+            simd_stats = bfs.layer_stats(want)
         del ct, want, st
         bfs.clear_plan_cache()
+    return simd_stats
 
 
 def phase_legacy(g, root: int, oracle) -> None:
@@ -2856,11 +2893,11 @@ def phase_legacy(g, root: int, oracle) -> None:
     policy."""
     import torch
     import repro_torch.bfs as bfs
-    from repro_torch import errors
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.core import bfs_hybrid, bfs_parallel, bfs_vectorized
     from repro_torch.core import engine
     from repro_torch.kernels import ops
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     replays = {}
 
     def timed(name, fn):
@@ -2926,7 +2963,7 @@ def phase_legacy(g, root: int, oracle) -> None:
             f"layers, {took}; per-layer frontier/edges/discovered "
             f"equal the traversal's stats columns 0-2; log {hl_log}; tree "
             f"valid")
-    assert not errors.DEGRADES, errors.DEGRADES
+    assert not degrade_log(), degrade_log()
     bfs.clear_plan_cache()
 
 
@@ -2937,10 +2974,11 @@ def phase_repairs(seed: int, device) -> None:
     (columns 0-6 and everything else)."""
     import torch
     import repro_torch.bfs as bfs
-    from repro_torch import errors
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.core import csr as csr_mod
     from repro_torch.core import rmat
-    edges = rmat.generate(seed, 16, 16, device=device)
+    edges = rmat.generate(seed, 16, GRAPHS["rmat-16"].edgefactor,
+                          device=device)
     g16 = csr_mod.from_edges(edges, device=device)
     roots16 = pick_roots(g16, BATCH, seed + 3)
     a = bfs.plan(edges, bfs.TraversalSpec()).run_batched(roots16)
@@ -2955,15 +2993,15 @@ def phase_repairs(seed: int, device) -> None:
 
     class Custom(bfs.ThresholdSimd):
         pass
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = bfs.plan(g16, bfs.TraversalSpec(
         policy=Custom(), pipeline="persistent")).run_batched(roots16)
-    sites = [e.site for e in errors.DEGRADES]
-    assert sites == ["pipeline_unsupported"], errors.DEGRADES
-    errors.DEGRADES.clear()
+    sites = [e.site for e in degrade_log()]
+    assert sites == ["pipeline_unsupported"], degrade_log()
+    clear_degrade_log()
     mega = bfs.plan(g16, bfs.TraversalSpec(
         policy=Custom(), pipeline="megakernel")).run_batched(roots16)
-    assert not errors.DEGRADES, errors.DEGRADES
+    assert not degrade_log(), degrade_log()
     for what, x, y in (("stats columns 0-6", got.stats[:, :7],
                         mega.stats[:, :7]),
                        ("stats", got.stats, mega.stats),
@@ -2976,10 +3014,357 @@ def phase_repairs(seed: int, device) -> None:
     bfs.clear_plan_cache()
 
 
+def oracle_of(g, known: dict):
+    """A level-synchronous BFS depth oracle for any root of ``g``
+    (`level_bfs_depths`, cached; ``known`` seeds the cache) and a
+    function that frees its edge list."""
+    import torch
+    state = {}
+
+    def depths(root: int):
+        root = int(root)
+        if root not in known:
+            if "src" not in state:
+                state["src"] = torch.repeat_interleave(
+                    torch.arange(g.n_vertices, device=g.rows.device),
+                    g.degrees().long(), output_size=g.n_edges)
+                state["dst"] = g.rows[:g.n_edges].long()
+            known[root] = level_bfs_depths(state["src"], state["dst"],
+                                           g.n_vertices, root)
+        return known[root]
+    return depths, state.clear
+
+
+def phase_harness(g, ct, oracle, seed: int):
+    """Phase 12a: the Graph500 harness (`core.stats.run_harness`) on the
+    main path's graph and plan, ``run(root)``, over `MAIN.n_roots` roots
+    from ``seed``: unfiltered (the paper) and degree > 0 (Graph500).
+    Every run valid against the level-synchronous oracle; the zero-edge
+    runs are exactly the degree-0 roots; no plain counter.  Returns the
+    connected draw's roots."""
+    from repro_torch.core.stats import choose_roots, run_harness
+    from repro_torch.kernels import ops
+    deg = g.degrees().cpu()
+    big = g.n_vertices // 100
+    for label, connected in (("paper", False), ("graph500", True)):
+        roots = choose_roots(seed, g.n_vertices, MAIN.n_roots, degrees=deg,
+                             require_connected=connected)
+        assert len(roots) == MAIN.n_roots, (label, len(roots))
+        ops.reset_kernel_launches()
+        with CallCount(PLAIN_COUNTERS) as plain:
+            res = run_harness(g, lambda c, r: ct.run(r).state, seed,
+                              roots=roots, validate_runs=True,
+                              reference_depths_fn=oracle)
+        assert not any(plain.counts.values()), plain.counts
+        assert all(r.valid for r in res.runs), \
+            [r.root for r in res.runs if not r.valid]
+        zero = sorted(r.root for r in res.runs if r.edges == 0)
+        deg0 = sorted(int(r) for r in roots if int(deg[int(r)]) == 0)
+        assert zero == deg0, (zero, deg0)
+        giant = [r.teps for r in res.runs if r.reached >= big]
+        log(json.dumps({"graph500": label, "require_connected": connected,
+                        "n_roots": len(res.runs),
+                        "hmean_teps": res.hmean_teps,
+                        "max_teps": res.max_teps,
+                        "n_zero_runs": res.n_zero_runs,
+                        "mean_s": res.mean_seconds,
+                        "median_teps": statistics.median(
+                            r.teps for r in res.runs),
+                        "giant_runs": len(giant),
+                        "giant_hmean_teps": len(giant) / sum(
+                            1 / t for t in giant) if giant else 0.0,
+                        "small_component_runs": sum(
+                            0 < r.edges and r.reached < big
+                            for r in res.runs),
+                        "valid": sum(bool(r.valid) for r in res.runs),
+                        "launches": {k: n for k, n in
+                                     ops.KERNEL_LAUNCHES.items() if n}}))
+    log(f"graph500 harness: {MAIN.n_roots} roots per draw, every run "
+        f"valid, zero-edge runs exactly the degree-0 roots; no plain "
+        f"counters")
+    return [int(r) for r in roots]
+
+
+def serve_queries(eng, roots, oracle, g) -> float:
+    """Submit one query per root, drain, and hold the delivery: every
+    uid exactly once, untruncated, each tree valid with the oracle's
+    depths and its layers equal to the oracle's depth.  Returns the
+    wall seconds from the first submit to the drained queue."""
+    import torch
+    from repro_torch.core.validate import validate
+    from repro_torch.serve.graph_engine import BfsQuery
+    t0 = time.perf_counter()
+    for i, r in enumerate(roots):
+        eng.submit(BfsQuery(uid=i, root=r))
+    eng.run_until_done()
+    wall = time.perf_counter() - t0
+    uids = sorted(q.uid for q in eng.finished)
+    assert uids == list(range(len(roots))), uids
+    for q in eng.finished:
+        assert q.done and not q.truncated and q.error is None, q.uid
+        depth = oracle(q.root)
+        assert validate(g, torch.from_numpy(q.parent).to(g.rows.device),
+                        q.root, reference_depth=depth).ok, q.uid
+        assert q.n_layers == int(depth.max()) + 1, (q.uid, q.n_layers)
+    return wall
+
+
+def tick_sections(eng) -> dict:
+    """Wrap the engine's tick sections (the dispatch with its state
+    snapshot, the harvests, the slot refills) so that each adds its wall
+    seconds, the card synchronised at both ends, to the returned dict."""
+    import torch
+    spent = {}
+    for name in ("_dispatch_with_retry", "_harvest", "_fill_slots"):
+        def timed(*a, _orig=getattr(eng, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **kw)
+            torch.cuda.synchronize()
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(eng, name, timed)
+    return spent
+
+
+def phase_serve(g, roots, oracle, portfolio: dict, roots8) -> None:
+    """Phase 12b: the query service at the main path's size."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms.semiring import INT_INF
+    from repro_torch.errors import InjectedFault, TickRetriesExhausted
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import robust
+    from repro_torch.serve.graph_engine import BfsQuery, GraphEngine
+
+    def engine(fmt="csr", **kw):
+        return GraphEngine(g, batch_slots=SERVE.batch_slots,
+                           graph_format=fmt, registry=MetricsRegistry(),
+                           device=g.rows.device, **kw)
+
+    serve_queries(engine(), roots[:BATCH], oracle, g)       # warm-up
+    eng = engine()
+    ops.reset_kernel_launches()
+    torch.cuda.synchronize()
+    with CallCount(PLAIN_COUNTERS) as plain:
+        wall = serve_queries(eng, roots, oracle, g)
+    launched = {k: n for k, n in ops.KERNEL_LAUNCHES.items() if n}
+    ticks = int(eng.metrics.counter("serve.ticks").value)
+    assert not any(plain.counts.values()), plain.counts
+    assert launched == {"plan_union": ticks, "gather_expand_batched": ticks,
+                        "restoration": ticks, "popcount": ticks}, \
+        (launched, ticks)
+    lat = eng.metrics.histogram("serve.query_latency_s")
+    tick = eng.metrics.histogram("serve.tick_s")
+    # the harvest's one copy of a parent row: dropped at once (host pages
+    # reused), and kept as a delivered tree is (fresh host pages each)
+    row = eng.parent[0, :g.n_vertices]
+    copies = {"dropped": [], "kept": []}
+    delivered = []
+    for how in ("dropped", "kept", "dropped", "kept"):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = torch.where(row >= g.n_vertices, -1, row).cpu().numpy()
+            copies[how].append(time.perf_counter() - t1)
+            if how == "kept":
+                delivered.append(out)
+            del out
+    del delivered
+    state = (eng.frontier, eng.visited, eng.parent)
+    snapshot_ms = cuda_ms(lambda: [t.clone() for t in state], 10)
+    log(json.dumps({
+        "serve": "csr", "queries": len(roots), "slots": SERVE.batch_slots,
+        "ticks": ticks, "wall_s": wall, "queries_per_s": len(roots) / wall,
+        "query_latency_s": {"p50": lat.percentile(0.5),
+                            "p99": lat.percentile(0.99)},
+        "tick_s": {"p50": tick.percentile(0.5), "p99": tick.percentile(0.99),
+                   "mean": tick.sum / tick.count},
+        "harvest_copy_s": statistics.median(copies["dropped"]),
+        "harvest_copy_kept_s": statistics.median(copies["kept"]),
+        "harvest_bytes": 4 * g.n_vertices,
+        "snapshot_ms": snapshot_ms,
+        "snapshot_bytes": sum(4 * t.numel() for t in state),
+        "launches": launched}))
+    # the profiler: per tick one planner call (two launches), K3, K1 and
+    # one measure count launch; no plain counter
+    for i, r in enumerate(roots[:BATCH]):
+        eng.submit(BfsQuery(uid=100 + i, root=r))
+    ticked = []
+
+    def three_ticks():
+        before = eng.metrics.counter("serve.ticks").value
+        for _ in range(3):
+            eng.step()
+        ticked.append(int(eng.metrics.counter("serve.ticks").value - before))
+    from torch.profiler import ProfilerActivity
+    events, wall_us = traced_device_events(
+        three_ticks, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    kernels = {e.key: e.count for e in events}
+    busy_us = sum(e.self_device_time_total for e in events)
+    n = ticked[-1]          # the ticks of the trace the profiler kept
+    per_tick = {name: launches_of(kernels, name) for name in (
+        "plan_masks_csr", "plan_write", "gather_expand_kernel",
+        "restoration_kernel", "measure_kernel")}
+    assert n > 0 and all(v == n for v in per_tick.values()), \
+        (n, per_tick, kernels)
+    eng.run_until_done()
+    del eng
+    # where a tick's time goes: the same queries on a fresh engine whose
+    # tick sections are timed (synchronised, so this run is slower)
+    eng = engine()
+    spent = tick_sections(eng)
+    wall_sections = serve_queries(eng, roots, oracle, g)
+    n_ticks = eng.metrics.counter("serve.ticks").value
+    log(json.dumps({"serve_tick_sections": {
+        "ticks": n_ticks, "wall_s": wall_sections,
+        "dispatch_s": spent["_dispatch_with_retry"],
+        "harvest_s": spent["_harvest"], "fill_s": spent["_fill_slots"],
+        "other_s": wall_sections - sum(spent.values())}}))
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    log(json.dumps({"serve_profile": {
+        "ticks": n, "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / wall_us,
+        "top": {e.key[:60]: [e.count, e.self_device_time_total / 1e3]
+                for e in top}}}))
+    log(f"serve csr: {len(roots)} queries over {SERVE.batch_slots} slots in "
+        f"{ticks} ticks, every tree valid with the oracle's depths; the "
+        f"profiler over {n} ticks: {per_tick} (the planner's two launches "
+        f"per call); no plain counters")
+    del eng
+
+    # the autotuner's layout (SELL on this graph)
+    eng = engine("auto")
+    ops.reset_kernel_launches()
+    with CallCount(PLAIN_COUNTERS) as plain:
+        wall = serve_queries(eng, roots, oracle, g)
+    launched = {k: n for k, n in ops.KERNEL_LAUNCHES.items() if n}
+    ticks = int(eng.metrics.counter("serve.ticks").value)
+    assert not any(plain.counts.values()), plain.counts
+    assert launched.get("sell_expand_batched") == launched.get(
+        "restoration") == launched.get("popcount") == ticks, launched
+    log(f"serve {eng.fmt.name}: {len(roots)} queries in {ticks} ticks, "
+        f"{wall:.6f} s, every tree valid; launches {json.dumps(launched)}")
+    del eng
+
+    # chaos: failures at two ticks, one stall, poisoned slots at two
+    inj = robust.ServeFaultInjector(fail_ticks=(3, 7), slow_ticks=(5,),
+                                    slow_s=0.05, poison=((2, 1), (6, 4)))
+    eng = engine(injector=inj, retry_backoff_s=0.001)
+    serve_queries(eng, roots, oracle, g)
+    c = eng.metrics.snapshot()["counters"]
+    assert inj.faults_remaining == 0
+    assert (c["serve.retries"], c["serve.poisoned"], c["serve.requeued"]) \
+        == (2, 2, 2), c
+    assert sum(q.retries for q in eng.finished) == 2
+    log(f"serve chaos: {len(roots)} queries delivered exactly once, none "
+        f"corrupted; retries {c['serve.retries']:g}, poisoned "
+        f"{c['serve.poisoned']:g}, requeued {c['serve.requeued']:g}")
+    del eng
+
+    class AlwaysFail(robust.ServeFaultInjector):
+        def check_tick(self, tick):
+            if tick == 0:
+                raise InjectedFault("tick 0 always fails")
+    eng = engine(injector=AlwaysFail(), max_tick_retries=2,
+                 retry_backoff_s=0.001)
+    qs = [BfsQuery(uid=i, root=r) for i, r in enumerate(roots[:BATCH])]
+    for q in qs:
+        eng.submit(q)
+    try:
+        eng.step()
+        raise AssertionError("retry exhaustion did not raise")
+    except TickRetriesExhausted as e:
+        assert isinstance(e.__cause__, InjectedFault)
+    assert len(eng.queue) == BATCH and all(q.retries == 1 for q in qs)
+    eng.run_until_done()
+    assert sorted(q.uid for q in eng.finished) == list(range(BATCH))
+    log(f"serve retry exhaustion: {BATCH} in-flight queries re-queued, "
+        f"TickRetriesExhausted raised, then all delivered")
+    del eng
+
+    # the portfolio equals phase 9's results bitwise
+    eng = engine()
+    dist, parent = eng.shortest_paths(roots8)
+    vals, par = portfolio["sssp"]
+    assert torch.equal(torch.from_numpy(dist).view(torch.int32),
+                       vals.view(torch.int32)), "sssp distances"
+    assert np.array_equal(parent, torch.where(torch.isfinite(vals), par,
+                                              -1).numpy()), "sssp parents"
+    labels, n_comp = eng.components()
+    assert torch.equal(torch.from_numpy(labels), portfolio["cc"][0][0]), \
+        "cc labels"
+    depths = eng.ksource_depths(roots8)
+    kvals = portfolio["ksource_bfs"][0]
+    assert np.array_equal(depths, torch.where(kvals >= int(INT_INF), -1,
+                                              kvals).numpy()), \
+        "ksource depths"
+    log(f"serve portfolio: shortest_paths, components ({n_comp}) and "
+        f"ksource_depths on {len(roots8)} roots equal phase 9 bitwise")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_trace(ct, roots, simd_stats) -> None:
+    """Phase 12c: `trace_run` on the main path's plan and roots."""
+    import glob
+    import tempfile
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    ops.reset_kernel_launches()
+    with CallCount(PLAIN_COUNTERS) as plain:
+        tr = ct.trace_run(roots)
+    assert not any(plain.counts.values()), plain.counts
+    want = [tuple(s[:4]) for s in simd_stats]
+    assert [tuple(s[:4]) for s in tr.stats] == want, (tr.stats, want)
+    names = [s.name for s in tr.tracer.spans]
+    assert names.count(trace.LAYER_SPAN) == names.count(trace.STEP_SPAN) \
+        == len(tr.stats) == len(want)
+    assert ops.KERNEL_LAUNCHES["measure"] == len(tr.stats) + 1, \
+        ops.KERNEL_LAUNCHES
+    top = next(s for s in tr.tracer.spans if s.name == trace.TRAVERSAL_SPAN)
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = json.load(open(tr.tracer.export(f"{tmp}/trace.json")))
+        assert len(doc["traceEvents"]) == len(tr.tracer) + 1
+        tr2 = ct.trace_run(roots, profile_logdir=tmp)
+        assert [tuple(s[:4]) for s in tr2.stats] == want
+        (path,) = glob.glob(f"{tmp}/bfs_trace_*.json")
+        events = json.load(open(path))["traceEvents"]
+        k3 = sum("gather_expand_kernel" in str(e.get("name", ""))
+                 for e in events)
+    assert k3 > 0, "the profiler's trace names no K3 launch"
+    log(json.dumps({"trace_run": "fused_gather", "roots": len(roots),
+                    "layers": len(tr.stats), "spans": len(tr.tracer),
+                    "traversal_s": top.dur_us / 1e6,
+                    "layer_s": tr.layer_seconds,
+                    "measure_launches": ops.KERNEL_LAUNCHES["measure"],
+                    "profiled_k3_events": k3}))
+    ctp = bfs.plan(ct.fmt, bfs.TraversalSpec(pipeline="persistent"),
+                   device=ct.fmt.device)
+    trp = ctp.trace_run(roots)
+    assert [s.name for s in trp.tracer.spans] == [trace.PERSISTENT_SPAN]
+    assert trp.stats == bfs.layer_stats(ctp.run_batched(roots))
+    assert [tuple(s[:4]) for s in trp.stats] == \
+        [tuple(s[:4]) for s in bfs.layer_stats(ct.run_batched(roots))]
+    log(f"trace_run: {len(tr.stats)} layer spans equal the ThresholdSimd(0) "
+        f"traversal's frontier/edges/discovered, one measure launch per "
+        f"layer + 1, no plain counters; Chrome JSON parsed; the profiler's "
+        f"trace names K3 ({k3} events); persistent: one span, stats equal "
+        f"run_batched's ({trp.tracer.spans[0].dur_us / 1e3:.3f} ms)")
+    del ctp, trp
+    torch.cuda.empty_cache()
+
+
 def make_graph(scale: int, seed: int, device: str):
+    """The R-MAT graph of `GRAPHS` at ``scale`` (its edgefactor)."""
     from repro_torch.core import csr as csr_mod
     from repro_torch.core import rmat
-    edges = rmat.generate(seed, scale, 16, device=device)
+    edges = rmat.generate(seed, scale, GRAPHS[f"rmat-{scale}"].edgefactor,
+                          device=device)
     g = csr_mod.from_edges(edges, device=device)
     del edges
     return g
@@ -3025,13 +3410,13 @@ def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
     ``kernels`` launched."""
     import torch
     import repro_torch.bfs as bfs
-    from repro_torch import errors
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.kernels import ops
     ct = bfs.plan(graph, bfs.TraversalSpec(**fields))
     assert isinstance(ct.resolved.policy, bfs.BeamerHybrid), ct.resolved
     ct.run_batched(roots)                           # warm-up
     torch.cuda.synchronize()
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     ops.reset_kernel_launches()
     times = []
     with CallCount(PLAIN_COUNTERS) as plain:
@@ -3042,7 +3427,7 @@ def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
             times.append(time.perf_counter() - t0)
             if len(times) == 1:
                 launches = dict(ops.KERNEL_LAUNCHES)
-    assert not errors.DEGRADES, f"{name}: degraded: {errors.DEGRADES}"
+    assert not degrade_log(), f"{name}: degraded: {degrade_log()}"
     assert not any(plain.counts.values()), \
         f"{name}: plain counters or apportionment ran: {plain.counts}"
     for kernel in kernels:
@@ -3075,9 +3460,10 @@ def run_path(graph, g, roots, name: str, fields: dict, kernels, per_layer,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--scale", type=int, default=22,
-                    help="R-MAT scale of the main path (22; 20 is the "
-                         "only allowed cut)")
+    ap.add_argument("--scale", type=int, default=MAIN.scale,
+                    help="R-MAT scale of the main path (22, from "
+                         "configs.bfs_graph500; 20 is the only allowed "
+                         "cut)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed repetitions per kernel")
     ap.add_argument("--profile", action="store_true",
@@ -3092,7 +3478,7 @@ def main(argv=None) -> int:
               "smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import repro_torch.bfs as bfs
-    from repro_torch import errors
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.core import bfs_serial
     from repro_torch.core.csr import traversed_edges
     from repro_torch.kernels import _build, ops
@@ -3106,8 +3492,9 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} x{torch.cuda.device_count()}")
-    if args.scale != 22:
-        log(f"CUT: main path at SCALE {args.scale} instead of 22")
+    if args.scale != MAIN.scale:
+        log(f"CUT: main path at SCALE {args.scale} instead of "
+            f"{MAIN.scale}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -3280,7 +3667,7 @@ def main(argv=None) -> int:
             launches[name] = n
 
     # 9. the semiring portfolio at the main path's size
-    port_kres, port_launches, sell_plan = phase_portfolio(
+    port_kres, port_launches, sell_plan, portfolio = phase_portfolio(
         g, roots, oracle_depths.__getitem__, args.reps)
     kres.update(port_kres)
     kres["plan_union"]["sell"] = {k: sell_plan[k] for k in (
@@ -3299,10 +3686,17 @@ def main(argv=None) -> int:
     dense_launches = phase_dense(g, roots, res, oracle_depths.__getitem__,
                                  edges, args.profile)
     log(json.dumps({"dense_launches": dense_launches}))
-    phase_ticks(g, roots, oracle_depths.__getitem__)
+    simd_stats = phase_ticks(g, roots, oracle_depths.__getitem__)
     phase_legacy(g, roots[0], oracle_depths.__getitem__)
     phase_repairs(args.seed, "cuda")
-    del ct, res, parents, g, oracle_depths
+
+    # 12. the Graph500 harness, the query service and trace_run
+    oracle, free_oracle = oracle_of(g, oracle_depths)
+    roots64 = phase_harness(g, ct, oracle, args.seed)
+    phase_serve(g, roots64, oracle, portfolio, roots)
+    free_oracle()
+    phase_trace(ct, roots, simd_stats)
+    del ct, res, parents, g, oracle_depths, oracle, portfolio
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
 
@@ -3327,7 +3721,7 @@ def main(argv=None) -> int:
         base16 = bfs.plan(g16, bfs.TraversalSpec(policy=pol)) \
             .run_batched(roots16)
         trees_ok(g16, base16, roots16, serial)
-        errors.DEGRADES.clear()
+        clear_degrade_log()
         runs = [(g16, fields) for fields, _ in PATHS.values()]
         runs += [(sell16, fields) for fields, _, _ in SELL_PATHS.values()]
         runs += [(gr, dict(pipeline="materialized")) for gr in (g16, sell16)]
@@ -3344,7 +3738,7 @@ def main(argv=None) -> int:
                     f"{type(pol).__name__} {type(graph).__name__} " \
                     f"{fields}: {what} differ"
             assert bfs.direction_log(res) == bfs.direction_log(base16)
-        assert not errors.DEGRADES, errors.DEGRADES
+        assert not degrade_log(), degrade_log()
         log(f"policy {type(pol).__name__} @ SCALE 16: trees valid, root 0 "
             f"depths equal bfs_serial, every CSR and SELL pipeline equals "
             f"fused_gather; {bfs.direction_log(base16)}")

@@ -18,7 +18,8 @@ holds the resolved spec, so each pipeline and prefetch depth has its
 own entry.  The format part of the key is the identity of the format's
 arrays, which the cache entry holds, so two graphs of equal geometry
 never share padded arrays.  `CompiledTraversal.layer_step` advances a
-state by one layer through the same steps (the serve tick).
+state by one layer through the same steps (the serve tick), and
+`CompiledTraversal.trace_run` times each such layer.
 
 A spec whose ``algorithm`` is in the semiring portfolio (``sssp``,
 ``cc``, ``ksource_bfs``: `TraversalSpec.is_semiring`) binds the
@@ -241,6 +242,16 @@ class CompiledTraversal:
             f, v, p, _ = step(state.frontier, state.visited, state.parent)
             return _engine.BfsState(f, v, p, state.layer + 1)
         return step(state, visited, parent)[:3]
+
+    def trace_run(self, roots, *, tracer=None, sync: bool = True,
+                  profile_logdir: str | None = None):
+        """Instrumented traversal: host-steps this plan's ``layer_step``
+        recording per-layer wall-clock spans — the opt-in timing mode
+        (`repro_torch.obs.trace.trace_run`); ``run`` is untouched.
+        Returns a `repro_torch.obs.trace.TraceRun`."""
+        from repro_torch.obs.trace import trace_run as _trace_run
+        return _trace_run(self, roots, tracer=tracer, sync=sync,
+                          profile_logdir=profile_logdir)
 
     def stats(self, result) -> list[_engine.LayerStats]:
         """Decode a result's stats buffer (Table 1 rows)."""

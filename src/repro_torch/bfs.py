@@ -12,9 +12,9 @@
     fmt = formats.build(csr, "auto")  # the autotuner's layout (SELL on R-MAT)
     bfs.plan(fmt, spec).run_batched([3, 7, 11])
 
-The same contracts as ``repro.bfs``.  ``__all__`` is its subset:
-``SpanTracer``, ``TraceRun`` and ``trace_run`` arrive with the
-observability slice.
+    tr = bfs.trace_run(csr, [3, 7])   # per-layer spans (obs.trace)
+
+The same contracts as ``repro.bfs``, and the same ``__all__``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from repro_torch.core.engine import (BeamerHybrid, BfsState, EngineResult,
                                      LayerStats, PaperLiteralLayers,
                                      ThresholdSimd, TopDown,
                                      direction_log, layer_stats, traverse)
+from repro_torch.obs.trace import SpanTracer, TraceRun, trace_run
 
 __all__ = [
     "BeamerHybrid",
@@ -36,8 +37,10 @@ __all__ = [
     "LayerStats",
     "POLICIES",
     "PaperLiteralLayers",
+    "SpanTracer",
     "ThresholdSimd",
     "TopDown",
+    "TraceRun",
     "TraversalSpec",
     "clear_plan_cache",
     "direction_log",
@@ -45,5 +48,6 @@ __all__ = [
     "parents_graph500",
     "plan",
     "plan_cache_info",
+    "trace_run",
     "traverse",
 ]

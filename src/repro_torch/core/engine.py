@@ -91,7 +91,7 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core.csr import Csr, padding_premarked_visited
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.errors import record_degrade
+from repro_torch.obs.metrics import record_degrade
 from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
@@ -748,6 +748,15 @@ def encode_policy(policy, n_vertices: int, n_roots: int,
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------
+
+def row_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """Set-bit count over the trailing word axis: (B, W) -> (B,) int32,
+    or (W,) -> () int32.  The serve engine's finished-slot scan: on a
+    CUDA tensor one launch of the measure kernel's count-only arm, on
+    the CPU its plain version."""
+    rows = words.reshape(-1, words.shape[-1]).contiguous()
+    return ops.measure(rows).per_root[:, 0].reshape(words.shape[:-1])
+
 
 def init_root_state(root: int, base_visited: torch.Tensor,
                     n_vertices: int):

@@ -44,7 +44,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.csr import Csr, round_up
-from repro_torch.errors import GraphValidationError, record_degrade
+from repro_torch.errors import GraphValidationError
+from repro_torch.obs.metrics import record_degrade
 from repro_torch.formats.base import Footprint, GraphFormat, nbytes
 from repro_torch.formats.registry import register
 from repro_torch.kernels import ops

@@ -1,0 +1,43 @@
+"""Observability — spans, metrics, and the analytic bytes model (a port
+of ``repro.obs``).
+
+* `obs.trace`      — span tracer (traversal → layer → step nesting,
+  wall clock + optional device sync) exporting Chrome trace-event
+  JSON, the host-stepped instrumented traversal (`trace_run`) over the
+  plan's `layer_step`, and `torch_profiler`, which takes the place of
+  the reference's ``xla_profiler``.
+* `obs.metrics`    — process-local counters/gauges/histograms with a
+  JSON snapshot and Prometheus-style text exposition; the serve tier
+  records latency, tick time, queue depth and slot occupancy through
+  it, and `record_degrade` is the port's one emission point for
+  degrades.
+* `obs.cost_drift` — the analytic half only: `Drift`,
+  `analytic_layer_bytes` and `drift_rows`.  ``measure_drift`` compares
+  the model against XLA's compiled program, which has no torch
+  counterpart, and is not ported yet.
+"""
+from repro_torch.obs.cost_drift import Drift, drift_rows
+from repro_torch.obs.metrics import (Counter, DegradeEvent, Gauge, Histogram,
+                                     MetricsRegistry, clear_degrade_log,
+                                     degrade_log, get_registry,
+                                     record_degrade)
+from repro_torch.obs.trace import (SpanTracer, TraceRun, torch_profiler,
+                                   trace_run)
+
+__all__ = [
+    "Counter",
+    "DegradeEvent",
+    "Drift",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "SpanTracer",
+    "TraceRun",
+    "clear_degrade_log",
+    "degrade_log",
+    "drift_rows",
+    "get_registry",
+    "record_degrade",
+    "torch_profiler",
+    "trace_run",
+]

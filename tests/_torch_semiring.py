@@ -15,9 +15,10 @@ from repro.formats.sell import SellFormat as RefSell
 
 from _torch_parity import ROOTS, to_port, words_np
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats
+from repro_torch import formats
 from repro_torch.algorithms import semiring as sr
 from repro_torch.core.bfs_serial import bfs_serial
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 ALGORITHMS = sr.SEMIRING_ALGORITHMS
 FORMATS = ("csr", "sell")
@@ -126,10 +127,10 @@ def check_portfolio(graphs, graph_name, fmt_name, algorithm):
     g = graphs[graph_name]
     roots = ROOTS[graph_name][1]
     ct, ref = reference(graphs, graph_name, fmt_name, algorithm)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = run_port(graphs, graph_name, fmt_name, algorithm,
                     ct.resolved.tile, roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     assert got.values.dtype == sr.get(algorithm).torch_dtype
     np.testing.assert_array_equal(got.values.numpy().view(np.int32),
                                   np.asarray(ref.values).view(np.int32))

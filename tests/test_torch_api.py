@@ -231,7 +231,7 @@ def test_plan_rejects_a_broken_graph():
 
 
 def test_public_surface_is_a_subset_of_the_reference():
-    assert set(bfs.__all__) <= set(ref_bfs.__all__)
+    assert bfs.__all__ == ref_bfs.__all__
     for name in bfs.__all__:
         assert hasattr(bfs, name)
     assert set(bfs.POLICIES) == set(ref_bfs.POLICIES)

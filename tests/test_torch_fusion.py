@@ -10,6 +10,8 @@ which its own tests pin equal to all three fused paths.  Every check is
 exact.  The ``cuda`` twins compare each CUDA kernel with its plain
 version and skip without a card.
 """
+import logging
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,13 +28,14 @@ from _torch_parity import (BUILDERS, POLICY_IDS, POLICY_PAIRS, ROOTS,
                            words_np)
 from test_torch_kernels import _check_repaired, _layer_case, _run_reference
 import repro_torch.bfs as tbfs
-from repro_torch import errors, interop
+from repro_torch import interop
 from repro_torch.core import engine as t_engine
 from repro_torch.core.validate import validate as t_validate
 from repro_torch.kernels import gather_expand as t_ge
 from repro_torch.kernels import layer_fused as t_lf
 from repro_torch.kernels import ops
 from repro_torch.kernels import traversal_fused as t_tf
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 
 @pytest.fixture(scope="module")
@@ -237,9 +240,9 @@ def test_fusion_path_matches_reference(graphs, graph_name, variant,
     t_pol = POLICY_PAIRS[policy_index][1]
     spec = tbfs.TraversalSpec(policy=t_pol, tile=ct.resolved.tile,
                               max_layers=128, **VARIANTS[variant])
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = tbfs.plan(to_port(g), spec, device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     st_t, st_r = got.stats.numpy(), np.asarray(ref.stats)
     np.testing.assert_array_equal(st_t[:, :5], st_r[:, :5])
     np.testing.assert_array_equal(st_t[:, 6], st_r[:, 6])
@@ -289,11 +292,11 @@ def test_single_root_run_is_unbatched(graphs, pipeline):
 # Budgets and degrades
 # ---------------------------------------------------------------------------
 
-def test_budget_miss_degrades_observably(graphs, monkeypatch):
+def test_budget_miss_degrades_observably(graphs, monkeypatch, caplog):
     """A shared-memory limit between K4's ring and K5's budget: the
     megakernel degrades to fused_gather, the persistent kernel to the
-    megakernel and on to fused_gather; each degrade is recorded and
-    warned, and the answer is unchanged."""
+    megakernel and on to fused_gather; each degrade is recorded in the
+    degrade log and logged, and the answer is unchanged."""
     gt = to_port(graphs["rmat9"])
     roots = [3, 7]
     spec = dict(policy="beamer", tile=128, prefetch_depth=2)
@@ -304,16 +307,19 @@ def test_budget_miss_degrades_observably(graphs, monkeypatch):
                         t_ge.stage_bytes(128, 2) + 1)
     assert not ops.megakernel_fits(128, 2, 100)
     for pipeline, n_events in (("megakernel", 1), ("persistent", 2)):
-        errors.DEGRADES.clear()
-        with pytest.warns(RuntimeWarning, match="smem_fallback"):
+        clear_degrade_log()
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="repro_torch.serve"):
             got = tbfs.plan(gt, tbfs.TraversalSpec(pipeline=pipeline, **spec),
                             device="cpu").run_batched(roots)
-        assert len(errors.DEGRADES) == n_events
-        assert all(e.site == "smem_fallback" for e in errors.DEGRADES)
-        assert "fused_gather" in errors.DEGRADES[-1].fallback
+        assert any("degrade[smem_fallback]" in r.getMessage()
+                   for r in caplog.records)
+        assert len(degrade_log()) == n_events
+        assert all(e.site == "smem_fallback" for e in degrade_log())
+        assert "fused_gather" in degrade_log()[-1].fallback
         assert torch.equal(got.state.visited, base.state.visited)
         assert torch.equal(got.stats, base.stats)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
 
 
 def test_prefetch_ring_past_shared_memory_is_refused(graphs):
@@ -326,7 +332,7 @@ def test_prefetch_ring_past_shared_memory_is_refused(graphs):
                       device="cpu")
 
 
-def test_persistent_degrades_an_unregistered_policy(graphs):
+def test_persistent_degrades_an_unregistered_policy(graphs, caplog):
     """A policy the whole-traversal kernel cannot encode runs the
     megakernel steps with exactly one recorded ``pipeline_unsupported``
     degrade: the megakernel's result (columns 0-6 as contracted), and
@@ -336,21 +342,24 @@ def test_persistent_degrades_an_unregistered_policy(graphs):
         pass
     gt = to_port(graphs["rmat9"])
     roots = [3, 7, 11]
-    errors.DEGRADES.clear()
-    with pytest.warns(RuntimeWarning, match="pipeline_unsupported"):
+    clear_degrade_log()
+    with caplog.at_level(logging.WARNING, logger="repro_torch.serve"):
         got = tbfs.plan(gt, tbfs.TraversalSpec(
             policy=Custom(), pipeline="persistent"),
             device="cpu").run_batched(roots)
-    assert [e.site for e in errors.DEGRADES] == ["pipeline_unsupported"]
-    assert "megakernel" in errors.DEGRADES[0].fallback
-    errors.DEGRADES.clear()
+    assert [r.getMessage().split(":")[0] for r in caplog.records
+            if r.name == "repro_torch.serve"] == \
+        ["degrade[pipeline_unsupported]"]
+    assert [e.site for e in degrade_log()] == ["pipeline_unsupported"]
+    assert "megakernel" in degrade_log()[0].fallback
+    clear_degrade_log()
     mega = tbfs.plan(gt, tbfs.TraversalSpec(policy=Custom(),
                                             pipeline="megakernel"),
                      device="cpu").run_batched(roots)
     persistent = tbfs.plan(gt, tbfs.TraversalSpec(
         policy=t_engine.ThresholdSimd(), pipeline="persistent"),
         device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     assert torch.equal(got.stats, mega.stats)
     assert torch.equal(got.stats[:, :7], mega.stats[:, :7])
     scalar = got.stats[:, 3] == t_engine.MODE_SCALAR

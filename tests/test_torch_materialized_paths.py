@@ -23,9 +23,10 @@ from repro.formats.sell import SellFormat as RefSell
 from _torch_parity import (BUILDERS, POLICY_IDS, POLICY_PAIRS, ROOTS,
                            to_port, words_np)
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats
+from repro_torch import formats
 from repro_torch.core.validate import validate as t_validate
 from repro_torch.kernels import ops
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 SIGMA = 1024
 CASES = [("rmat9", f, p) for f in ("csr", "sell") for p in range(4)] + [
@@ -53,12 +54,12 @@ def test_materialized_matches_reference(graphs, graph_name, fmt_name,
     gt = to_port(g)
     fmt = gt if fmt_name == "csr" \
         else formats.SellFormat.from_csr(gt, sigma=SIGMA)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     before = dict(ops.KERNEL_LAUNCHES)
     got = tbfs.plan(fmt, tbfs.TraversalSpec(
         policy=t_pol, pipeline="materialized", tile=ct.resolved.tile,
         max_layers=128), device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     assert ops.KERNEL_LAUNCHES == before     # no CUDA launch on the CPU
     np.testing.assert_array_equal(got.stats.numpy(), np.asarray(ref.stats))
     np.testing.assert_array_equal(words_np(got.state.visited),

@@ -29,12 +29,13 @@ from _torch_parity import (BUILDERS, POLICY_IDS, POLICY_PAIRS, ROOTS,
                            cuda_device, rmat_graph, to_port,  # noqa: F401
                            words_np)
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats, interop
+from repro_torch import formats, interop
 from repro_torch.core import bitmap as t_bm
 from repro_torch.core import engine as t_engine
 from repro_torch.kernels import compact as t_ck
 from repro_torch.kernels import gather_expand as t_ge
 from repro_torch.kernels import ops
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 LAUNCH = t_engine._ST_LAUNCH
 SIGMA = 1024
@@ -88,12 +89,12 @@ def test_dense_arm_matches_reference(graphs, graph_name, pipeline,
     g = graphs[graph_name]
     roots = ROOTS[graph_name][1]
     ct, ref = _reference(g, graph_name, pipeline, policy_index, roots)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = tbfs.plan(to_port(g), tbfs.TraversalSpec(
         policy=POLICY_PAIRS[policy_index][1], pipeline=pipeline,
         packed=False, tile=ct.resolved.tile, max_layers=128),
         device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     _same_traversal(got, ref)
     stats = got.stats.numpy()
     active = stats[:, 4] == 1

@@ -16,6 +16,8 @@ restoration on the same layer.  The ``cuda`` twins compare each CUDA
 kernel with its plain version and skip without a card.  Every
 comparison is exact.
 """
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +35,7 @@ from _torch_parity import (POLICY_IDS, POLICY_PAIRS, ROOTS,  # noqa: F401
                            cuda_device, rmat_graph, to_port, words_np)
 from test_torch_kernels import _check_repaired
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats, interop
+from repro_torch import formats, interop
 from repro_torch.kernels import bitmap_kernels as t_bk
 from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import ops
@@ -41,6 +43,7 @@ from repro_torch.kernels import plan as t_plan
 from repro_torch.kernels import restoration as t_rest
 from repro_torch.kernels import sell_expand as t_se
 from repro_torch.kernels import traversal_fused as t_tf
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 
 @pytest.fixture(scope="module")
@@ -322,7 +325,7 @@ def test_sell_prefetch_ring_past_shared_memory_is_refused(rmat):
                       device="cpu")
 
 
-def test_sell_budget_miss_degrades_observably(rmat, monkeypatch):
+def test_sell_budget_miss_degrades_observably(rmat, monkeypatch, caplog):
     """A shared-memory limit between K8's ring and K9's budget: the SELL
     megakernel degrades to fused_gather, the persistent kernel to the
     megakernel and on to fused_gather, each recorded and warned, with
@@ -336,16 +339,19 @@ def test_sell_budget_miss_degrades_observably(rmat, monkeypatch):
     assert ops.sell_stage_fits(2, 2, 100)
     assert not ops.sell_megakernel_fits(2, 2, 100)
     for pipeline, n_events in (("megakernel", 1), ("persistent", 2)):
-        errors.DEGRADES.clear()
-        with pytest.warns(RuntimeWarning, match="smem_fallback"):
+        clear_degrade_log()
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="repro_torch.serve"):
             got = tbfs.plan(fmt, tbfs.TraversalSpec(pipeline=pipeline,
                                                     **spec),
                             device="cpu").run_batched(roots)
-        assert len(errors.DEGRADES) == n_events
-        assert "fused_gather" in errors.DEGRADES[-1].fallback
+        assert any("degrade[smem_fallback]" in r.getMessage()
+                   for r in caplog.records)
+        assert len(degrade_log()) == n_events
+        assert "fused_gather" in degrade_log()[-1].fallback
         assert torch.equal(got.state.visited, base.state.visited)
         assert torch.equal(got.stats, base.stats)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
 
 
 @pytest.mark.parametrize("tile,want", [(None, 2), (1, 1), (5, 5), (0, 1)])

@@ -27,9 +27,10 @@ from repro.formats.sell import SellFormat as RefSell
 from _torch_parity import (FORMAT_BUILDERS, FORMAT_ROOTS, POLICY_IDS,
                            POLICY_PAIRS, rmat_graph, to_port, words_np)
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats
+from repro_torch import formats
 from repro_torch.core.validate import validate as t_validate
 from repro_torch.kernels import ops
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 SIGMA = 1024       # the built-in auto σ, passed explicitly to both
 
@@ -106,10 +107,10 @@ def test_sell_path_matches_reference(graphs, graph_name, variant,
     spec = tbfs.TraversalSpec(policy=POLICY_PAIRS[policy_index][1],
                               tile=ct.resolved.tile, max_layers=128,
                               **VARIANTS[variant])
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = tbfs.plan(_port_sell(graphs, graph_name), spec,
                     device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     st_t, st_r = got.stats.numpy(), np.asarray(ref.stats)
     _check_state(got, ref)
     if variant in ("fused_gather", "prefetch2"):

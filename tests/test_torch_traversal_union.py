@@ -26,10 +26,11 @@ from repro.formats.sell import SellFormat as RefSell
 from _torch_parity import (POLICY_IDS, POLICY_PAIRS, cuda_device,  # noqa: F401
                            rmat_graph, to_port, words_np)
 import repro_torch.bfs as tbfs
-from repro_torch import errors, formats
+from repro_torch import formats
 from repro_torch.core import engine as t_engine
 from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import traversal_fused as t_tf
+from repro_torch.obs.metrics import clear_degrade_log, degrade_log
 
 WIDE = 33           # two root-mask words
 SIGMA = 1024        # the built-in auto σ, passed explicitly to both
@@ -75,10 +76,10 @@ def test_persistent_at_33_roots_matches_reference(rmat10, layout,
     spec = tbfs.TraversalSpec(policy=POLICY_PAIRS[policy_index][1],
                               pipeline="persistent", tile=tile,
                               max_layers=128)
-    errors.DEGRADES.clear()
+    clear_degrade_log()
     got = tbfs.plan(_port_graph(rmat10, layout), spec,
                     device="cpu").run_batched(roots)
-    assert not errors.DEGRADES
+    assert not degrade_log()
     np.testing.assert_array_equal(words_np(got.state.visited),
                                   np.asarray(ref.state.visited))
     np.testing.assert_array_equal(words_np(got.state.frontier),
