@@ -178,7 +178,25 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    equal to the ThresholdSimd(0) traversal of phase 11b, one span per
    layer, one measure launch per layer + 1 and no plain counter, the
    Chrome JSON parsed, `torch_profiler`'s trace naming K3, and the
-   persistent branch one span whose stats equal ``run_batched``'s.
+   persistent branch one span whose stats equal ``run_batched``'s;
+13. (run after 12) the distributed 1-D BFS (`core.bfs_distributed`):
+   b. one rank over NCCL (``init_process_group("nccl", init_method=
+   "file://...")``, a ``(1,)`` CUDA mesh) on the main path's graph and
+   8 roots, every merge (allreduce, owner, packed) through
+   ``plan(g, spec, mesh=mesh).run(root)``: every tree valid with the
+   oracle's depths, ``layers == max depth + 1``, the three merges'
+   parents bitwise equal, `run_bfs_distributed` equal to the plan, no
+   call of the plain rowsweep; the partition seconds, each root's wall
+   to a sync, one counted run (one rowsweep launch per layer, one
+   launch of the measure kernel's count arm per layer + 1) and one
+   profiled root (idle share, largest device items); a. the rowsweep
+   kernel against its plain version, bitwise, on every shard of the
+   graph partitioned at D = 1, 2 and 4 (the host partition only;
+   rebased shards, base > 0),
+   on the frontier and visited words of 13b's largest top-down layer,
+   timed (events, then back to back) beside its bound, bytes printed;
+   c. two spawned ranks over gloo, both on cuda:0, on a SCALE-16 graph:
+   each merge's parents and layer counts equal the one-rank run's.
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -233,6 +251,10 @@ REPLACES = {
                   "(src/repro/core/engine.py:447 plan_active_tiles_batched)",
     "apportion": "not a TPU kernel: the materialized stream's "
                  "apportionment (src/repro/core/engine.py:269 apportion)",
+    "rowsweep": "not a TPU kernel: the distributed step "
+                "(src/repro/core/engine.py:334 rowsweep_stream + "
+                "src/repro/core/engine.py:478 candidate_scatter, jnp; "
+                "src/repro/core/bfs_distributed.py:104 _local_step)",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -253,6 +275,7 @@ SOURCES = {
     "sell_relax_batched": CSRC + "sell_relax.cu",
     "plan_union": CSRC + "plan_union.cu",
     "apportion": CSRC + "apportion.cu",
+    "rowsweep": CSRC + "rowsweep.cu",
 }
 #: how the work-listed kernels are timed
 KERNEL_ONLY = "kernel alone; its plan is built outside the timed window"
@@ -275,6 +298,16 @@ PLAIN_COUNTERS = (("repro_torch.kernels.bitmap_kernels", "measure_plain"),
                   ("repro_torch.kernels.traversal_fused", "layer_counters"),
                   ("repro_torch.core.bitmap", "masked_degree_sum"),
                   ("repro_torch.kernels.apportion", "apportion_plain"))
+#: phase 13: the distributed BFS's merges; the shard counts the
+#: rowsweep kernel is held at on the main path's graph (13a); the ranks
+#: that share the one card over gloo and their graph's scale (13c)
+DIST_MERGES = ("allreduce", "owner", "packed")
+DIST_SHARDS = (1, 2, 4)
+DIST_RANKS, DIST_SCALE = 2, 16
+#: the plain rowsweep the kernel replaced: no run on the card may call it
+PLAIN_ROWSWEEP = (("repro_torch.core.engine", "rowsweep_stream"),
+                  ("repro_torch.core.engine", "candidate_scatter"),
+                  ("repro_torch.kernels.rowsweep", "rowsweep_plain"))
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -304,7 +337,8 @@ UNION_SOURCES = ("== gather_expand.cu", "== gather_relax.cu",
                  "== sell_expand.cu", "== sell_relax.cu", "== plan_union.cu",
                  "== layer_fused.cu", "== sell_layer_fused.cu",
                  "== traversal_fused.cu", "== sell_traversal_fused.cu",
-                 "== measure.cu", "== compact.cu", "== apportion.cu")
+                 "== measure.cu", "== compact.cu", "== apportion.cu",
+                 "== rowsweep.cu")
 WIDE_BATCH = 33               # two root-mask words
 SYN_HUB_RUN = 4099            # K7's synthetic stream: a hub's run of slots
 SELL_DEPTHS = (0, 1, 2, 4)
@@ -449,7 +483,7 @@ class Spy:
     with ``before``: the latest call of each keyless wrapper.
     ``calls`` collects ``each(call, result)`` of every call."""
 
-    SHARED = ("rows", "colstarts", "graph")
+    SHARED = ("rows", "colstarts", "graph", "rows_l", "colstarts_l")
 
     def __init__(self, ops, keys: dict, each=None):
         self.ops, self.keys, self.each = ops, keys, each
@@ -3359,6 +3393,292 @@ def phase_trace(ct, roots, simd_stats) -> None:
     torch.cuda.empty_cache()
 
 
+def rowsweep_bytes(colstarts_l, frontier, visited, base: int):
+    """(bytes, active edges) of one shard's rowsweep: its frontier words,
+    its colstarts, the rows of its active owners and the visited words
+    read once, the (v_cap,) candidate array written once."""
+    from repro_torch.core import bitmap as bm
+    v_loc = colstarts_l.shape[0] - 1
+    w0 = base // bm.BITS_PER_WORD
+    words = frontier[w0:w0 + v_loc // bm.BITS_PER_WORD]
+    deg = colstarts_l[1:] - colstarts_l[:-1]
+    edges = int(deg[bm.unpack_bool(words)].sum())
+    n = words.numel() + colstarts_l.numel() + edges + visited.numel() \
+        + frontier.numel() * bm.BITS_PER_WORD
+    return 4 * n, edges
+
+
+def fit_words(words, n_words: int):
+    """``words`` zero-padded or cut to ``n_words`` (the bits past V are
+    zero, so either keeps every vertex)."""
+    import torch
+    pad = max(0, n_words - words.numel())
+    return torch.nn.functional.pad(words, (0, pad))[:n_words].contiguous()
+
+
+def phase_rowsweep(g, layers: list, reps: int) -> dict:
+    """Phase 13a: the rowsweep kernel against its plain version on every
+    shard of the main path's graph partitioned at `DIST_SHARDS` (the
+    host partition only), on the frontier and visited words of the
+    largest top-down layer of 13b's first root: bitwise, timed (events,
+    then back to back) beside its bound and the plain version; at D = 1
+    also every layer of that root, timed back to back, with the largest
+    degree among its frontier vertices.  Returns the D = 1 shard's row
+    on the largest layer."""
+    import torch
+    from repro_torch.core import bfs_distributed as bd
+    from repro_torch.core import bitmap as bm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rowsweep as rw
+    captured = max(layers, key=lambda c: c["n"])
+    row = None
+    for n_dev in DIST_SHARDS:
+        t0 = time.perf_counter()
+        rows_sh, cs_sh = bd.partition_csr(g, n_dev)
+        part_s = time.perf_counter() - t0
+        v_loc = cs_sh.shape[1] - 1
+        w_cap = v_loc * n_dev // 32
+        frontier = fit_words(captured["frontier"], w_cap)
+        visited = fit_words(captured["visited"], w_cap)
+        for d in range(n_dev):
+            rows_l, cs_l = rows_sh[d].cuda(), cs_sh[d].cuda()
+            base = d * v_loc
+            args = (rows_l, cs_l, frontier, visited)
+            want = rw.rowsweep_plain(*args, base, g.n_vertices)
+            got = ops.rowsweep_candidates(*args, base=base,
+                                          n_vertices=g.n_vertices)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), \
+                f"rowsweep D={n_dev} shard {d}: kernel != plain version"
+            nbytes, edges = rowsweep_bytes(cs_l, frontier, visited, base)
+            res = dict(shards=n_dev, shard=d, base=base, v_loc=v_loc,
+                       e_loc=rows_sh.shape[1], active_edges=edges,
+                       candidates=int((got < g.n_vertices).sum()),
+                       bytes=nbytes,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       max_abs_err=int((got - want).abs().max()))
+            timed_kernel(res, lambda: ops.rowsweep_candidates(
+                *args, base=base, n_vertices=g.n_vertices), reps)
+            res["plain_ms"] = cuda_ms(
+                lambda: rw.rowsweep_plain(*args, base, g.n_vertices),
+                max(3, reps // 4))
+            log(json.dumps({"kernel": "rowsweep", **res}))
+            if n_dev == 1:
+                row = res
+                deg = cs_l[1:] - cs_l[:-1]
+                for i, layer in enumerate(layers):
+                    f = fit_words(layer["frontier"], w_cap)
+                    v = fit_words(layer["visited"], w_cap)
+                    nb, ne = rowsweep_bytes(cs_l, f, v, 0)
+                    log(json.dumps({
+                        "kernel": "rowsweep_layer", "layer": i,
+                        "frontier": layer["n"], "active_edges": ne,
+                        "max_degree": int(deg[bm.unpack_bool(f)].max())
+                        if layer["n"] else 0,
+                        "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+                        "ms": device_ms(lambda: ops.rowsweep_candidates(
+                            rows_l, cs_l, f, v, base=0,
+                            n_vertices=g.n_vertices), reps)}))
+            del rows_l, cs_l, want, got
+        log(f"partition at D={n_dev}: {part_s:.3f} s on the host, e_loc "
+            f"{rows_sh.shape[1]}")
+        del rows_sh, cs_sh
+        torch.cuda.empty_cache()
+    log(f"rowsweep: the kernel equals its plain version bitwise on every "
+        f"shard at D = {list(DIST_SHARDS)} (layer of {captured['n']} "
+        f"frontier vertices)")
+    return row
+
+
+def dist_rank(rank: int, world: int, store: str, graph: str, roots,
+              out: str) -> None:
+    """One rank of 13c: gloo, on cuda:0 like every other rank, every
+    merge for every root of the SCALE-16 graph; writes its parents and
+    layer counts to ``<out>.<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import bfs_distributed as bd
+    from repro_torch.core.csr import Csr
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        parts = torch.load(graph)
+        g = Csr(parts["rows"].cuda(), parts["colstarts"].cuda(),
+                parts["n_vertices"], parts["n_edges"])
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("x",))
+        got = {}
+        for merge in DIST_MERGES:
+            for r in roots:
+                p, layers = bd.run_bfs_distributed(g, r, mesh, merge=merge)
+                got[(merge, r)] = (p.cpu(), layers)
+        torch.save(got, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(g16, roots16, want: dict, tmp: str) -> None:
+    """Phase 13c: `DIST_RANKS` spawned processes over gloo, all on cuda:0
+    (NCCL refuses two ranks on one device), on the SCALE-16 graph: each
+    merge's parents and layer counts equal the one-rank NCCL run's
+    bitwise, on every rank."""
+    import multiprocessing as mp
+    import torch
+    torch.save({"rows": g16.rows.cpu(), "colstarts": g16.colstarts.cpu(),
+                "n_vertices": g16.n_vertices, "n_edges": g16.n_edges},
+               f"{tmp}/g16.pt")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(
+        rank, DIST_RANKS, f"{tmp}/gloo", f"{tmp}/g16.pt", roots16,
+        f"{tmp}/ranks")) for rank in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    assert not hung, f"13c: ranks {hung} still running after 300 s"
+    assert [p.exitcode for p in procs] == [0] * DIST_RANKS, \
+        [p.exitcode for p in procs]
+    for rank in range(DIST_RANKS):
+        got = torch.load(f"{tmp}/ranks.{rank}.pt")
+        for key, (parent, layers) in want.items():
+            assert torch.equal(got[key][0], parent) \
+                and got[key][1] == layers, f"13c rank {rank} {key} differs"
+    log(f"two ranks on one card over gloo (SCALE {DIST_SCALE}, roots "
+        f"{roots16}): every merge's parents and layers equal the one-rank "
+        f"NCCL run's on both ranks ({time.perf_counter() - t0:.1f} s with "
+        f"start-up)")
+
+
+def phase_distributed(g, roots, oracle, seed: int, reps: int):
+    """Phase 13: the distributed BFS (`core.bfs_distributed`).  13b: one
+    rank over NCCL on the main path's graph and roots — every merge's
+    trees valid with the oracle's depths and ``layers == max depth + 1``,
+    the three merges' parents bitwise equal, ``plan(mesh=).run`` equal to
+    `run_bfs_distributed`, no plain rowsweep called; one counted run and
+    one profiled root.  Then 13a (`phase_rowsweep`) and 13c
+    (`phase_two_ranks`).  Returns (the kernels-line row, the counted
+    run's launches)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity
+    import repro_torch.bfs as bfs
+    from repro_torch.core import bfs_distributed as bd
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+            t0 = time.perf_counter()
+            bd.local_shard(*bd.partition_csr(g, 1), mesh, ("x",))
+            torch.cuda.synchronize()
+            log(f"distributed: partition at D=1 (host split + copy of the "
+                f"shard to the card): {time.perf_counter() - t0:.3f} s")
+            def sweep(call, _):
+                """A layer: its frontier count and words, its visited."""
+                return dict(n=int(engine.row_popcounts(call["frontier"])),
+                            frontier=call["frontier"],
+                            visited=call["visited"])
+
+            with Spy(ops, {"rowsweep_candidates": None}, each=sweep) as spy:
+                bd.run_bfs_distributed(g, roots[0], mesh)
+            sweeps = spy.calls
+            torch.cuda.synchronize()
+            parents, plans = {}, {}
+            with CallCount(PLAIN_ROWSWEEP) as plain:
+                for merge in DIST_MERGES:
+                    t0 = time.perf_counter()
+                    ct = plans[merge] = bfs.plan(
+                        g, bfs.TraversalSpec(merge=merge), mesh=mesh)
+                    assert ct.executable is None
+                    ct.run(roots[0])
+                    torch.cuda.synchronize()
+                    first = time.perf_counter() - t0
+                    walls, depths = [], []
+                    for r in roots:
+                        t1 = time.perf_counter()
+                        p, layers = ct.run(r)
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t1)
+                        tree_ok(g, p, r, oracle)
+                        depth = int(oracle(r).max())
+                        assert layers == depth + 1, (merge, r, layers, depth)
+                        depths.append(layers)
+                        if r not in parents:
+                            parents[r] = p
+                        assert torch.equal(p, parents[r]), \
+                            f"merge {merge} root {r}: parents differ from " \
+                            f"{DIST_MERGES[0]}'s"
+                    p2, l2 = bd.run_bfs_distributed(g, roots[0], mesh,
+                                                    merge=merge)
+                    assert torch.equal(p2, parents[roots[0]]) \
+                        and l2 == depths[0], f"merge {merge}: " \
+                        "run_bfs_distributed != plan(mesh=).run"
+                    log(json.dumps({
+                        "distributed": merge, "shards": 1, "roots": len(roots),
+                        "layers": depths,
+                        "first_run_s": first,
+                        "wall_s_per_root": walls,
+                        "median_wall_s": statistics.median(walls)}))
+                ops.reset_kernel_launches()
+                p, layers = plans["allreduce"].run(roots[0])
+                torch.cuda.synchronize()
+                launches = dict(ops.KERNEL_LAUNCHES)
+            assert not any(plain.counts.values()), plain.counts
+            # the loop's count reads are the measure kernel's count arm
+            assert launches["rowsweep"] == layers \
+                and launches["popcount"] == layers + 1, (launches, layers)
+            log(f"distributed: {len(roots)} roots x {len(DIST_MERGES)} "
+                f"merges, trees "
+                f"valid with the oracle's depths, the merges' parents "
+                f"bitwise equal, plan(mesh=) == run_bfs_distributed; counted "
+                f"run: {launches['rowsweep']} rowsweep launches and "
+                f"{launches['popcount']} count launches for {layers} "
+                f"layers, no call of "
+                f"{', '.join(sorted(plain.counts))}")
+            events, wall_us = traced_device_events(
+                lambda: plans["allreduce"].run(roots[0]),
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+            busy_us = sum(e.self_device_time_total for e in events)
+            log(f"profile distributed allreduce (root {roots[0]}): wall "
+                f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
+                f"ms, idle share {1 - busy_us / wall_us:.4f}, "
+                f"{sum(e.count for e in events)} device events")
+            for e in events[:10]:
+                log(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+                    f"x{e.count:<5d} {e.key[:90]}")
+            del plans, parents, p, p2
+            # 13c's reference: the one-rank run at SCALE 16
+            g16 = make_graph(DIST_SCALE, seed, "cuda")
+            roots16 = pick_roots(g16, 3, seed + 3)
+            want16 = {}
+            for merge in DIST_MERGES:
+                for r in roots16:
+                    p16, l16 = bd.run_bfs_distributed(g16, r, mesh,
+                                                      merge=merge)
+                    want16[(merge, r)] = (p16.cpu(), l16)
+        finally:
+            dist.destroy_process_group()
+        row = phase_rowsweep(g, sweeps, reps)
+        phase_two_ranks(g16, roots16, want16, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row, launches
+
+
 def make_graph(scale: int, seed: int, device: str):
     """The R-MAT graph of `GRAPHS` at ``scale`` (its edgefactor)."""
     from repro_torch.core import csr as csr_mod
@@ -3696,7 +4016,16 @@ def main(argv=None) -> int:
     phase_serve(g, roots64, oracle, portfolio, roots)
     free_oracle()
     phase_trace(ct, roots, simd_stats)
-    del ct, res, parents, g, oracle_depths, oracle, portfolio
+
+    # 13. the distributed BFS: one rank over NCCL, the rowsweep kernel on
+    # every shard at D = 1, 2, 4, two ranks on the card over gloo
+    del ct
+    bfs.clear_plan_cache()
+    torch.cuda.empty_cache()
+    kres["rowsweep"], dist_launches = phase_distributed(
+        g, roots, oracle, args.seed, args.reps)
+    launches["rowsweep"] = dist_launches["rowsweep"]
+    del res, parents, g, oracle_depths, oracle, portfolio
     bfs.clear_plan_cache()
     torch.cuda.empty_cache()
 

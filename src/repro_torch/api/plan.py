@@ -29,13 +29,19 @@ traverse_semiring`; its results carry ``values``.
 ``device=`` (default ``"cuda"``) names where the traversal runs; the
 graph is moved there if it lies elsewhere, and without CUDA the default
 raises (pass ``device="cpu"`` for the plain torch path).
+
+``mesh=`` (a `torch.distributed.device_mesh.DeviceMesh`, called on
+every rank) binds the plan to the distributed per-shard program of
+`core.bfs_distributed` instead: ``run(root)`` partitions the graph once,
+at the first run, and returns ``(parent, layers)``; no single-chip
+executable is built, and `run_batched` / `layer_step` raise.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.api.spec import TraversalSpec
+from repro_torch.api.spec import TraversalSpec, warn_mesh_ignored_fields
 from repro_torch.core import engine as _engine
 from repro_torch.core.csr import Csr, check_structure, from_edges
 from repro_torch.core.rmat import EdgeList
@@ -166,14 +172,18 @@ def clear_cache() -> None:
 class CompiledTraversal:
     """A graph bound to a fully-resolved `TraversalSpec` and its cached
     executable (shared, by identity, across plans of the same graph
-    arrays and spec)."""
+    arrays and spec), or, bound to a ``mesh``, to the distributed
+    program (``executable`` None)."""
 
     def __init__(self, fmt: GraphFormat, resolved: TraversalSpec,
-                 executable: _Executable, *, batch: int | None = None):
+                 executable: _Executable | None, *,
+                 batch: int | None = None, mesh=None):
         self.fmt = fmt
         self.resolved = resolved
-        self.executable = executable
+        self.executable = executable      # None iff mesh-bound
         self.batch = batch
+        self.mesh = mesh
+        self._partition = None            # mesh path: built once, lazily
 
     def _roots(self, roots) -> torch.Tensor:
         check_roots(roots, self.fmt.n_vertices)
@@ -183,7 +193,12 @@ class CompiledTraversal:
 
     def run(self, roots) -> _engine.EngineResult:
         """One root (int: unbatched result arrays) or a sequence of
-        roots (leading root axis)."""
+        roots (leading root axis).  On a mesh-bound plan, runs the
+        distributed program for one root and returns its ``(parent,
+        layers)`` pair."""
+        if self.mesh is not None:
+            check_roots(roots, self.fmt.n_vertices)
+            return self._run_distributed(roots)
         single = np.ndim(roots.cpu() if isinstance(roots, torch.Tensor)
                          else roots) == 0
         res = self.run_batched(roots)
@@ -201,6 +216,10 @@ class CompiledTraversal:
         ``batch=N`` pads smaller batches up to N (repeating the last
         root) and slices the results back; the stats buffer then counts
         the padded batch."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh-bound plans run one root per launch via .run(); "
+                "batched multi-root distributed search is not wired up")
         r = self._roots(roots)
         n = int(r.shape[0])
         if n == 0:
@@ -228,6 +247,10 @@ class CompiledTraversal:
         through its megakernel steps.  Takes a `BfsState` (returns one
         with ``layer + 1``) or the bare ``(frontier, visited, parent)``
         triple (returns the triple).  P is updated in place."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh-bound plans have no single-layer tick; the "
+                "distributed program runs whole searches via .run()")
         spec = self.resolved
         if spec.is_semiring:
             raise NotImplementedError(
@@ -253,6 +276,34 @@ class CompiledTraversal:
         return _trace_run(self, roots, tracer=tracer, sync=sync,
                           profile_logdir=profile_logdir)
 
+    def _run_distributed(self, root):
+        from repro_torch.core import bfs_distributed as dist
+        if np.ndim(root.cpu() if isinstance(root, torch.Tensor)
+                   else root) != 0:
+            raise ValueError("the distributed program runs one root "
+                             "per launch; pass a scalar root")
+        if self._partition is None:
+            to_csr = getattr(self.fmt, "to_csr", None)
+            if to_csr is None:
+                raise TypeError(
+                    f"mesh-bound plans need a CSR-recoverable format; "
+                    f"{type(self.fmt).__name__} has no to_csr()")
+            # partition once, at the first run — the host-side O(E)
+            # split is the mesh path's "compile" step; later roots reuse
+            # this rank's shard on its device
+            csr = to_csr()
+            axis_names = tuple(self.mesh.mesh_dim_names)
+            rows_sh, colstarts_sh = dist.partition_csr(
+                csr, dist.mesh_axis_size(self.mesh, axis_names))
+            self._partition = (csr.n_vertices, axis_names) \
+                + dist.local_shard(rows_sh, colstarts_sh, self.mesh,
+                                   axis_names)
+        n_vertices, axis_names, rows_l, colstarts_l = self._partition
+        parent, layers = dist._run_local(
+            self.mesh, axis_names, n_vertices, self.resolved.max_layers,
+            self.resolved.merge, rows_l, colstarts_l, int(root))
+        return parent[:n_vertices], layers
+
     def stats(self, result) -> list[_engine.LayerStats]:
         """Decode a result's stats buffer (Table 1 rows)."""
         return _engine.layer_stats(result)
@@ -266,8 +317,8 @@ class CompiledTraversal:
 
 
 def plan(graph, spec: TraversalSpec | None = None, *,
-         batch: int | None = None,
-         device=DEFAULT_DEVICE) -> CompiledTraversal:
+         batch: int | None = None, device=DEFAULT_DEVICE,
+         mesh=None) -> CompiledTraversal:
     """Validate the graph, resolve the spec once and bind the cached
     executable on ``device``.
 
@@ -277,9 +328,17 @@ def plan(graph, spec: TraversalSpec | None = None, *,
       spec: a `TraversalSpec` (default: all ``"auto"``).
       batch: optional fixed batch width (`run_batched` pads up to it).
       device: where the traversal runs (default ``"cuda"``; raises
-        without CUDA).
+        without CUDA); with ``mesh``, it must be the mesh's device type.
+      mesh: optional `torch.distributed.device_mesh.DeviceMesh` — ``run``
+        then executes the distributed per-shard program derived from the
+        same resolved spec (``merge``/``max_layers``).
     """
     dev = resolve_device(device)
+    if mesh is not None and dev.type != mesh.device_type:
+        raise ValueError(
+            f"device={str(device)!r} disagrees with the mesh's device "
+            f"type {mesh.device_type!r}; a mesh-bound plan runs on the "
+            f"mesh's devices")
     if isinstance(graph, EdgeList):
         graph = from_edges(graph, device=dev)
     if isinstance(graph, Csr):
@@ -287,6 +346,14 @@ def plan(graph, spec: TraversalSpec | None = None, *,
     fmt = as_format(graph).to(dev)
     fmt.validate_structure()
     spec = spec if spec is not None else TraversalSpec()
+    if mesh is not None:
+        # the contract of run_bfs_distributed(spec=): flag explicitly
+        # set fields the fixed per-shard program cannot honor, and skip
+        # the autotune policy measurement it would never read
+        warn_mesh_ignored_fields(spec, "mesh-bound plan")
+        if spec.policy == "auto":
+            spec = spec.replace(policy="topdown")
     resolved = spec.resolve(fmt)
-    return CompiledTraversal(fmt, resolved, _executable(fmt, resolved),
-                             batch=batch)
+    # a mesh-bound plan never runs the single-chip executable
+    ex = None if mesh is not None else _executable(fmt, resolved)
+    return CompiledTraversal(fmt, resolved, ex, batch=batch, mesh=mesh)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any
+import warnings
 
 import torch
 
@@ -61,6 +62,29 @@ def _is_policy(obj: Any) -> bool:
     """Duck-typed DirectionPolicy: decides a mode from a Workload."""
     return callable(getattr(obj, "decide", None)) \
         and hasattr(obj, "modes")
+
+
+#: spec fields the distributed per-chip program (a fixed top-down
+#: rowsweep) cannot honor — it consumes only merge/max_layers
+MESH_IGNORED_FIELDS = ("policy", "algorithm", "pipeline", "packed",
+                       "tile", "prefetch_depth")
+
+
+def warn_mesh_ignored_fields(spec: "TraversalSpec", entry: str) -> None:
+    """The one mesh-path contract warning (shared by
+    `core.bfs_distributed.run_bfs_distributed` and a mesh-bound `plan`):
+    a `UserWarning` naming the explicitly set fields the fixed per-chip
+    program ignores.  A resolved spec passes silently: its concrete
+    fields are resolution artifacts, not user intent."""
+    if spec.is_resolved:
+        return
+    ignored = [f for f in MESH_IGNORED_FIELDS if getattr(spec, f) != AUTO]
+    if ignored:
+        warnings.warn(
+            f"{entry}: the distributed per-chip program is a fixed "
+            f"top-down rowsweep; spec fields {ignored} are ignored "
+            f"(only merge/max_layers apply)",
+            UserWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)

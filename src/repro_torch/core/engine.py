@@ -497,6 +497,29 @@ def scalar_expand(colstarts, rows, n_vertices: int, frontier, visited,
     return out[0], visited[0], parent[0], truncated
 
 
+def rowsweep_stream(colstarts, rows, active_words, n_vertices: int,
+                    nbr_limit: int | None = None):
+    """(u, v, valid) in rows order: owners by a degree expansion of
+    ``colstarts``, the frontier gate a bitmap test per edge.  With
+    `candidate_scatter` it is the plain version of the distributed
+    step's rowsweep kernel (`ops.rowsweep_candidates`).  Padding slots
+    take the last vertex as owner, as the reference's ``jnp.repeat``
+    fills them; their sentinel neighbours invalidate them.
+    ``nbr_limit`` bounds valid neighbour ids: it differs from
+    ``n_vertices`` only in the distributed step, whose owners are
+    local ids and neighbours global ones."""
+    nbr_limit = n_vertices if nbr_limit is None else nbr_limit
+    deg = (colstarts[1:] - colstarts[:-1]).long()
+    n_real = int(colstarts[-1])
+    u = torch.full((rows.shape[0],), n_vertices - 1, dtype=torch.int32,
+                   device=rows.device)
+    u[:n_real] = torch.repeat_interleave(
+        torch.arange(n_vertices, dtype=torch.int32, device=rows.device),
+        deg, output_size=n_real)
+    valid = bm.test_bits(active_words, u) & (rows < nbr_limit)
+    return u, rows, valid
+
+
 def candidate_scatter(u, v, valid, visited, n_vertices: int, v_cap: int):
     """A layer's discoveries as a min-parent candidate array of one
     root: ``n_vertices`` (INF) everywhere, the least discovering parent

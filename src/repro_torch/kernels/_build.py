@@ -30,7 +30,7 @@ SOURCES = ("restoration.cu", "compact.cu", "gather_expand.cu",
            "layer_fused.cu", "traversal_fused.cu", "sell_expand.cu",
            "sell_layer_fused.cu", "sell_traversal_fused.cu", "measure.cu",
            "gather_relax.cu", "sell_relax.cu", "frontier_expand.cu",
-           "plan_union.cu", "apportion.cu")
+           "plan_union.cu", "apportion.cu", "rowsweep.cu")
 HEADERS = ("bfs_common.cuh", "fused_phases.cuh", "sell_phases.cuh",
            "traversal_loop.cuh", "relax_common.cuh", "union_phases.cuh",
            "counters.cuh")
@@ -64,6 +64,7 @@ SIGNATURES = {
     "repro_frontier_expand": (_P,) * 7 + (_I, _LL) + (_I,) * 5 + (_P,),
     "repro_plan_union_csr": (_P,) * 10 + (_I,) * 6 + (_P,),
     "repro_plan_union_sell": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "repro_rowsweep": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _LIB = None

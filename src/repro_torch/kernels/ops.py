@@ -1,5 +1,5 @@
-"""Public wrappers around the kernels (K1-K13, the union planner and
-the apportionment).
+"""Public wrappers around the kernels (K1-K13, the union planner, the
+apportionment and the distributed step's rowsweep).
 
 Each wrapper picks its arm from the device of the tensors it is given:
 a CPU tensor runs the kernel's plain torch version, a CUDA tensor
@@ -42,6 +42,7 @@ from repro_torch.kernels import gather_expand as ge
 from repro_torch.kernels import layer_fused as lf
 from repro_torch.kernels import plan as pl
 from repro_torch.kernels import restoration as rest
+from repro_torch.kernels import rowsweep as rw
 from repro_torch.kernels import sell_expand as se
 from repro_torch.kernels import traversal_fused as tf
 
@@ -56,7 +57,7 @@ KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
                    "sell_traversal_fused_batched": 0, "popcount": 0,
                    "measure": 0, "frontier_expand_batched": 0,
                    "gather_relax_batched": 0, "sell_relax_batched": 0,
-                   "plan_union": 0, "apportion": 0}
+                   "plan_union": 0, "apportion": 0, "rowsweep": 0}
 
 #: dynamic shared memory one CTA can opt into on the H100
 SMEM_OPTIN_BYTES = ge.SMEM_OPTIN_BYTES
@@ -144,6 +145,23 @@ def apportion(colstarts, rows, queue: ck.EdgeQueue, *, n_vertices: int,
         return ap.apportion_cuda(colstarts, rows, queue, n_slots)
     return ap.apportion_plain(colstarts, rows, queue.queue, n_vertices,
                               n_slots)
+
+
+def rowsweep_candidates(rows_l, colstarts_l, frontier, visited, *,
+                        base: int, n_vertices: int) -> torch.Tensor:
+    """One shard's top-down layer of the distributed BFS
+    (`core.bfs_distributed._local_step`, `kernels.rowsweep`): the (v_cap,)
+    min-parent candidate array of the shard ``[base, base + v_loc)``
+    (``rows_l`` (e_loc,), ``colstarts_l`` (v_loc + 1,)) under the global
+    (w_cap,) ``frontier`` and ``visited`` words.  Charged no launch (the
+    distributed path keeps no stats buffer); `KERNEL_LAUNCHES` counts the
+    CUDA arm."""
+    if _arm(frontier, "rowsweep_candidates"):
+        KERNEL_LAUNCHES["rowsweep"] += 1
+        return rw.rowsweep_cuda(rows_l, colstarts_l, frontier, visited,
+                                base, n_vertices)
+    return rw.rowsweep_plain(rows_l, colstarts_l, frontier, visited, base,
+                             n_vertices)
 
 
 def frontier_compact(words: torch.Tensor, *, size: int, fill: int):

@@ -242,6 +242,10 @@ def trace_run(graph, roots, *, spec=None, tracer: SpanTracer | None = None,
     else:
         ct = (_plan(graph, spec) if device is None
               else _plan(graph, spec, device=device))
+    if ct.mesh is not None:
+        raise NotImplementedError(
+            "trace_run hosts the single-chip layer tick; mesh-bound "
+            "plans have no per-layer step to instrument")
     tracer = tracer if tracer is not None else SpanTracer(sync=sync)
     fmt, rspec = ct.fmt, ct.resolved
     n_vertices, v_pad = fmt.n_vertices, fmt.n_vertices_padded
