@@ -196,7 +196,23 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    on the frontier and visited words of 13b's largest top-down layer,
    timed (events, then back to back) beside its bound, bytes printed;
    c. two spawned ranks over gloo, both on cuda:0, on a SCALE-16 graph:
-   each merge's parents and layer counts equal the one-rank run's.
+   each merge's parents and layer counts equal the one-rank run's;
+14. (run after 7) the LM serve path (`models/*`, `serve/engine.py`; no
+   kernel of its own, plain torch): a. each of the 10 archs of
+   `configs.registry` at ``reduced()`` in float32, TF32 off: the same
+   weights on the card and on the CPU give the same forward logits,
+   prefill logits and 3 decode steps' logits (`LM_PARITY_TOL`, one
+   ``lm_parity`` line each); b. ``qwen3-14b`` at its published widths
+   and all 40 layers, bf16 weights initialised on the card from
+   ``--seed``: `ServeEngine` with 4 slots and a 256-token cache serves 8
+   requests (prompts of 8-64 tokens and 16 generated, drawn from the
+   seed); every request ends with 16 tokens from finite logits; the
+   ``lm_serve`` line gives init seconds, peak memory, ticks, wall,
+   tokens/s, tick p50/p99 and the tick's bound; three ticks profiled
+   (idle share); a request served at one slot after another equals a
+   standalone greedy decode on the card token for token; c. its widths
+   at 2 layers in float32: decode logits equal forward logits at every
+   position (B = 2, T = 32, `LM_EXACT_TOL`).
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -308,6 +324,16 @@ DIST_RANKS, DIST_SCALE = 2, 16
 PLAIN_ROWSWEEP = (("repro_torch.core.engine", "rowsweep_stream"),
                   ("repro_torch.core.engine", "candidate_scatter"),
                   ("repro_torch.kernels.rowsweep", "rowsweep_plain"))
+#: phase 14: the LM serve path.  14a holds every reduced arch (float32)
+#: on the card to the port's CPU run of the same weights; 14b serves
+#: `LM_ARCH` at its published widths and depth in bf16 weights; 14c
+#: holds decode to forward at those widths with `LM_EXACT_LAYERS`
+#: layers in float32
+LM_ARCH = "qwen3-14b"
+LM_PARITY_TOL = 1e-3          # 14a: rtol = atol, GPU vs CPU in float32
+LM_SLOTS, LM_CACHE, LM_REQUESTS, LM_MAX_TOKENS = 4, 256, 8, 16
+LM_PROMPT = (8, 64)           # prompt lengths drawn in [8, 64]
+LM_EXACT_LAYERS, LM_EXACT_T, LM_EXACT_TOL = 2, 32, 2e-3
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -3679,6 +3705,261 @@ def phase_distributed(g, roots, oracle, seed: int, reps: int):
     return row, launches
 
 
+def lm_inputs(cfg, seed: int, b: int = 2, t: int = 32) -> dict:
+    """numpy inputs of one reduced arch: tokens, the decode tokens, the
+    vlm prefix and the encoder's frames where the arch has them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)),
+           "decode": rng.integers(0, cfg.vocab_size, (3, b))}
+    if cfg.prefix_len:
+        out["prefix"] = 0.02 * rng.standard_normal(
+            (b, cfg.prefix_len, cfg.d_model))
+    if cfg.encoder_layers:
+        out["src_embeddings"] = 0.02 * rng.standard_normal(
+            (b, 8, cfg.d_model))
+    return out
+
+
+def lm_outputs(params, cfg, inputs: dict, device) -> list:
+    """(name, tensor) of one model's forward logits, prefill logits and 3
+    decode steps' logits, all computed on ``device``."""
+    import torch
+    from repro_torch.models import lm
+    x = {k: torch.from_numpy(v).to(device, torch.int32 if v.dtype.kind == "i"
+                                   else torch.float32)
+         for k, v in inputs.items()}
+    out = []
+    with torch.no_grad():
+        memory = (lm.encode(params, cfg, x["src_embeddings"])
+                  if cfg.encoder_layers else None)
+        hidden, _ = lm.forward_hidden(params, cfg, x["tokens"],
+                                      prefix=x.get("prefix"), memory=memory)
+        out.append(("forward", lm.logits_fn(params, cfg, hidden)))
+        out.append(("prefill", lm.prefill(params, cfg, x["tokens"][:, :8],
+                                          prefix=x.get("prefix"))[1]))
+        b = x["tokens"].shape[0]
+        states = lm.init_decode_state(params, cfg, b, 64)
+        for i in range(3):
+            pos = torch.full((b,), i, dtype=torch.int32, device=device)
+            states, logits = lm.decode_step(params, cfg, states,
+                                            x["decode"][i], pos, memory)
+            out.append((f"decode{i}", logits))
+    return out
+
+
+def lm_parity(seed: int) -> None:
+    """14a: each reduced arch (float32) on the card equals the port's CPU
+    run of the same weights."""
+    import copy
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    for name in registry.ARCHS:
+        cfg = registry.get(name, reduced=True).with_(dtype="float32")
+        cpu = lm.init_params(cfg, seed, device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        inputs = lm_inputs(cfg, seed)
+        errs = {}
+        for (what, want), (_, got) in zip(
+                lm_outputs(cpu, cfg, inputs, "cpu"),
+                lm_outputs(gpu, cfg, inputs, "cuda"), strict=True):
+            assert got.is_cuda and bool(torch.isfinite(got).all()), \
+                f"{name} {what}: not finite on the card"
+            torch.testing.assert_close(
+                got.cpu(), want, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL,
+                msg=lambda m, w=what: f"{name} {w}: GPU != CPU: {m}")
+            errs[what] = float((got.cpu() - want).abs().max())
+        log(json.dumps({"lm_parity": name, "tol": LM_PARITY_TOL,
+                        "max_abs_err": errs}))
+
+
+def standalone_greedy(params, cfg, prompt, n_gen: int, cache_len: int):
+    """The reference test's standalone greedy decode, at batch 1."""
+    import torch
+    from repro_torch.models import lm
+    states = lm.init_decode_state(params, cfg, 1, cache_len)
+    out = []
+    for i in range(len(prompt) + n_gen - 1):
+        tok = prompt[i] if i < len(prompt) else out[-1]
+        states, logits = lm.decode_step(
+            params, cfg, states,
+            torch.tensor([tok], dtype=torch.int32, device="cuda"),
+            torch.tensor([i], dtype=torch.int32, device="cuda"))
+        if i >= len(prompt) - 1:
+            out.append(int(logits.argmax(-1)[0]))
+    return out
+
+
+def lm_serve(seed: int) -> None:
+    """14b: `ServeEngine` on `LM_ARCH` at full width and depth, bf16
+    weights initialised on the card from ``seed``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models.config import param_count
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    class Engine(ServeEngine):
+        """Every tick's logits of the active slots must be finite; each
+        tick's wall (to the host read of its tokens) is kept."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.tick_s = []
+
+        def _next_tokens(self, logits):
+            active = [i for i, r in enumerate(self.slots)
+                      if r is not None and not r.done]
+            assert bool(torch.isfinite(logits[active]).all()), \
+                "non-finite logits in a served slot"
+            return super()._next_tokens(logits)
+
+        def step(self):
+            t0 = time.perf_counter()
+            super().step()
+            self.tick_s.append(time.perf_counter() - t0)
+
+    cfg = registry.get(LM_ARCH).with_(param_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    assert all(p.dtype == torch.bfloat16 for p in params.parameters())
+    assert len(params["layers"]) == cfg.n_layers
+    log(f"lm init: {LM_ARCH} {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params} parameters (param_count "
+        f"{param_count(cfg)} + norms), {param_bytes / 1e9:.3f} GB bf16, "
+        f"{init_s:.3f} s on the card")
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(uid, rng.integers(
+                0, cfg.vocab_size, int(rng.integers(LM_PROMPT[0],
+                                                    LM_PROMPT[1] + 1))
+            ).tolist(), LM_MAX_TOKENS) for uid in range(LM_REQUESTS)]
+    eng = Engine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    ticks = eng.run_until_done()
+    wall = time.perf_counter() - t0
+    assert len(eng.finished) == LM_REQUESTS
+    for r in eng.finished:
+        assert len(r.generated) == LM_MAX_TOKENS, (r.uid, r.generated)
+    fed = sum(len(r.prompt) + LM_MAX_TOKENS - 1 for r in reqs)
+    tick_ms = [1e3 * t for t in eng.tick_s]
+    # bound: the weights read once, the fp32 cast of the readout table
+    # written and read once
+    bound_bytes = param_bytes + 2 * 4 * cfg.vocab_size * cfg.d_model
+    log(json.dumps({
+        "lm_serve": LM_ARCH, "layers": cfg.n_layers, "slots": LM_SLOTS,
+        "cache_len": LM_CACHE, "requests": LM_REQUESTS,
+        "prompt_lens": [len(r.prompt) for r in reqs],
+        "max_tokens": LM_MAX_TOKENS, "params": n_params,
+        "param_bytes": param_bytes, "init_s": init_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "ticks": ticks, "wall_s": wall,
+        "tokens_per_s": LM_REQUESTS * LM_MAX_TOKENS / wall,
+        "fed_tokens_per_s": fed / wall,
+        "first_tick_ms": tick_ms[0],
+        "tick_ms_p50": float(np.percentile(tick_ms[1:], 50)),
+        "tick_ms_p99": float(np.percentile(tick_ms[1:], 99)),
+        "bound_tick_ms": 1e3 * bound_bytes / HBM_BYTES_PER_S}))
+
+    # one profiled stretch of three ticks (4 busy slots)
+    from torch.profiler import ProfilerActivity
+    for uid in range(LM_SLOTS):
+        eng.submit(Request(100 + uid, reqs[uid].prompt[:8], LM_MAX_TOKENS))
+    eng.step()
+    events, wall_us = traced_device_events(
+        lambda: [eng.step() for _ in range(3)],
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if events:
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy_us = sum(e.self_device_time_total for e in events)
+        log(f"profile lm_serve (3 ticks): wall {wall_us / 1e3:.3f} ms, "
+            f"device busy {busy_us / 1e3:.3f} ms, idle share "
+            f"{1 - busy_us / wall_us:.4f}, "
+            f"{sum(e.count for e in events)} device events")
+        for e in events[:8]:
+            log(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+                f"x{e.count:<5d} {e.key[:90]}")
+    else:
+        log("profile lm_serve: not measured (no device event traced)")
+
+    # slot reuse at batch 1 == a standalone greedy decode on the card
+    target = reqs[0]
+    want = standalone_greedy(params, cfg, target.prompt, LM_MAX_TOKENS,
+                             LM_CACHE)
+    eng1 = Engine(cfg, params, batch_slots=1, cache_len=LM_CACHE)
+    eng1.submit(Request(0, reqs[1].prompt[:4], 4))
+    eng1.submit(Request(1, list(target.prompt), LM_MAX_TOKENS))
+    eng1.run_until_done()
+    got = next(r for r in eng1.finished if r.uid == 1).generated
+    assert got == want, f"slot reuse at batch 1: {got} != standalone {want}"
+    log(f"lm_serve slot reuse: a {len(target.prompt)}-token prompt served "
+        f"after another request in the one slot gives the standalone "
+        f"greedy decode's {LM_MAX_TOKENS} tokens exactly")
+
+
+def lm_decode_exact(seed: int) -> None:
+    """14c: `LM_ARCH` widths at `LM_EXACT_LAYERS` layers in float32: decode
+    logits equal forward logits at every position."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get(LM_ARCH).with_(n_layers=LM_EXACT_LAYERS,
+                                      dtype="float32")
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed + 1, device="cuda")
+    b, t = 2, LM_EXACT_T
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, t))).to("cuda", torch.int32)
+    with torch.no_grad():
+        hidden, _ = lm.forward_hidden(params, cfg, tokens)
+        full = lm.logits_fn(params, cfg, hidden)
+    states = lm.init_decode_state(params, cfg, b, t)
+    err = 0.0
+    for i in range(t):
+        states, logits = lm.decode_step(
+            params, cfg, states, tokens[:, i],
+            torch.full((b,), i, dtype=torch.int32, device="cuda"))
+        torch.testing.assert_close(
+            logits, full[:, i], rtol=LM_EXACT_TOL, atol=LM_EXACT_TOL,
+            msg=lambda m, i=i: f"decode != forward at position {i}: {m}")
+        err = max(err, float((logits - full[:, i]).abs().max()))
+    log(json.dumps({"lm_decode_vs_forward": LM_ARCH,
+                    "layers": LM_EXACT_LAYERS, "dtype": "float32",
+                    "batch": b, "positions": t, "tol": LM_EXACT_TOL,
+                    "max_abs_err": err,
+                    "logit_scale": float(full.abs().max())}))
+
+
+def phase_lm(seed: int) -> None:
+    """Phase 14: the LM serve path (14a parity, 14b serve, 14c exact)."""
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32, \
+        "TF32 matmuls would break the float32 tolerances"
+    t0 = time.perf_counter()
+    lm_parity(seed)
+    t1 = time.perf_counter()
+    lm_serve(seed)
+    t2 = time.perf_counter()
+    lm_decode_exact(seed)
+    torch.cuda.empty_cache()
+    log(f"phase 14: parity {t1 - t0:.1f} s, serve {t2 - t1:.1f} s, "
+        f"decode == forward {time.perf_counter() - t2:.1f} s")
+
+
 def make_graph(scale: int, seed: int, device: str):
     """The R-MAT graph of `GRAPHS` at ``scale`` (its edgefactor)."""
     from repro_torch.core import csr as csr_mod
@@ -4126,6 +4407,10 @@ def main(argv=None) -> int:
                     f"{alg} {layout}: GPU and CPU {name} differ"
         log(f"parity {alg} @ SCALE 12: GPU == CPU (values, parents, "
             f"depths, stats) for CSR and SELL")
+
+    # 14. the LM serve path: every reduced arch GPU == CPU, qwen3-14b
+    # served at full width, decode == forward at its widths
+    phase_lm(args.seed)
 
     # 8. launch counts of the paths' runs
     log("launch counts (main path, fusion and SELL paths): " + ", ".join(

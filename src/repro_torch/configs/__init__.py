@@ -1,1 +1,2 @@
-"""The paper's graph configs (`bfs_graph500`)."""
+"""Configs: the paper's graphs (`bfs_graph500`) and the LM substrate's
+ten architectures with their registry (`registry`)."""
