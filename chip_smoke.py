@@ -212,7 +212,28 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    (idle share); a request served at one slot after another equals a
    standalone greedy decode on the card token for token; c. its widths
    at 2 layers in float32: decode logits equal forward logits at every
-   position (B = 2, T = 32, `LM_EXACT_TOL`).
+   position (B = 2, T = 32, `LM_EXACT_TOL`);
+15. (run after 14, its weights freed) the LM training path
+   (`train/*`, `data/tokens.py`, `checkpoint/ckpt.py`,
+   `runtime/fault.py`; no kernel of its own, plain torch): a. each of
+   the 10 archs at ``reduced()`` in float32, TF32 off, under both
+   optimizer arms: one `make_train_step` step on the card equals the
+   port's CPU step of the same weights and batch (loss, grad norm,
+   every parameter; `TRAIN_PARITY_TOL`, one ``lm_train_parity`` line
+   each); b. ``h2o-danube-1.8b`` at its published widths and all 24
+   layers, fp32 master weights initialised on the card from ``--seed``,
+   bf16 compute, remat on: `runtime.fault.train_loop` over
+   `data.tokens.stream` (seq_len 4096, global batch 8 in 4 micro-batches)
+   for 5 steps with fp32 AdamW, then 5 with the 8-bit arm from fresh
+   weights and state; every loss finite, the mean of the last two below
+   that of the first two in each arm, every tensor on the card; the
+   ``lm_train`` line per arm gives init seconds, peak memory, step time
+   p50 and max, tokens/s, model FLOPs per step and ``mfu``; one more
+   fp32 step profiled (busy ms, idle share, largest device items); c.
+   the fault-tolerant loop on the card at ``test_train_substrate.py``'s
+   tiny config: checkpoints every 2 steps (keep 2), failures injected
+   at steps 3 and 7: 2 restarts, every step reached, the losses after
+   each restore equal to an uninterrupted run's (`TRAIN_LOOP_RTOL`).
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -334,6 +355,21 @@ LM_PARITY_TOL = 1e-3          # 14a: rtol = atol, GPU vs CPU in float32
 LM_SLOTS, LM_CACHE, LM_REQUESTS, LM_MAX_TOKENS = 4, 256, 8, 16
 LM_PROMPT = (8, 64)           # prompt lengths drawn in [8, 64]
 LM_EXACT_LAYERS, LM_EXACT_T, LM_EXACT_TOL = 2, 32, 2e-3
+#: phase 15: the LM training path.  15a holds one train step of every
+#: reduced arch (float32, both optimizer arms) on the card to the port's
+#: CPU step; 15b trains `TRAIN_ARCH` at its published widths and depth
+#: (fp32 master weights, bf16 compute, remat) on the reference's
+#: train_4k sequence length, global batch cut from 256 to `TRAIN_BATCH`
+#: for one card; 15c runs the fault-tolerant loop on the card at the
+#: reference test's tiny config
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_SEQ = 4096              # repro/configs/registry.py train_4k
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 4, 5
+TRAIN_ADAMW = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+TRAIN_PARITY_TOL = 1e-3       # 15a: rtol = atol, GPU vs CPU in float32
+TRAIN_LOOP_RTOL = 1e-5        # 15c: losses after a restore, relative
+#: H100 SXM dense bf16 peak (NVIDIA data sheet), the denominator of mfu
+BF16_PEAK_FLOPS = 989.4e12
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -3960,6 +3996,285 @@ def phase_lm(seed: int) -> None:
         f"decode == forward {time.perf_counter() - t2:.1f} s")
 
 
+def on_card(tree) -> bool:
+    """Every tensor of a dict/list tree (or of a module) lies on the
+    card."""
+    import torch
+    if isinstance(tree, dict):
+        return all(on_card(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(on_card(v) for v in tree)
+    if isinstance(tree, torch.nn.Module):
+        return all(p.is_cuda for p in tree.parameters())
+    return tree.is_cuda
+
+
+def lm_train_parity(seed: int) -> None:
+    """15a: one train step of each reduced arch (float32), both optimizer
+    arms, on the card equals the port's CPU step."""
+    import copy
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    for name in registry.ARCHS:
+        cfg = registry.get(name, reduced=True).with_(dtype="float32")
+        batch = batch_at(cfg, DataConfig(seed=seed, batch_size=2,
+                                         seq_len=32), 0, "cpu")
+        errs = {}
+        for eight in (False, True):
+            tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=1e-5,
+                                                     warmup_steps=0),
+                               opt_8bit=eight)
+            init = opt.init_8bit if eight else opt.init
+            cpu = lm.init_params(cfg, seed, device="cpu")
+            gpu = copy.deepcopy(cpu).to("cuda")
+            step = make_train_step(cfg, tcfg)
+            _, _, want = step(cpu, init(cpu), batch)
+            s_gpu = init(gpu)
+            _, s_gpu, got = step(gpu, s_gpu, {k: v.cuda()
+                                              for k, v in batch.items()})
+            assert on_card(got) and on_card(s_gpu) and on_card(gpu)
+            arm = "8bit" if eight else "fp32"
+            err = {}
+            for key in ("loss", "grad_norm"):
+                assert bool(torch.isfinite(got[key])), f"{name} {key}"
+                torch.testing.assert_close(
+                    got[key].cpu(), want[key], rtol=TRAIN_PARITY_TOL,
+                    atol=TRAIN_PARITY_TOL,
+                    msg=lambda m, k=key: f"{name} {arm} {k}: GPU != CPU: {m}")
+                err[key] = float((got[key].cpu() - want[key]).abs())
+            worst = 0.0
+            for (pname, a), b in zip(gpu.named_parameters(),
+                                     cpu.parameters()):
+                torch.testing.assert_close(
+                    a.detach().cpu(), b.detach(), rtol=TRAIN_PARITY_TOL,
+                    atol=TRAIN_PARITY_TOL,
+                    msg=lambda m, n=pname: f"{name} {arm} {n}: GPU != CPU: "
+                                           f"{m}")
+                worst = max(worst, float((a.detach().cpu() - b.detach())
+                                         .abs().max()))
+            err["params"] = worst
+            errs[arm] = err
+        log(json.dumps({"lm_train_parity": name, "tol": TRAIN_PARITY_TOL,
+                        "max_abs_err": errs}))
+
+
+def model_flops(cfg, tokens: int) -> float:
+    """6 (N - embedding) tokens, the embedding tables counted as the
+    reference's dry run counts them (both tables when untied)."""
+    from repro_torch.models.config import param_count
+    n_embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings
+                                              else 2)
+    return 6.0 * (param_count(cfg, active_only=True) - n_embed) * tokens
+
+
+def lm_train_arm(cfg, seed: int, eight: bool, tmp: str):
+    """One arm of 15b: weights from ``seed``, a fresh optimizer state,
+    `TRAIN_STEPS` steps of `train_loop`.  Returns (params, state,
+    train_step, stats, the ``lm_train`` record)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.data.tokens import DataConfig, stream
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault import train_loop
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device="cuda")
+    state = (opt.init_8bit if eight else opt.init)(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(**TRAIN_ADAMW),
+                       accum_steps=TRAIN_ACCUM, opt_8bit=eight)
+    step_fn = make_train_step(cfg, tcfg)
+    dcfg = DataConfig(seed=seed, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+
+    def checked_step(p, s, batch):
+        assert on_card(batch), "a batch off the card"
+        p, s, metrics = step_fn(p, s, batch)
+        assert on_card(metrics), "a metric off the card"
+        return p, s, metrics
+
+    # every > the steps run: no checkpoint at this width (29 GB each)
+    stats = train_loop(
+        train_step=checked_step, params=params, opt_state=state,
+        data_stream_fn=lambda s: stream(cfg, dcfg, s, device="cuda"),
+        ckpt=CheckpointManager(tmp, every=10 * TRAIN_STEPS),
+        total_steps=TRAIN_STEPS)
+    arm = "8bit" if eight else "fp32"
+    losses = stats.losses
+    assert stats.steps == TRAIN_STEPS and stats.restarts == 0
+    assert all(math.isfinite(x) for x in losses), (arm, losses)
+    assert sum(losses[-2:]) < sum(losses[:2]), \
+        f"{arm}: the loss did not fall: {losses}"
+    assert on_card(params) and on_card(state)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, tokens)
+    p50 = float(np.percentile(stats.step_times, 50))
+    record = {
+        "lm_train": TRAIN_ARCH, "arm": arm, "layers": cfg.n_layers,
+        "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+        "accum_steps": TRAIN_ACCUM, "steps": TRAIN_STEPS,
+        "params": sum(p.numel() for p in params.parameters()),
+        "init_s": init_s, "losses": losses,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "step_s": stats.step_times, "step_s_p50": p50,
+        "step_s_max": max(stats.step_times),
+        "tokens_per_s": tokens / p50, "model_flops_per_step": flops,
+        "mfu": flops / p50 / BF16_PEAK_FLOPS}
+    return params, state, checked_step, record
+
+
+#: device-time classes of the training step's profile, first match wins
+TRAIN_PROFILE_CLASSES = (
+    ("fp32 gemm", ("f32f32_f32f32", "sgemm")),
+    ("bf16 gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def train_profile_split(events) -> dict:
+    """Device ms of profiled events by `TRAIN_PROFILE_CLASSES` (the rest
+    under "other")."""
+    split = {name: 0.0 for name, _ in TRAIN_PROFILE_CLASSES}
+    split["other"] = 0.0
+    for e in events:
+        key = e.key.lower()
+        name = next((n for n, marks in TRAIN_PROFILE_CLASSES
+                     if any(m in key for m in marks)), "other")
+        split[name] += e.self_device_time_total / 1e3
+    return split
+
+
+def lm_train(seed: int, tmp: str) -> None:
+    """15b: `TRAIN_ARCH` at its published widths and depth, fp32 AdamW then
+    the 8-bit arm, one fp32 step profiled."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    cfg = registry.get(TRAIN_ARCH)
+    assert (cfg.param_dtype, cfg.dtype, cfg.remat) == \
+        ("float32", "bfloat16", True), cfg
+    log(f"lm_train: {TRAIN_ARCH} {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim()}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.sliding_window}; seq {TRAIN_SEQ}, "
+        f"global batch {TRAIN_BATCH} in {TRAIN_ACCUM} micro-batches. CUT: "
+        f"random weights (no checkpoint offline), global batch "
+        f"{TRAIN_BATCH} instead of 256, {TRAIN_STEPS} steps per arm, no "
+        f"checkpoint written at this width")
+    for eight in (False, True):
+        params, state, step_fn, record = lm_train_arm(cfg, seed, eight, tmp)
+        log(json.dumps(record))
+        if not eight:
+            # one more fp32 step under the profiler
+            batch = batch_at(cfg, DataConfig(seed=seed,
+                                             batch_size=TRAIN_BATCH,
+                                             seq_len=TRAIN_SEQ),
+                             TRAIN_STEPS, "cuda")
+            events, wall_us = traced_device_events(
+                lambda: float(step_fn(params, state, batch)[2]["loss"]),
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if events:
+                events.sort(key=lambda e: e.self_device_time_total,
+                            reverse=True)
+                busy_us = sum(e.self_device_time_total for e in events)
+                log(f"profile lm_train (1 fp32 step): wall "
+                    f"{wall_us / 1e3:.3f} ms, device busy "
+                    f"{busy_us / 1e3:.3f} ms, idle share "
+                    f"{1 - busy_us / wall_us:.4f}, "
+                    f"{sum(e.count for e in events)} device events")
+                log(json.dumps({"lm_train_profile_ms":
+                                train_profile_split(events)}))
+                for e in events[:10]:
+                    log(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+                        f"x{e.count:<6d} {e.key[:160]}")
+            else:
+                log("profile lm_train: not measured (no device event "
+                    "traced)")
+            del batch
+        del params, state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def lm_train_faults(seed: int, tmp: str) -> None:
+    """15c: `train_loop` on the card at the reference test's tiny config,
+    failures at steps 3 and 7, against an uninterrupted run."""
+    import copy
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, stream
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault import FailureInjector, train_loop
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    cfg = registry.get("qwen3", reduced=True).with_(dtype="float32",
+                                                     n_layers=2)
+    init = lm.init_params(cfg, seed, device="cuda")
+    dcfg = DataConfig(batch_size=2, seq_len=32)
+
+    def run(path, injector):
+        params = copy.deepcopy(init)
+        return train_loop(
+            train_step=make_train_step(cfg, TrainConfig(
+                adamw=opt.AdamWConfig(lr=1e-3, warmup_steps=0))),
+            params=params, opt_state=opt.init(params),
+            data_stream_fn=lambda s: stream(cfg, dcfg, s, device="cuda"),
+            ckpt=CheckpointManager(path, every=2, keep_n=2),
+            total_steps=10, injector=injector)
+
+    clean = run(f"{tmp}/clean", None)
+    stats = run(f"{tmp}/faulty", FailureInjector(at_steps=(3, 7)))
+    ran = [0, 1, 2, 2, 3, 4, 5, 6, 6, 7, 8, 9]     # resumed at 2 and 6
+    assert stats.restarts == 2 and stats.steps == len(ran), stats
+    assert sorted(set(ran)) == list(range(10))
+    want = [clean.losses[s] for s in ran]
+    torch.testing.assert_close(torch.tensor(stats.losses),
+                               torch.tensor(want), rtol=TRAIN_LOOP_RTOL,
+                               atol=0)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(stats.losses, want))
+    log(json.dumps({"lm_train_faults": "qwen3-reduced", "layers": 2,
+                    "failures_at": [3, 7], "restarts": stats.restarts,
+                    "steps": stats.steps, "rtol": TRAIN_LOOP_RTOL,
+                    "max_rel_err": rel,
+                    "bitwise": stats.losses == want}))
+
+
+def phase_train(seed: int) -> None:
+    """Phase 15: the LM training path (15a parity, 15b full width, 15c
+    the fault-tolerant loop)."""
+    import gc
+    import tempfile
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32, \
+        "TF32 matmuls would break the float32 tolerances"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_train_parity(seed)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_train(seed, f"{tmp}/full")
+        t2 = time.perf_counter()
+        lm_train_faults(seed, f"{tmp}/faults")
+    torch.cuda.empty_cache()
+    log(f"phase 15: parity {t1 - t0:.1f} s, full width {t2 - t1:.1f} s, "
+        f"fault loop {time.perf_counter() - t2:.1f} s")
+
+
 def make_graph(scale: int, seed: int, device: str):
     """The R-MAT graph of `GRAPHS` at ``scale`` (its edgefactor)."""
     from repro_torch.core import csr as csr_mod
@@ -4411,6 +4726,10 @@ def main(argv=None) -> int:
     # 14. the LM serve path: every reduced arch GPU == CPU, qwen3-14b
     # served at full width, decode == forward at its widths
     phase_lm(args.seed)
+
+    # 15. the LM training path: every reduced arch's step GPU == CPU,
+    # h2o-danube-1.8b trained at full width, the fault-tolerant loop
+    phase_train(args.seed)
 
     # 8. launch counts of the paths' runs
     log("launch counts (main path, fusion and SELL paths): " + ", ".join(

@@ -5,9 +5,12 @@ Families: dense / moe / hybrid (attn+SSM) / ssm (rwkv) / audio
 architecture requirement from the assignment table; configs/<id>.py
 instantiates them exactly.
 
-A copy of the reference's ``models/config.py``.  ``remat``,
-``scan_layers`` and ``seq_parallel`` steer the reference's jitted
-stacks; the port reads them nowhere (its stacks run layer by layer).
+A copy of the reference's ``models/config.py``.  ``remat`` makes the
+port's `transformer.stack_seq` and `lm.chunked_ce` recompute each block
+and each cross-entropy chunk in the backward pass, as the reference's
+``jax.checkpoint`` does; ``scan_layers`` and ``seq_parallel`` steer the
+reference's jitted stacks, and the port reads them nowhere (its stacks
+run layer by layer).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@
 plus, per family:
   vlm/audio prefix stubs:  "prefix": (B,P,D) precomputed embeddings
   encoder-decoder:         "src_embeddings": (B,S,D) frame embeddings
-(its value only: gradients and the optimizer are not ported yet).
+Gradients come from autograd (`repro_torch.train.train_step`); with
+``cfg.remat`` the blocks and each cross-entropy chunk are recomputed in
+the backward pass instead of kept.
 
 ``serve_step``-facing: ``decode_step(params, cfg, states, tokens,
 position[, memory])`` — one token against a standing KV-cache/SSM
@@ -18,6 +20,7 @@ fp32 tensor.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import common as cm, transformer as tf
@@ -25,8 +28,8 @@ from repro_torch.models.config import ModelConfig
 
 
 class LM(cm.Params):
-    """A model's parameters: ``embed``, ``final_norm``, ``layers`` (an
-    `nn.ModuleList` of `transformer.Block` in layer order), and, per
+    """A model's parameters: ``embed``, ``final_norm``, ``layers`` (a
+    `transformer.Stack` of `transformer.Block` in layer order), and, per
     config, ``lm_head``, ``encoder`` and ``enc_norm``."""
 
     @property
@@ -101,20 +104,32 @@ def logits_fn(params, cfg: ModelConfig, hidden):
     return hidden.float() @ _readout_table(params).float().T
 
 
+def _ce_chunk(hc, lc, table):
+    """Summed cross entropy of one token chunk (labels < 0 count 0)."""
+    logits = hc.float() @ table.T
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, lc.clamp(min=0)[:, None])[:, 0]
+    return torch.where(lc >= 0, lse - gold, 0.0).sum()
+
+
 def chunked_ce(params, cfg: ModelConfig, hidden, labels):
-    """Token-chunked cross entropy; labels < 0 are masked."""
+    """Token-chunked cross entropy; labels < 0 are masked.  Under
+    ``cfg.remat`` each chunk's fp32 logits are recomputed in the backward
+    pass (the reference's ``jax.checkpoint`` of its chunk)."""
     b, t, d = hidden.shape
     h = hidden.reshape(b * t, d)
     l = labels.reshape(b * t)
     chunk = min(cfg.vocab_chunk, h.shape[0])
     table = _readout_table(params).float()
+    remat = cfg.remat and torch.is_grad_enabled()
     total = h.new_zeros((), dtype=torch.float32)
     for i in range(0, h.shape[0], chunk):
         hc, lc = h[i:i + chunk], l[i:i + chunk]
-        logits = hc.float() @ table.T
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, 1, lc.clamp(min=0)[:, None])[:, 0]
-        total = total + torch.where(lc >= 0, lse - gold, 0.0).sum()
+        if remat:
+            total = total + checkpoint(_ce_chunk, hc, lc, table,
+                                       use_reentrant=False)
+        else:
+            total = total + _ce_chunk(hc, lc, table)
     n_valid = torch.clamp((l >= 0).sum(), min=1)
     return total / n_valid
 

@@ -9,16 +9,24 @@ layer is a `Block` with the reference's three entry points:
   decode : (cfg, state, x, position[, memory]) -> (state', x')
   state0 : initial per-layer decode state
 
-A stack is an `nn.ModuleList` of blocks in layer order, and its decode
-state a list of per-layer state dicts.  The reference stacks layers as
-a tuple over stride positions (`repro_torch.interop.unstack_layers`
-reads that layout): with moe_stride == s, layer i holds an MoE block
-when i % s == s - 1 (llama4's dense/MoE alternation).
+A stack is a `Stack` (an `nn.ModuleList`) of blocks in layer order, and
+its decode state a list of per-layer state dicts.  The reference stacks
+layers as a tuple over stride positions (`repro_torch.interop.
+unstack_layers` reads that layout, `stack_layers` writes it): with
+moe_stride == s, layer i holds an MoE block when i % s == s - 1
+(llama4's dense/MoE alternation).  A `Stack` keeps ``stride``, so code
+that must see the reference's stacked leaves (the 8-bit optimizer's
+scale groups) can find them.
+
+With ``cfg.remat`` and gradients on, `stack_seq` runs each block under
+`torch.utils.checkpoint` (the reference's ``jax.checkpoint`` of its scan
+body): only the blocks' inputs are kept for the backward pass.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common as cm, mlp, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
@@ -172,27 +180,41 @@ def _stride(cfg: ModelConfig, encoder: bool) -> int:
                               and not encoder) else 1
 
 
+class Stack(nn.ModuleList):
+    """Blocks in layer order; layer i sits at stride position
+    i % ``stride`` of the reference's stacked layout."""
+
+    def __init__(self, blocks=(), stride: int = 1):
+        super().__init__(blocks)
+        self.stride = stride
+
+
 def stack_init(gen, cfg: ModelConfig, n_layers: int, device, *,
                encoder: bool = False,
-               param_dtype: torch.dtype = torch.float32) -> nn.ModuleList:
+               param_dtype: torch.dtype = torch.float32) -> Stack:
     """``n_layers`` blocks in layer order, each cast to ``param_dtype`` as
     it is made (a full-width stack never exists in float32)."""
     stride = _stride(cfg, encoder)
     assert n_layers % stride == 0
-    return nn.ModuleList(
-        cm.cast_floats(block_init(gen, cfg, device, encoder=encoder,
-                                  use_moe=cfg.moe
-                                  and i % stride == stride - 1),
-                       param_dtype)
-        for i in range(n_layers))
+    return Stack((cm.cast_floats(block_init(gen, cfg, device,
+                                            encoder=encoder,
+                                            use_moe=cfg.moe
+                                            and i % stride == stride - 1),
+                                 param_dtype)
+                  for i in range(n_layers)), stride)
 
 
 def stack_seq(blocks, cfg: ModelConfig, x, positions, memory=None, *,
               causal: bool = True):
     """The blocks in layer order; aux summed. Returns (x, aux)."""
     lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for block in blocks:
-        x, aux = block.seq(cfg, x, positions, memory, causal=causal)
+        if remat:
+            x, aux = checkpoint(block_seq, block, cfg, x, positions, memory,
+                                causal=causal, use_reentrant=False)
+        else:
+            x, aux = block.seq(cfg, x, positions, memory, causal=causal)
         lb = lb + aux["lb_loss"]
         zl = zl + aux["z_loss"]
     return x, {"lb_loss": lb, "z_loss": zl}

@@ -1,0 +1,266 @@
+"""AdamW on a model's named parameters: schedule, clipping, fp32 and
+8-bit state.
+
+The reference's `train/optimizer.py` on torch.  Parameters are an
+`nn.Module` (its ``named_parameters()``) or a flat dict of tensors;
+gradients and state are dicts keyed by the same names:
+
+    fp32 state   {"m": {name: fp32}, "v": {name: fp32}, "step": int32}
+    8-bit state  {"m": {name: {"q": int8, "s": fp32}},
+                  "v": {name: bf16}, "step": int32}
+
+`update` and `update_8bit` write the new parameters and state in place
+under ``torch.no_grad`` and return them, with the reference's formulas
+in fp32.  ``zero1_specs`` (the reference's optimizer-state sharding)
+waits for the port's sharding slice.
+
+Scale groups of the 8-bit arm.  The reference quantises each *stacked*
+leaf: the same parameter of every layer at one stride position of a
+`transformer.Stack`, stacked over layers.  When a leaf's last dim is a
+multiple of `Q_BLOCK`, each 128-wide block has its own scale, so
+per-layer blocks are the reference's blocks.  When it is not (every
+leaf at reduced width; wq/wk/wv at head_dim 80), the reference keeps ONE
+scale over the whole stack, so the port quantises such a group of
+per-layer leaves with one scale too (`scale_groups`), and every member
+of the group holds that scale as its ``s``.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch.models.transformer import Stack
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def _named(params) -> dict:
+    """{name: tensor} of a module's parameters or of a flat dict."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def schedule(cfg: AdamWConfig, step):
+    """Linear warmup + cosine decay to min_lr_frac (fp32)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    progress = torch.clamp((step - cfg.warmup_steps)
+                           / max(cfg.total_steps - cfg.warmup_steps, 1),
+                           0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) \
+        * 0.5 * (1 + torch.cos(math.pi * progress))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def _step0(params: dict) -> torch.Tensor:
+    device = next(iter(params.values())).device
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def init(params) -> dict:
+    params = _named(params)
+    return {"m": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
+                  for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
+                  for k, p in params.items()},
+            "step": _step0(params)}
+
+
+def global_norm(grads: dict):
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads.values()))
+
+
+#: leaves above this many elements are updated in slices of their
+#: leading dim, so the fp32 temporaries stay bounded (the embeddings)
+_CHUNK_ELEMS = 64 * 1024 * 1024
+
+
+def _slices(p: torch.Tensor):
+    """Index slices of ``p``'s leading dim of at most ~`_CHUNK_ELEMS`."""
+    if p.numel() <= _CHUNK_ELEMS or p.ndim < 2:
+        yield slice(None)
+        return
+    rows = max(1, _CHUNK_ELEMS // (p.numel() // p.shape[0]))
+    for i in range(0, p.shape[0], rows):
+        yield slice(i, i + rows)
+
+
+def _coefficients(cfg: AdamWConfig, grads: dict, state: dict):
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1c = 1 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    return step, lr, gnorm, scale, b1c, b2c
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params, grads: dict, state: dict):
+    """One AdamW step with global-norm clipping, in place.  Returns
+    (params, state, {"lr", "grad_norm"})."""
+    step, lr, gnorm, scale, b1c, b2c = _coefficients(cfg, grads, state)
+    for name, p in _named(params).items():
+        m_all, v_all, g_all = state["m"][name], state["v"][name], \
+            grads[name]
+        for sl in _slices(p):
+            g = g_all[sl].to(torch.float32)
+            m = cfg.b1 * m_all[sl] + (1 - cfg.b1) * g * scale
+            v = cfg.b2 * v_all[sl] + (1 - cfg.b2) * torch.square(g * scale)
+            p32 = p[sl].to(torch.float32)
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            upd = upd + cfg.weight_decay * p32
+            p[sl] = (p32 - lr * upd).to(p.dtype)
+            m_all[sl] = m
+            v_all[sl] = v
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# Quantized optimizer state (bitsandbytes-style)
+#
+# m: int8, one fp32 scale per 128-wide block of the last dim (one scale
+#    per stacked leaf when the last dim doesn't divide).  m is
+#    zero-centered, so symmetric int8 works.
+# v: bf16.  Symmetric int8 on the second moment zeros-out small entries
+#    within a block, which 1/sqrt(v) then amplifies; bf16 keeps fp32's
+#    exponent range with ~0.4% relative error.
+# ---------------------------------------------------------------------------
+
+Q_BLOCK = 128
+
+
+def _blocked(x: torch.Tensor) -> bool:
+    return x.ndim > 0 and x.shape[-1] % Q_BLOCK == 0
+
+
+def _fallback_scale(absmax):
+    return absmax / 127.0 + 1e-12
+
+
+def _quantize(x: torch.Tensor, scale=None) -> dict:
+    """{"q": int8, "s": fp32}: per-block scales, or one scale (``scale``
+    when given: the leaf's group's) when the last dim does not divide."""
+    if not _blocked(x):
+        if scale is None:
+            scale = _fallback_scale(torch.max(torch.abs(x)))
+        q = torch.round(x / scale).to(torch.int8)
+        return {"q": q, "s": scale.to(torch.float32)}
+    n = x.shape[-1]
+    blocked = x.reshape(*x.shape[:-1], n // Q_BLOCK, Q_BLOCK)
+    scale = torch.amax(torch.abs(blocked), dim=-1, keepdim=True) / 127.0 \
+        + 1e-12
+    q = torch.round(blocked / scale).to(torch.int8)
+    return {"q": q.reshape(x.shape),
+            "s": scale.squeeze(-1).to(torch.float32)}
+
+
+def _dequantize(qs: dict, like_shape) -> torch.Tensor:
+    q, s = qs["q"], qs["s"]
+    if q.ndim == 0 or s.ndim == 0:
+        return q.to(torch.float32) * s
+    blocked = q.reshape(*q.shape[:-1], q.shape[-1] // Q_BLOCK, Q_BLOCK)
+    return (blocked.to(torch.float32) * s[..., None]).reshape(like_shape)
+
+
+def init_8bit(params) -> dict:
+    params = _named(params)
+    return {"m": {k: _quantize(torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device))
+                  for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                 device=p.device)
+                  for k, p in params.items()},
+            "step": _step0(params)}
+
+
+def scale_groups(params) -> list[list[str]]:
+    """Parameter names in the reference's stacked leaves: for a
+    `transformer.Stack` at ``prefix``, the parameter at relative path
+    ``rel`` of every layer i with i % stride == j is one group; every
+    other parameter is a group of its own.  Groups are in
+    ``named_parameters()`` order of their first member."""
+    key_of = {}
+    if isinstance(params, nn.Module):
+        for prefix, mod in params.named_modules():
+            if isinstance(mod, Stack):
+                for i, block in enumerate(mod):
+                    for rel, _ in block.named_parameters():
+                        key_of[f"{prefix}.{i}.{rel}"] = \
+                            (prefix, i % mod.stride, rel)
+    groups: dict = {}
+    for name in _named(params):
+        groups.setdefault(key_of.get(name, name), []).append(name)
+    return list(groups.values())
+
+
+@torch.no_grad()
+def update_8bit(cfg: AdamWConfig, params, grads: dict, state: dict):
+    """AdamW on int8-blockwise m and bf16 v (dequant -> update -> requant),
+    in place.  A group that shares one scale is walked twice: first for
+    the new m's absolute maximum over every member, then to write each
+    member with the group's new scale, so no more than one member's fp32
+    temporaries live at a time."""
+    step, lr, gnorm, scale, b1c, b2c = _coefficients(cfg, grads, state)
+    groups = scale_groups(params)
+    by_name = _named(params)
+
+    def new_m(name, sl):
+        g = grads[name][sl].to(torch.float32) * scale
+        mq = state["m"][name]
+        s = mq["s"][sl] if mq["s"].ndim else mq["s"]
+        m = cfg.b1 * _dequantize({"q": mq["q"][sl], "s": s}, g.shape) \
+            + (1 - cfg.b1) * g
+        return g, m
+
+    def write(name, sl, g, m, group_scale=None):
+        p, vb, mq = by_name[name], state["v"][name], state["m"][name]
+        v = cfg.b2 * vb[sl].to(torch.float32) + (1 - cfg.b2) * torch.square(g)
+        u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+            + cfg.weight_decay * p[sl].to(torch.float32)
+        p[sl] = (p[sl].to(torch.float32) - lr * u).to(p.dtype)
+        qs = _quantize(m, group_scale)
+        mq["q"][sl] = qs["q"]
+        if group_scale is None:
+            mq["s"][sl] = qs["s"]
+        else:
+            mq["s"].copy_(qs["s"])
+        vb[sl] = v.to(torch.bfloat16)
+
+    for group in groups:
+        if state["m"][group[0]]["s"].ndim:          # per-block scales
+            for name in group:
+                for sl in _slices(by_name[name]):
+                    write(name, sl, *new_m(name, sl))
+            continue
+        everything = slice(None)
+        absmax = functools.reduce(torch.maximum, (
+            torch.max(torch.abs(new_m(name, everything)[1]))
+            for name in group))
+        group_scale = _fallback_scale(absmax)
+        for name in group:
+            write(name, everything, *new_m(name, everything), group_scale)
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gnorm}
