@@ -234,6 +234,27 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    tiny config: checkpoints every 2 steps (keep 2), failures injected
    at steps 3 and 7: 2 restarts, every step reached, the losses after
    each restore equal to an uninterrupted run's (`TRAIN_LOOP_RTOL`).
+16. (run after 15) the sharding and launch slice (`models/sharding.py`,
+   `launch/mesh.py`, `launch/staging.py`, `train/optimizer.py`'s
+   DTensor arm and `zero1_specs`, re-sharding checkpoints; no kernel of
+   its own): `MESH_RANKS` spawned gloo ranks share cuda:0 (DTensor's
+   collectives staged through host memory, `launch.staging`).  a. the
+   reference's ``test_multidevice_train.py`` config (qwen3 reduced,
+   float32, 2 layers, 4/2 heads, batch 4, seq 32, `MESH_ADAMW`): three
+   steps on a (2 data x 4 model) mesh and the same run with ZeRO-1
+   moments give the one-rank card run's losses (`MESH_RTOL`,
+   `MESH_ATOL`); a checkpoint saved there restores bitwise onto a (4 x
+   2) mesh and one more step is finite; one ``lm_mesh_contracts`` line;
+   b. `MESH_FULL_ARCH` at its published widths cut to
+   `MESH_FULL_LAYERS` layers, phase 15's recipe, on a (2 x 2) mesh with
+   ``param_specs(model_divisor=2)`` and ZeRO-1 moments, global batch
+   `MESH_FULL_BATCH`, `MESH_FULL_STEPS` steps: losses finite and within
+   `MESH_FULL_RTOL` of a one-rank card run of the same cut (run first,
+   freed before the spawn); the ``lm_train_mesh`` line gives the card's
+   name and power limit, layers kept, step seconds, tokens/s, peak
+   memory per rank, the `CommDebugMode` collective counts of a step by
+   kind and the bytes and seconds staged through the host.  A rank that fails, or
+   a CUDA mesh that cannot be built, fails the phase.
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -250,6 +271,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -368,6 +390,23 @@ TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 4, 5
 TRAIN_ADAMW = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
 TRAIN_PARITY_TOL = 1e-3       # 15a: rtol = atol, GPU vs CPU in float32
 TRAIN_LOOP_RTOL = 1e-5        # 15c: losses after a restore, relative
+#: phase 16: the sharding and launch slice.  16a holds the reference's
+#: mesh contracts (``tests/test_multidevice_train.py``: its config,
+#: `MESH_ADAMW`, its tolerances) with `MESH_RANKS` gloo ranks on cuda:0
+#: against a one-rank card run; 16b trains `MESH_FULL_ARCH` at its
+#: published widths on a `MESH_FULL_SHAPE` mesh of ranks sharing the
+#: card, depth cut to `MESH_FULL_LAYERS` (four ranks' weights, gradients
+#: and AdamW state on one 80 GB card; PERF.md section 4 gives the cut),
+#: held to a one-rank run of the same cut within `MESH_FULL_RTOL`; each
+#: spawn has its deadline
+MESH_RANKS, MESH_SHAPES = 8, ((2, 4), (4, 2))
+MESH_ADAMW = dict(lr=1e-3, warmup_steps=0)
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5
+MESH_FULL_ARCH = TRAIN_ARCH
+MESH_FULL_SHAPE, MESH_FULL_LAYERS = (2, 2), 20
+MESH_FULL_BATCH, MESH_FULL_STEPS = 4, 3
+MESH_FULL_RTOL = 1e-3
+MESH_DEADLINE_S, MESH_FULL_DEADLINE_S = 300, 480
 #: H100 SXM dense bf16 peak (NVIDIA data sheet), the denominator of mfu
 BF16_PEAK_FLOPS = 989.4e12
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
@@ -4275,6 +4314,342 @@ def phase_train(seed: int) -> None:
         f"fault loop {time.perf_counter() - t2:.1f} s")
 
 
+def _mesh_card_setup(rank: int, world: int, store: str):
+    """A spawned rank of phase 16: one intra-op thread, gloo over a file
+    store, on cuda:0 like every other rank."""
+    # the ranks share one card: segments that grow in place leave less
+    # of it reserved and unused (read at the first allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+
+
+def _mesh_steps(mesh, step_fn, params, state, batches) -> list:
+    """`step_fn` on ``mesh`` over ``batches`` (plain, the same on every
+    rank).  Returns one record per step: loss, seconds (every rank
+    synchronised), `CommDebugMode` counts by kind and the bytes staged
+    through the host (`launch.staging`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch import mesh as lmesh, staging
+    from repro_torch.models.sharding import logical_axis_rules
+    out = []
+    with logical_axis_rules(lmesh.rules_for(mesh)):
+        for batch in batches:
+            b = lmesh.distribute_batch(mesh, {k: v.cuda()
+                                              for k, v in batch.items()})
+            staging.reset()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with CommDebugMode() as comm:
+                _, _, m = step_fn(params, state, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            dist.barrier()
+            out.append({"loss": loss, "s": time.perf_counter() - t0,
+                        "comm": {str(k).rpartition(".")[2]: v for k, v in
+                                 comm.get_comm_counts().items()},
+                        "staged": dict(staging.STAGED)})
+    return out
+
+
+def mesh_contract_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of 16a: both contracts of ``test_multidevice_train.py``
+    on cuda:0 (see `phase_mesh`); rank 0 writes ``<tmp>/16a.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    _mesh_card_setup(rank, world, f"{tmp}/store16a")
+    try:
+        job = torch.load(f"{tmp}/16a_job.pt", weights_only=False)
+        cfg, batches = job["cfg"], job["batches"]
+        step_fn = make_train_step(cfg, TrainConfig(adamw=opt.AdamWConfig(
+            **MESH_ADAMW)))
+
+        def fresh():
+            p = lm.init_params(cfg, job["seed"], device="cuda")
+            return p, opt.init(p)
+
+        mesh = lmesh.make_mesh(MESH_SHAPES[0], ("data", "model"))
+        assert mesh.device_type == "cuda", mesh
+        p, s = fresh()
+        specs = lmesh.param_specs(p, model_divisor=MESH_SHAPES[0][1])
+        places = lmesh.named_shardings(mesh, specs)
+        rep = {k: (Replicate(),) * mesh.ndim for k in places}
+        p, s = lmesh.place_on_mesh(mesh, p, places, s, rep)
+        runs = {"mesh": _mesh_steps(mesh, step_fn, p, s, batches[:3])}
+        zero1 = lmesh.named_shardings(mesh, opt.zero1_specs(
+            specs, p, data_divisor=MESH_SHAPES[0][0]))
+        pz, sz = fresh()
+        pz, sz = lmesh.place_on_mesh(mesh, pz, places, sz, zero1)
+        runs["zero1"] = _mesh_steps(mesh, step_fn, pz, sz, batches[:3])
+        save(f"{tmp}/ckpt16a", 3, {"params": p, "opt": s}, host_id=rank)
+        saved = {k: t.full_tensor() for k, t in p.named_parameters()}
+        saved.update({f"m.{k}": t.full_tensor() for k, t in s["m"].items()})
+        mesh2 = lmesh.make_mesh(MESH_SHAPES[1], ("data", "model"))
+        p2, s2 = fresh()
+        places2 = lmesh.named_shardings(mesh2, lmesh.param_specs(
+            p2, model_divisor=MESH_SHAPES[1][1]))
+        rep2 = {k: (Replicate(),) * mesh2.ndim for k in places2}
+        tree, _, step_no = restore(
+            f"{tmp}/ckpt16a", {"params": p2, "opt": s2},
+            shardings=(mesh2, {"params": places2,
+                               "opt": {"m": rep2, "v": rep2}}))
+        p2, s2 = tree["params"], tree["opt"]
+        got = {k: t.full_tensor() for k, t in p2.named_parameters()}
+        got.update({f"m.{k}": t.full_tensor() for k, t in s2["m"].items()})
+        bitwise = step_no == 3 and all(
+            torch.equal(got[k], saved[k]) for k in saved) and all(
+            tuple(t.placements) == places2[k]
+            for k, t in p2.named_parameters())
+        runs["elastic"] = _mesh_steps(mesh2, step_fn, p2, s2, batches[3:4])
+        zero1_cut = sum(sz["m"][k].placements[0].is_shard() for k in sz["m"])
+        if rank == 0:
+            torch.save({"runs": runs, "bitwise": bitwise,
+                        "zero1_cut": zero1_cut, "leaves": len(sz["m"])},
+                       f"{tmp}/16a.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_full_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of 16b: `MESH_FULL_ARCH` cut to `MESH_FULL_LAYERS` layers
+    on a `MESH_FULL_SHAPE` mesh, fp32 AdamW with ZeRO-1 moments;
+    writes ``<tmp>/16b.<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    _mesh_card_setup(rank, world, f"{tmp}/store16b")
+    try:
+        job = torch.load(f"{tmp}/16b_job.pt", weights_only=False)
+        cfg = job["cfg"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = lmesh.make_mesh(MESH_FULL_SHAPE, ("data", "model"))
+        params = lm.init_params(cfg, job["seed"], device="cuda")
+        specs = lmesh.param_specs(params, model_divisor=MESH_FULL_SHAPE[1])
+        places = lmesh.named_shardings(mesh, specs)
+        zero1 = lmesh.named_shardings(mesh, opt.zero1_specs(
+            specs, params, data_divisor=MESH_FULL_SHAPE[0]))
+        # the moments are made at the placed parameters' placements, then
+        # cut over data: no rank ever holds the full-size state
+        params, _ = lmesh.place_on_mesh(mesh, params, places)
+        params, state = lmesh.place_on_mesh(mesh, params, places,
+                                            opt.init(params), zero1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step_fn = make_train_step(cfg, TrainConfig(
+            adamw=opt.AdamWConfig(**TRAIN_ADAMW)))
+        steps = _mesh_steps(mesh, step_fn, params, state, job["batches"])
+        local = sum(p.to_local().numel() for p in params.parameters())
+        torch.save({"steps": steps, "init_s": init_s, "local_params": local,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+                    "card_free_gib": torch.cuda.mem_get_info()[0] / 2**30},
+                   f"{tmp}/16b.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, world: int, tmp: str, label: str,
+                deadline_s: float = MESH_DEADLINE_S) -> float:
+    """``world`` spawned processes running ``target(rank, world, tmp)``
+    under ``deadline_s``; every one must exit 0.  Returns the seconds
+    taken."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, world, tmp))
+             for rank in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + deadline_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    assert not hung, \
+        f"{label}: ranks {hung} still running after {deadline_s} s"
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"{label}: rank exit codes {codes}"
+    return time.perf_counter() - t0
+
+
+def one_rank_steps(cfg, seed: int, batches, adamw: dict) -> tuple:
+    """The one-rank card run phase 16 holds a mesh to: weights from
+    ``seed``, fp32 AdamW, one step per batch.  Returns (losses, step
+    seconds, peak GiB)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed, device="cuda")
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, TrainConfig(
+        adamw=opt.AdamWConfig(**adamw)))
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # only the metrics are kept: a name bound to the returned state
+        # would keep it on the card through the spawn that follows
+        m = step_fn(params, state, {k: v.cuda() for k, v in b.items()})[2]
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, state
+    torch.cuda.empty_cache()
+    return losses, times, peak
+
+
+def mesh_contracts(seed: int, tmp: str, smi: str) -> None:
+    """16a: both contracts of ``test_multidevice_train.py`` with
+    `MESH_RANKS` gloo ranks on cuda:0."""
+    import math
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    cfg = registry.get("qwen3", reduced=True).with_(
+        dtype="float32", n_layers=2, n_heads=4, n_kv_heads=2)
+    dcfg = DataConfig(batch_size=4, seq_len=32)
+    batches = [batch_at(cfg, dcfg, i, "cpu") for i in range(4)]
+    want, _, _ = one_rank_steps(cfg, seed, batches[:3], MESH_ADAMW)
+    torch.save({"cfg": cfg, "seed": seed, "batches": batches},
+               f"{tmp}/16a_job.pt")
+    wall = spawn_ranks(mesh_contract_rank, MESH_RANKS, tmp, "16a")
+    got = torch.load(f"{tmp}/16a.pt", weights_only=False)
+    runs = got["runs"]
+    for name in ("mesh", "zero1"):
+        losses = [r["loss"] for r in runs[name]]
+        torch.testing.assert_close(torch.tensor(losses), torch.tensor(want),
+                                   rtol=MESH_RTOL, atol=MESH_ATOL,
+                                   msg=f"16a {name}: {losses} vs {want}")
+    assert got["bitwise"], "16a: the restore onto (4, 2) is not bitwise"
+    assert got["zero1_cut"] > 0, "16a: ZeRO-1 cut no moment over data"
+    elastic = runs["elastic"][0]["loss"]
+    assert math.isfinite(elastic), elastic
+    log(json.dumps({
+        "lm_mesh_contracts": "qwen3-reduced", "card": smi, "ranks":
+        MESH_RANKS, "backend": "gloo on cuda:0", "meshes": MESH_SHAPES,
+        "one_rank_losses": want,
+        "mesh_losses": [r["loss"] for r in runs["mesh"]],
+        "zero1_losses": [r["loss"] for r in runs["zero1"]],
+        "zero1_moments_cut_over_data": f"{got['zero1_cut']}/{got['leaves']}",
+        "rtol": MESH_RTOL, "atol": MESH_ATOL, "restore_bitwise": True,
+        "elastic_loss": elastic, "comm_per_step": runs["mesh"][0]["comm"],
+        "staged_per_step": runs["mesh"][0]["staged"],
+        "spawned_s": wall}))
+
+
+def mesh_full(seed: int, tmp: str, smi: str) -> None:
+    """16b: `MESH_FULL_ARCH` at its published widths on a
+    `MESH_FULL_SHAPE` mesh, held to a one-rank run of the same cut."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    full = registry.get(MESH_FULL_ARCH)
+    cfg = full.with_(n_layers=MESH_FULL_LAYERS)
+    assert (cfg.param_dtype, cfg.dtype, cfg.remat) == \
+        ("float32", "bfloat16", True), cfg
+    dcfg = DataConfig(seed=seed, batch_size=MESH_FULL_BATCH,
+                      seq_len=TRAIN_SEQ)
+    batches = [batch_at(cfg, dcfg, i, "cpu") for i in range(MESH_FULL_STEPS)]
+    want, one_s, one_peak = one_rank_steps(cfg, seed, batches, TRAIN_ADAMW)
+    torch.save({"cfg": cfg, "seed": seed, "batches": batches},
+               f"{tmp}/16b_job.pt")
+    world = math.prod(MESH_FULL_SHAPE)
+    wall = spawn_ranks(mesh_full_rank, world, tmp, "16b",
+                       MESH_FULL_DEADLINE_S)
+    ranks = [torch.load(f"{tmp}/16b.{r}.pt", weights_only=False) for r in range(world)]
+    steps = ranks[0]["steps"]
+    losses = [s["loss"] for s in steps]
+    assert all(math.isfinite(x) for x in losses), losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    assert rel <= MESH_FULL_RTOL, \
+        f"16b: mesh losses {losses} vs one rank {want} (rel {rel})"
+    times = [s["s"] for s in steps]
+    later = times[1:] or times
+    tokens = MESH_FULL_BATCH * TRAIN_SEQ
+    p50 = float(np.percentile(later, 50))
+    log(json.dumps({
+        "lm_train_mesh": MESH_FULL_ARCH, "card": smi,
+        "mesh": {"data": MESH_FULL_SHAPE[0], "model": MESH_FULL_SHAPE[1]},
+        "ranks": world, "backend": "gloo on cuda:0, collectives staged "
+        "through host memory", "layers": cfg.n_layers,
+        "layers_published": full.n_layers, "seq_len": TRAIN_SEQ,
+        "global_batch": MESH_FULL_BATCH, "steps": MESH_FULL_STEPS,
+        "optimizer": "fp32 AdamW, m and v under zero1_specs",
+        "losses": losses, "one_rank_losses": want, "max_rel_err": rel,
+        "rtol": MESH_FULL_RTOL, "step_s": times,
+        "step_s_p50_after_first": p50, "step_s_max": max(times),
+        "tokens_per_s": tokens / p50, "one_rank_step_s": one_s,
+        "one_rank_peak_gib": one_peak,
+        "init_s": max(r["init_s"] for r in ranks),
+        "local_params_per_rank": [r["local_params"] for r in ranks],
+        "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+        "reserved_gib_per_rank": [r["reserved_gib"] for r in ranks],
+        "card_free_gib_after": min(r["card_free_gib"] for r in ranks),
+        "comm_per_step": steps[-1]["comm"],
+        "staged_per_step": steps[-1]["staged"],
+        "staged_s_per_rank": [r["steps"][-1]["staged"].get("staged s", 0.0)
+                              for r in ranks],
+        "device_wait_s_per_rank": [
+            r["steps"][-1]["staged"].get("device wait s", 0.0)
+            for r in ranks],
+        "spawned_s": wall}))
+
+
+def phase_mesh(seed: int, smi: str | None = None) -> None:
+    """Phase 16: the sharding and launch slice on DeviceMesh + DTensor
+    (16a the reference's two mesh contracts, 16b the full-width mesh
+    run)."""
+    import gc
+    import tempfile
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32, \
+        "TF32 matmuls would break the float32 tolerances"
+    smi = smi or card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_contracts(seed, tmp, smi)
+        t1 = time.perf_counter()
+        mesh_full(seed, tmp, smi)
+    log(f"phase 16: contracts {t1 - t0:.1f} s, full width "
+        f"{time.perf_counter() - t1:.1f} s")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def make_graph(scale: int, seed: int, device: str):
     """The R-MAT graph of `GRAPHS` at ``scale`` (its edgefactor)."""
     from repro_torch.core import csr as csr_mod
@@ -4400,10 +4775,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4730,6 +5102,10 @@ def main(argv=None) -> int:
     # 15. the LM training path: every reduced arch's step GPU == CPU,
     # h2o-danube-1.8b trained at full width, the fault-tolerant loop
     phase_train(args.seed)
+
+    # 16. the sharding and launch slice: the reference's mesh contracts
+    # with 8 ranks on the card, h2o-danube-1.8b on a (2 x 2) mesh
+    phase_mesh(args.seed, smi)
 
     # 8. launch counts of the paths' runs
     log("launch counts (main path, fusion and SELL paths): " + ", ".join(

@@ -10,15 +10,16 @@ The graph is a `Csr`, an `EdgeList` (built into a CSR on the plan's
 device) or any built `formats.GraphFormat` (CSR, SELL-C-σ, bitmap):
 ``plan(formats.build(csr, "auto"), spec)`` runs the layout the
 autotuner picks.  `plan` validates the graph, resolves the spec's
-``"auto"`` fields once and binds a cached `_Executable`: the format's
-padded arrays, the degree matrix and the per-mode steps (or, for
-``pipeline="persistent"``, the whole-traversal kernel's loop
-constants), built once per (format, geometry, resolved spec).  The key
+``"auto"`` fields once and binds the cached `_Executable` of its
+(`geometry_key`, resolved spec), as the reference does: two graphs of
+one geometry share it, and the cache holds no graph.  What depends on
+the graph itself (the per-mode steps over its padded arrays, the
+degree matrix, ``pipeline="persistent"``'s loop constants) is built
+once per format, when it is first planned with the spec, and kept on
+the format (`_Executable.bind`), so it lives and dies with the graph.  The key
 holds the resolved spec, so each pipeline and prefetch depth has its
-own entry.  The format part of the key is the identity of the format's
-arrays, which the cache entry holds, so two graphs of equal geometry
-never share padded arrays.  `CompiledTraversal.layer_step` advances a
-state by one layer through the same steps (the serve tick), and
+own entry.  `CompiledTraversal.layer_step` advances a state by one layer
+through the same steps (the serve tick), and
 `CompiledTraversal.trace_run` times each such layer.
 
 A spec whose ``algorithm`` is in the semiring portfolio (``sssp``,
@@ -41,14 +42,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.api.spec import TraversalSpec, warn_mesh_ignored_fields
+from repro_torch.api.spec import (TraversalSpec, as_format,
+                                  warn_mesh_ignored_fields)
 from repro_torch.core import engine as _engine
 from repro_torch.core.csr import Csr, check_structure, from_edges
 from repro_torch.core.rmat import EdgeList
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.errors import GraphValidationError
 from repro_torch.formats.base import GraphFormat
-from repro_torch.formats.csr_format import CsrFormat
 
 
 def check_roots(roots, n_vertices: int) -> None:
@@ -75,25 +76,22 @@ def check_roots(roots, n_vertices: int) -> None:
             f"would return a wrong tree, not an error)")
 
 
-def as_format(graph) -> GraphFormat:
-    """View a `Csr` as a `CsrFormat`; a built `GraphFormat` is taken as
-    it is (an `EdgeList` is built into a `Csr` first, by `plan`)."""
-    if isinstance(graph, GraphFormat):
-        return graph
-    if isinstance(graph, Csr):
-        return CsrFormat.from_csr(graph)
-    raise TypeError(
-        f"cannot plan a traversal over {type(graph).__name__}; expected "
-        f"a Csr, EdgeList or repro_torch.formats GraphFormat")
+def geometry_key(fmt: GraphFormat) -> tuple:
+    """Hashable (format class, vertex and edge counts, array shapes and
+    dtypes, device) key: what "same geometry" means for the plan
+    cache."""
+    return (type(fmt).__name__, fmt.n_vertices, fmt.n_edges,
+            tuple((tuple(t.shape), str(t.dtype)) for t in fmt.tensors()),
+            str(fmt.device))
 
 
-class _Executable:
-    """The cached unit: steps (with the padded arrays) and the degree
-    matrix for one (format, geometry, resolved spec).  The persistent
-    pipeline builds its loop constants here (kept on the format) and
-    its per-layer (megakernel) steps only when they first run: for a
-    degrade or a `CompiledTraversal.layer_step` tick.  A semiring spec
-    binds the format's one relax step."""
+class _Bound:
+    """One format bound to a resolved spec: its steps (with its padded
+    arrays) and degree matrix, or the persistent pipeline's loop
+    constants (kept on the format) with its per-layer (megakernel) steps
+    built only when they first run, for a degrade or a
+    `CompiledTraversal.layer_step` tick.  A semiring spec binds the
+    format's one relax step."""
 
     def __init__(self, fmt: GraphFormat, spec: TraversalSpec):
         self.fmt = fmt
@@ -134,25 +132,43 @@ class _Executable:
                                       deg_mat=self.deg_mat)
 
 
+class _Executable:
+    """The cached unit of one (geometry, resolved spec).  It holds the
+    spec and no graph: `bind` builds a format's `_Bound` (its steps,
+    degree matrix, loop constants) the first time the format is planned
+    with the spec, and keeps it on the format.  ``traces`` counts the bindings it has built; torch
+    traces nothing, so a "trace" here is an executable built for a
+    graph."""
+
+    def __init__(self, spec: TraversalSpec):
+        self.spec = spec
+        self.traces = 0
+
+    def bound(self, fmt: GraphFormat) -> "_Bound | None":
+        """``fmt``'s binding of this spec, if it has been built."""
+        return getattr(fmt, "_plan_bindings", {}).get(self.spec)
+
+    def bind(self, fmt: GraphFormat) -> _Bound:
+        b = self.bound(fmt)
+        if b is None:
+            if not hasattr(fmt, "_plan_bindings"):
+                fmt._plan_bindings = {}
+            b = fmt._plan_bindings[self.spec] = _Bound(fmt, self.spec)
+            self.traces += 1
+        return b
+
+
 _CACHE: dict[tuple, _Executable] = {}
 _STATS = {"hits": 0, "misses": 0}
 
 
-def _key(fmt: GraphFormat, spec: TraversalSpec) -> tuple:
-    tensors = fmt.tensors()
-    geometry = (type(fmt).__name__, fmt.n_vertices, fmt.n_edges,
-                tuple(tuple(t.shape) for t in tensors), str(fmt.device))
-    arrays = tuple(id(t) for t in tensors)
-    # ``merge`` is read only by the distributed path
-    return geometry + arrays + (spec.replace(merge="auto"),)
-
-
 def _executable(fmt: GraphFormat, spec: TraversalSpec) -> _Executable:
-    key = _key(fmt, spec)
+    # ``merge`` is read only by the distributed path
+    key = (geometry_key(fmt), spec.replace(merge="auto"))
     ex = _CACHE.get(key)
     if ex is None:
         _STATS["misses"] += 1
-        ex = _CACHE[key] = _Executable(fmt, spec)
+        ex = _CACHE[key] = _Executable(spec)
     else:
         _STATS["hits"] += 1
     return ex
@@ -164,16 +180,16 @@ def cache_info() -> dict:
 
 
 def clear_cache() -> None:
-    """Drop every cached executable (and the graphs they hold)."""
+    """Drop every cached executable."""
     _CACHE.clear()
     _STATS.update(hits=0, misses=0)
 
 
 class CompiledTraversal:
     """A graph bound to a fully-resolved `TraversalSpec` and its cached
-    executable (shared, by identity, across plans of the same graph
-    arrays and spec), or, bound to a ``mesh``, to the distributed
-    program (``executable`` None)."""
+    executable (shared, by identity, across plans of one geometry and
+    spec), or, bound to a ``mesh``, to the distributed program
+    (``executable`` None)."""
 
     def __init__(self, fmt: GraphFormat, resolved: TraversalSpec,
                  executable: _Executable | None, *,
@@ -229,8 +245,9 @@ class CompiledTraversal:
                 f"root batch of {n} exceeds this plan's fixed "
                 f"batch={self.batch}; chunk the roots or plan with a "
                 f"larger batch")
+        bound = self.executable.bind(self.fmt)
         if self.batch is not None and n < self.batch:
-            res = self.executable.run(torch.cat(
+            res = bound.run(torch.cat(
                 [r, r[-1:].expand(self.batch - n)]))
             st = res.state
             return _engine.EngineResult(
@@ -238,7 +255,7 @@ class CompiledTraversal:
                                  st.parent[:n], st.layer),
                 res.depths[:n], res.stats,
                 None if res.values is None else res.values[:n])
-        return self.executable.run(r)
+        return bound.run(r)
 
     def layer_step(self, state, visited=None, parent=None):
         """Advance every root of a (B, ...) state by exactly one layer
@@ -258,7 +275,7 @@ class CompiledTraversal:
                 f"single-layer tick: the portfolio's traversal loop owns the "
                 f"value/frontier carry — use run()/run_batched() for "
                 f"whole traversals")
-        step = self.executable.steps()[
+        step = self.executable.bind(self.fmt).steps()[
             _engine.MODE_SIMD if spec.algorithm == "simd"
             else _engine.MODE_SCALAR]
         if visited is None:
@@ -303,6 +320,16 @@ class CompiledTraversal:
             self.mesh, axis_names, n_vertices, self.resolved.max_layers,
             self.resolved.merge, rows_l, colstarts_l, int(root))
         return parent[:n_vertices], layers
+
+    @property
+    def traces(self) -> int:
+        """Executables built for this plan: 1 (the steps, degree matrix
+        and loop constants bound to its graph at plan time, kept for
+        every run), 0 on mesh-bound plans.  Torch traces nothing;
+        "trace" here means "executable built"."""
+        if self.executable is None:
+            return 0
+        return int(self.executable.bound(self.fmt) is not None)
 
     def stats(self, result) -> list[_engine.LayerStats]:
         """Decode a result's stats buffer (Table 1 rows)."""
@@ -356,4 +383,6 @@ def plan(graph, spec: TraversalSpec | None = None, *,
     resolved = spec.resolve(fmt)
     # a mesh-bound plan never runs the single-chip executable
     ex = None if mesh is not None else _executable(fmt, resolved)
+    if ex is not None:
+        ex.bind(fmt)
     return CompiledTraversal(fmt, resolved, ex, batch=batch, mesh=mesh)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 import warnings
+import weakref
 
 import torch
 
@@ -56,6 +57,41 @@ POLICIES = {
     "beamer": _engine.BeamerHybrid,
 }
 _POLICY_NAMES = {cls: name for name, cls in POLICIES.items()}
+
+
+#: `as_format`'s CsrFormat view of each live Csr, keyed by the ids of
+#: its arrays and its counts (the view holds the arrays, so an id is not
+#: reused while its entry lives): plans of one Csr share one format and
+#: its bindings
+_CSR_VIEWS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def as_format(graph):
+    """View whatever the caller holds as a built `GraphFormat`.
+
+    A Csr is wrapped as a `CsrFormat` (the same view while it lives), an
+    EdgeList built into a Csr on its own device first (no silent
+    re-layout: picking a different layout is `formats.build`'s job);
+    built formats pass through."""
+    from repro_torch.core.csr import Csr, from_edges
+    from repro_torch.core.rmat import EdgeList
+    from repro_torch.formats.base import GraphFormat
+    from repro_torch.formats.csr_format import CsrFormat
+    if isinstance(graph, GraphFormat):
+        return graph
+    if isinstance(graph, EdgeList):
+        return CsrFormat.from_csr(from_edges(graph,
+                                             device=graph.src.device))
+    if isinstance(graph, Csr):
+        key = (id(graph.rows), id(graph.colstarts), graph.n_vertices,
+               graph.n_edges)
+        fmt = _CSR_VIEWS.get(key)
+        if fmt is None:
+            fmt = _CSR_VIEWS[key] = CsrFormat.from_csr(graph)
+        return fmt
+    raise TypeError(
+        f"cannot plan a traversal over {type(graph).__name__}; expected "
+        f"a Csr, EdgeList or repro_torch.formats GraphFormat")
 
 
 def _is_policy(obj: Any) -> bool:
@@ -123,8 +159,14 @@ class TraversalSpec:
         return dataclasses.replace(self, **changes)
 
     # -- validation --------------------------------------------------------
-    def validate(self) -> "TraversalSpec":
-        """Reject invalid values (ValueError, the reference's messages).
+    def validate(self, fmt=None) -> "TraversalSpec":
+        """Reject invalid values and invalid (spec, format) pairs
+        (ValueError, the reference's messages).
+
+        Called standalone it checks every non-``"auto"`` field value;
+        with ``fmt`` (a built format, or a Csr / EdgeList viewed by
+        `as_format`) it also rejects combinations the format cannot
+        honour (e.g. ``prefetch_depth > 0`` on the bitmap layout).
         Returns self."""
         p = self.policy
         if not (_is_policy(p) or p == AUTO or
@@ -189,6 +231,8 @@ class TraversalSpec:
             raise ValueError(
                 f"max_layers must be an int >= 1 or 'auto', got "
                 f"{self.max_layers!r}")
+        if fmt is not None:
+            self._validate_for(as_format(fmt))
         return self
 
     def _validate_for(self, fmt) -> None:
@@ -243,11 +287,13 @@ class TraversalSpec:
                     f"of {allowed}, or pipeline='megakernel'")
 
     # -- auto resolution (exactly once, at plan time) --------------------
-    def resolve(self, fmt) -> "TraversalSpec":
-        """Resolve every ``"auto"`` against a `formats.GraphFormat` from
-        built-in defaults; the result `is_resolved` and has been
-        validated against the format."""
+    def resolve(self, graph) -> "TraversalSpec":
+        """Resolve every ``"auto"`` against the graph's format (a Csr or
+        EdgeList is viewed by `as_format`) from built-in defaults; the
+        result `is_resolved` and has been validated against the
+        format."""
         self.validate()
+        fmt = as_format(graph)
         policy = self.policy
         if policy == AUTO:
             deg = fmt.degrees().to("cpu", dtype=torch.float64)

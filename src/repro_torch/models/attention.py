@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import map_local, pin, shard
 
 #: finite, so a row with every key masked stays finite (its softmax is
 #: uniform, and later chunks or the caller discard it)
@@ -53,8 +54,8 @@ def _repeat_kv(k, n_heads: int):
     """(B,S,K,hd) -> (B,S,H,hd) by group broadcast."""
     b, s, kh, hd = k.shape
     reps = n_heads // kh
-    return k[:, :, :, None, :].expand(b, s, kh, reps, hd) \
-        .reshape(b, s, n_heads, hd)
+    return pin(k[:, :, :, None, :].expand(b, s, kh, reps, hd)
+               .reshape(b, s, n_heads, hd))
 
 
 def _pad_t(x, n: int, fill=0):
@@ -116,15 +117,28 @@ def _chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     return out[:, :tq].to(v.dtype)
 
 
+_HEADS = ("data", None, "model", None)
+_POSITIONS = ("data", None)
+
+
+def _attend(q, k, v, q_pos, kv_pos, **kw):
+    """`_chunked_attention`; on DTensors, on each rank's batch and heads
+    (`sharding.map_local`)."""
+    return map_local(_chunked_attention, (q, k, v, q_pos, kv_pos),
+                     (_HEADS, _HEADS, _HEADS, _POSITIONS, _POSITIONS), **kw)
+
+
 def apply(params, cfg: ModelConfig, x, positions, *, causal: bool = True):
     """Full-sequence attention (training / prefill). x: (B,T,D)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
+    q = shard(q, "data", None, "model", None)
+    k = shard(k, "data", None, "model", None)
     h = cfg.n_heads
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
-    out = _chunked_attention(
-        q, k, v, positions, positions, causal=causal,
-        window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
-        kv_chunk=cfg.attn_kv_chunk)
+    out = _attend(q, k, v, positions, positions, causal=causal,
+                  window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
+                  kv_chunk=cfg.attn_kv_chunk)
+    out = shard(out, "data", None, "model", None)
     return cm.dense_apply_out(params["wo"], out, x.dtype)
 
 
@@ -139,9 +153,8 @@ def cross_apply(params, cfg: ModelConfig, x, memory, positions):
     mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
                            device=memory.device)[None] \
         .expand(memory.shape[0], -1)
-    out = _chunked_attention(
-        q, k, v, positions, mem_pos, causal=False, window=None,
-        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    out = _attend(q, k, v, positions, mem_pos, causal=False, window=None,
+                  q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     return cm.dense_apply_out(params["wo"], out, dt)
 
 

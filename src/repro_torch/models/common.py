@@ -58,10 +58,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def make_generator(seed_or_gen, device=DEFAULT_DEVICE) -> torch.Generator:
-    """``seed_or_gen`` as a generator on ``device`` (an int seeds one)."""
+    """``seed_or_gen`` as a generator on ``device`` (an int seeds one; on
+    the meta device, which draws nothing, a CPU one)."""
     if isinstance(seed_or_gen, torch.Generator):
         return seed_or_gen
-    gen = torch.Generator(device=resolve_device(device))
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta"
+                          else resolve_device(dev))
     gen.manual_seed(int(seed_or_gen))
     return gen
 
@@ -129,8 +132,15 @@ def embedding_init(gen, vocab: int, d: int, device):
 
 
 def embedding_lookup(params, tokens, dtype):
-    # rows first, then the cast: the reference casts the whole table
-    return params["emb"][tokens].to(dtype)
+    # rows first, then the cast: the reference casts the whole table.
+    # F.embedding, not indexing: DTensor shards its backward over a
+    # vocab-cut table, where index_put's rule fails (torch 2.11)
+    return F.embedding(tokens, params["emb"]).to(dtype)
+
+
+def embedding_logits(params, h):
+    """Tied read-out: (..., d) @ (d, vocab) in fp32 for stability."""
+    return h.float() @ params["emb"].float().T
 
 
 # RoPE ----------------------------------------------------------------------

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import common as cm, transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import settle, shard
 
 
 class LM(cm.Params):
@@ -39,8 +40,11 @@ class LM(cm.Params):
 
 def init_params(cfg: ModelConfig, generator, device=DEFAULT_DEVICE) -> LM:
     """Random weights from ``generator`` (a `torch.Generator` on
-    ``device``, or an int seed), stored in ``cfg.param_dtype``."""
-    dev = resolve_device(device)
+    ``device``, or an int seed), stored in ``cfg.param_dtype``.
+    ``device="meta"`` gives shapes and dtypes only, with no storage
+    (`launch.inputs.params_specs`), at any size."""
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     gen = cm.make_generator(generator, dev)
     pd = cm.torch_dtype(cfg.param_dtype)
 
@@ -90,7 +94,7 @@ def _embed(params, cfg: ModelConfig, tokens, prefix):
 def forward_hidden(params, cfg: ModelConfig, tokens, prefix=None,
                    memory=None):
     """(B,T[,+P]) -> (hidden (B,T_total,D), aux)."""
-    x = _embed(params, cfg, tokens, prefix)
+    x = shard(_embed(params, cfg, tokens, prefix), "data", None, None)
     x, aux = tf.stack_seq(params["layers"], cfg, x, _positions(x), memory)
     return cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -101,14 +105,16 @@ def _readout_table(params):
 
 def logits_fn(params, cfg: ModelConfig, hidden):
     """fp32 logits: both sides cast to fp32, as the reference does."""
-    return hidden.float() @ _readout_table(params).float().T
+    out = hidden.float() @ _readout_table(params).float().T
+    return shard(out, "data", None, "model")
 
 
 def _ce_chunk(hc, lc, table):
     """Summed cross entropy of one token chunk (labels < 0 count 0)."""
-    logits = hc.float() @ table.T
+    logits = shard(hc.float() @ table.T, None, "model")
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, 1, lc.clamp(min=0)[:, None])[:, 0]
+    # a vocab-sharded gather's partial sum is reduced while it is 2-D
+    gold = settle(torch.gather(logits, 1, lc.clamp(min=0)[:, None]))[:, 0]
     return torch.where(lc >= 0, lse - gold, 0.0).sum()
 
 

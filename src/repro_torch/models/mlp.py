@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.models.sharding import shard
 
 
 def init(gen, d_model: int, d_ff: int, device):
@@ -18,4 +19,5 @@ def apply(params, x, kind: str = "swiglu"):
     act = F.silu if kind == "swiglu" else cm.gelu
     gate = cm.dense_apply(params["w_gate"], x, x.dtype)
     up = cm.dense_apply(params["w_up"], x, x.dtype)
-    return cm.dense_apply(params["w_down"], act(gate) * up, x.dtype)
+    hidden = shard(act(gate) * up, "data", None, "model")
+    return cm.dense_apply(params["w_down"], hidden, x.dtype)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm, mlp
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import shard
 
 
 def init(gen, cfg: ModelConfig, device):
@@ -76,7 +77,7 @@ def apply(params, cfg: ModelConfig, x):
     e, k = cfg.n_experts, cfg.top_k
     c = _capacity(n, e, k, cfg.capacity_factor)
 
-    tokens = x.reshape(g, n, d)
+    tokens = shard(x.reshape(g, n, d), "data", None, None)
     logits = tokens.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)
 
@@ -103,6 +104,7 @@ def _expert_ffn(params, expert_in, dtype):
     wd = params["w_down"]["w"].to(dtype)
     hidden = F.silu(torch.einsum("egcd,edf->egcf", expert_in, wg)) \
         * torch.einsum("egcd,edf->egcf", expert_in, wu)
+    hidden = shard(hidden, "model", None, None, None)
     return torch.einsum("egcf,efd->egcd", hidden, wd)
 
 
@@ -124,7 +126,9 @@ def _apply_einsum(params, tokens, gate_vals, gate_idx, g, n, e, k, c):
         combine = combine + slot.float() * gate_vals[..., kk][..., None, None]
         count_so_far = count_so_far + mask_k.sum(dim=1, keepdim=True)
 
-    expert_in = torch.einsum("gnec,gnd->egcd", dispatch, tokens)
+    # dispatch: tokens -> expert-major (E, g, c, D); E cut over "model"
+    expert_in = shard(torch.einsum("gnec,gnd->egcd", dispatch, tokens),
+                      "model", None, None, None)
     expert_out = _expert_ffn(params, expert_in, dt)
     out = torch.einsum("gnec,egcd->gnd", combine.to(dt), expert_out)
     ce = (dispatch.sum(-1) > 0).float().mean(dim=1)
@@ -152,7 +156,8 @@ def _apply_sorted(params, tokens, gate_vals, gate_idx, g, n, e, k, c):
     g_idx = torch.arange(g, device=dev)[:, None]
     buf = tokens.new_zeros((g, e * c + 1, d))
     buf[g_idx, slot] = tokens[g_idx, src_sorted]
-    expert_in = buf[:, :e * c].reshape(g, e, c, d).transpose(0, 1)
+    expert_in = shard(buf[:, :e * c].reshape(g, e, c, d).transpose(0, 1),
+                      "model", None, None, None)
     expert_out = _expert_ffn(params, expert_in, tokens.dtype)
     out_buf = expert_out.transpose(0, 1).reshape(g, e * c, d)
 

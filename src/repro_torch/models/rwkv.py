@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import shard
 
 CHUNK = 16
 HEAD_DIM = 64
@@ -154,6 +155,7 @@ def channel_mix(cmix, x, shift_prev):
     xk = _mix(x, xp, cmix["mu"][0])
     xr = _mix(x, xp, cmix["mu"][1])
     kk = torch.relu(cm.dense_apply(cmix["w_k"], xk, x.dtype)).square()
+    kk = shard(kk, "data", None, "model")
     rr = torch.sigmoid(cm.dense_apply(cmix["w_r"], xr, x.dtype))
     return rr * cm.dense_apply(cmix["w_v"], kk, x.dtype), x[:, -1]
 

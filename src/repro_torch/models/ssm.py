@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import shard
 
 
 def init(gen, cfg: ModelConfig, device):
@@ -47,6 +48,7 @@ def _conv_causal(w, u, init_state=None):
 
 def _ssm_inputs(params, cfg: ModelConfig, x, conv_state=None):
     u, z = cm.dense_apply(params["in_proj"], x, x.dtype).chunk(2, dim=-1)
+    u = shard(u, "data", None, "model")
     u, conv_state = _conv_causal(params["conv"]["w"].to(x.dtype), u,
                                  conv_state)
     u = F.silu(u)
@@ -74,7 +76,7 @@ def apply_seq(params, cfg: ModelConfig, x):
         hs.append(h)
     h = torch.stack(hs, dim=1)                          # (B,T,C,N)
     y = torch.einsum("btcn,btn->btc", h, c).to(x.dtype)
-    y = _gate(params, y, u, z, x)
+    y = shard(_gate(params, y, u, z, x), "data", None, "model")
     return cm.dense_apply(params["out_proj"], y, x.dtype)
 
 

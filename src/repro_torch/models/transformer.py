@@ -30,6 +30,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common as cm, mlp, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import shard
+
+
+#: the reference's module-level zero aux losses (on the CPU); blocks use
+#: `zero_aux` on their own device
+ZERO_AUX = {"lb_loss": torch.tensor(0.0), "z_loss": torch.tensor(0.0)}
 
 
 def zero_aux(device) -> dict:
@@ -98,6 +104,12 @@ def _mixer_seq(p, cfg: ModelConfig, x, positions, *, causal):
 def block_seq(p, cfg: ModelConfig, x, positions, memory=None, *,
               causal: bool = True):
     """Full-sequence block. Returns (x, aux)."""
+    if cfg.seq_parallel:
+        # Megatron-style sequence parallelism: the residual stream is
+        # seq-sharded over "model" between blocks, so each TP boundary
+        # becomes a reduce-scatter (+ all-gather where attention needs
+        # the full sequence)
+        x = shard(x, "data", "model", None)
     if "rwkv" in p:
         st = rwkv.init_block_state(cfg, x.shape[0], x.dtype, x.device)
         tm_out, _, _ = rwkv.time_mix_seq(
@@ -111,6 +123,8 @@ def block_seq(p, cfg: ModelConfig, x, positions, memory=None, *,
         return x + cm_out, zero_aux(x.device)
 
     x = x + _mixer_seq(p, cfg, x, positions, causal=causal)
+    if cfg.seq_parallel:
+        x = shard(x, "data", "model", None)   # RS after attn residual
     if "cross" in p and memory is not None:
         xn = cm.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
         x = x + attention.cross_apply(p["cross"], cfg, xn, memory,

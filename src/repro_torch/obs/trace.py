@@ -274,7 +274,7 @@ def trace_run(graph, roots, *, spec=None, tracer: SpanTracer | None = None,
         state, depths = _unbatch(res.state, res.depths, single)
         return TraceRun(state, depths, stats, layer_seconds, tracer)
 
-    deg = ct.executable.deg_mat.reshape(-1)
+    deg = ct.fmt.degree_matrix().reshape(-1)
 
     def counters(frontier):
         """The measure kernel's per-root frontier counts and degree

@@ -42,7 +42,9 @@ def _leaves(tree):
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: lm.LM,
                  batch_slots: int = 4, cache_len: int = 256,
-                 eos_id: int | None = None):
+                 eos_id: int | None = None, greedy: bool = True):
+        # ``greedy`` is accepted and ignored, as in the reference: decoding
+        # is always greedy
         self.cfg = cfg
         self.params = params
         self.device = params.device

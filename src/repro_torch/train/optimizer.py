@@ -11,8 +11,15 @@ gradients and state are dicts keyed by the same names:
 
 `update` and `update_8bit` write the new parameters and state in place
 under ``torch.no_grad`` and return them, with the reference's formulas
-in fp32.  ``zero1_specs`` (the reference's optimizer-state sharding)
-waits for the port's sharding slice.
+in fp32.
+
+On a mesh (`launch.mesh.place_on_mesh`) the parameters, gradients, m and
+v of the fp32 arm are DTensors.  A gradient is first brought to its
+parameter's placements (the data-parallel reduction); m and v may sit
+at other placements (`zero1_specs`: cut over "data" as well), and are
+brought to the parameter's for the update and written back to their
+own.  The update itself runs on each rank's local shards.  The 8-bit
+arm's per-block scales have no placements yet, so it raises on a mesh.
 
 Scale groups of the 8-bit arm.  The reference quantises each *stacked*
 leaf: the same parameter of every layer at one stride position of a
@@ -33,6 +40,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from repro_torch.models.sharding import Spec, is_dtensor
 from repro_torch.models.transformer import Stack
 
 
@@ -69,25 +77,67 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def _step0(params: dict) -> torch.Tensor:
-    device = next(iter(params.values())).device
+    device = _local(next(iter(params.values()))).device
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def init(params) -> dict:
+    """Zero fp32 moments, each like its parameter (a DTensor's at its
+    placements), and step 0."""
     params = _named(params)
-    return {"m": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                  for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                  for k, p in params.items()},
+
+    def zeros(p):
+        return torch.zeros_like(p.detach(), dtype=torch.float32)
+
+    return {"m": {k: zeros(p) for k, p in params.items()},
+            "v": {k: zeros(p) for k, p in params.items()},
             "step": _step0(params)}
 
 
 def global_norm(grads: dict):
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
+    With DTensor leaves (none partial), each rank sums its shards, each
+    divided by its number of replicas, and one all-reduce adds the
+    ranks' sums."""
+    leaves = list(grads.values())
+    mesh = next((g.device_mesh for g in leaves if is_dtensor(g)), None)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from torch.distributed.tensor import DTensor, Partial
+
+    def replicas(g) -> int:
+        if not is_dtensor(g):
+            return mesh.size()
+        return math.prod(mesh.size(i) for i, pl in enumerate(g.placements)
+                         if pl.is_replicate())
+
+    total = sum(torch.sum(torch.square(_local(g).float())) / replicas(g)
+                for g in leaves)
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False).full_tensor()
+    return torch.sqrt(total)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writes reach the DTensor), or
+    ``t``."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _at(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """DTensor ``t`` at ``like``'s placements (itself when they agree),
+    or ``t``."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def _write_back(leaf: torch.Tensor, updated: torch.Tensor) -> None:
+    """Store ``updated`` (``leaf`` brought to other placements and
+    updated there) into ``leaf`` at its own placements."""
+    if updated is not leaf:
+        _local(leaf).copy_(_local(_at(updated, leaf)))
 
 
 #: leaves above this many elements are updated in slices of their
@@ -119,11 +169,21 @@ def _coefficients(cfg: AdamWConfig, grads: dict, state: dict):
 @torch.no_grad()
 def update(cfg: AdamWConfig, params, grads: dict, state: dict):
     """One AdamW step with global-norm clipping, in place.  Returns
-    (params, state, {"lr", "grad_norm"})."""
+    (params, state, {"lr", "grad_norm"}).
+
+    On a mesh the update runs at the moments' placements: each gradient
+    is brought there (a gradient partial over data, one reduce-scatter)
+    and so is each parameter (from a replicated one, a local slice with
+    no collective), each rank updates its slices, and only the parameter
+    goes back to its own placement (under `zero1_specs`, one all-gather
+    per leaf)."""
+    named = _named(params)
+    grads = {k: _at(g, state["m"][k]) for k, g in grads.items()}
     step, lr, gnorm, scale, b1c, b2c = _coefficients(cfg, grads, state)
-    for name, p in _named(params).items():
-        m_all, v_all, g_all = state["m"][name], state["v"][name], \
-            grads[name]
+    for name, p_all in named.items():
+        p_at = _at(p_all, state["m"][name])
+        p, m_all, v_all, g_all = (_local(t) for t in (
+            p_at, state["m"][name], state["v"][name], grads[name]))
         for sl in _slices(p):
             g = g_all[sl].to(torch.float32)
             m = cfg.b1 * m_all[sl] + (1 - cfg.b1) * g * scale
@@ -134,6 +194,7 @@ def update(cfg: AdamWConfig, params, grads: dict, state: dict):
             p[sl] = (p32 - lr * upd).to(p.dtype)
             m_all[sl] = m
             v_all[sl] = v
+        _write_back(p_all, p_at)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
@@ -223,9 +284,14 @@ def update_8bit(cfg: AdamWConfig, params, grads: dict, state: dict):
     the new m's absolute maximum over every member, then to write each
     member with the group's new scale, so no more than one member's fp32
     temporaries live at a time."""
+    by_name = _named(params)
+    if any(is_dtensor(p) for p in by_name.values()):
+        raise NotImplementedError(
+            "the 8-bit optimizer arm on a mesh needs placements for its "
+            "per-block scales, which come with the dry run; use the fp32 "
+            "arm (update) on a mesh")
     step, lr, gnorm, scale, b1c, b2c = _coefficients(cfg, grads, state)
     groups = scale_groups(params)
-    by_name = _named(params)
 
     def new_m(name, sl):
         g = grads[name][sl].to(torch.float32) * scale
@@ -264,3 +330,35 @@ def update_8bit(cfg: AdamWConfig, params, grads: dict, state: dict):
             write(name, everything, *new_m(name, everything), group_scale)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: optimizer-state sharding over the data axis
+# ---------------------------------------------------------------------------
+
+def zero1_specs(param_spec_tree: dict, params_shape, data_divisor: int):
+    """m/v specs: param spec + cut the largest free dim over "data".
+
+    A dim is eligible if unsharded in the param spec and divisible by
+    the data-axis size.  Falls back to the param spec (replicated over
+    data) when nothing divides — correctness never depends on it.
+    ``param_spec_tree`` is {name: `Spec`} (`launch.mesh.param_specs`),
+    ``params_shape`` the parameters (a module, on any device) or
+    {name: tensor or shape}.
+    """
+    shapes = {k: tuple(getattr(v, "shape", v))
+              for k, v in _named(params_shape).items()}
+
+    def one(spec: Spec, shape) -> Spec:
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        if "data" in dims:
+            return Spec(*dims)    # FSDP leaf: data axis already used
+        best, best_size = None, 0
+        for i, (s, n) in enumerate(zip(dims, shape)):
+            if s is None and n % data_divisor == 0 and n > best_size:
+                best, best_size = i, n
+        if best is not None:
+            dims[best] = "data"
+        return Spec(*dims)
+
+    return {k: one(spec, shapes[k]) for k, spec in param_spec_tree.items()}

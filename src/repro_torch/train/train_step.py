@@ -8,15 +8,23 @@ compressed if asked, cast to fp32 and summed, then scaled by 1/n, as
 the reference's ``lax.scan`` does (plain ``.grad`` accumulation would
 sum before the compression).  The optimizer writes parameters and state
 in place (`train.optimizer`).
+
+On a mesh (parameters and batch DTensors, `launch.mesh`) the step runs
+under DTensor's implicit replication, so the plain tensors the model
+makes (positions, masks, zeros) count as replicated; the caller enters
+`models.sharding.logical_axis_rules` for the cut points.  Metrics come
+back as plain tensors on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.train import optimizer as opt
 
 
@@ -34,6 +42,18 @@ def _compress(grads: dict, mode) -> dict:
     if mode == "bf16":
         return {k: g.to(torch.bfloat16) for k, g in grads.items()}
     return grads
+
+
+def _mesh_scope(params):
+    """DTensor's implicit replication when ``params`` live on a mesh."""
+    if any(is_dtensor(p) for p in params.parameters()):
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _full(t):
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
@@ -76,10 +96,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     update_fn = opt.update_8bit if tcfg.opt_8bit else opt.update
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = microbatched_grads(params, batch)
-        params, opt_state, stats = update_fn(tcfg.adamw, params, grads,
-                                             opt_state)
-        return params, opt_state, {"loss": loss, **metrics, **stats}
+        with _mesh_scope(params):
+            loss, metrics, grads = microbatched_grads(params, batch)
+            params, opt_state, stats = update_fn(tcfg.adamw, params, grads,
+                                                 opt_state)
+            metrics = {k: _full(v) for k, v in
+                       {"loss": loss, **metrics, **stats}.items()}
+        return params, opt_state, metrics
 
     return train_step
 

@@ -160,7 +160,8 @@ def test_plan_cache_reuses_its_entry(rmat):
     assert c.executable is a.executable           # merge is mesh-only
     other = to_port(rmat_graph(9))                # equal geometry, new arrays
     assert bfs.plan(other, spec, device="cpu").executable \
-        is not a.executable
+        is a.executable                           # keyed by geometry
+    assert bfs.plan_cache_info() == {"size": 1, "hits": 3, "misses": 1}
     bfs.clear_plan_cache()
     assert bfs.plan_cache_info()["size"] == 0
 

@@ -187,10 +187,10 @@ def test_sell_plan_cache_keys_on_the_format_arrays(graphs):
     assert tbfs.plan(fmt, spec, device="cpu").executable is a.executable
     other = _port_sell(graphs, "rmat9")            # equal geometry
     assert tbfs.plan(other, spec, device="cpu").executable \
-        is not a.executable
+        is a.executable                            # keyed by geometry
     csr = tbfs.plan(to_port(graphs["rmat9"]), spec, device="cpu")
     assert csr.executable is not a.executable
-    assert tbfs.plan_cache_info()["size"] == 3
+    assert tbfs.plan_cache_info()["size"] == 2
     tbfs.clear_plan_cache()
 
 
