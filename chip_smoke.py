@@ -255,6 +255,28 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    memory per rank, the `CommDebugMode` collective counts of a step by
    kind and the bytes and seconds staged through the host.  A rank that fails, or
    a CUDA mesh that cannot be built, fails the phase.
+17. (run after 16) the roofline and the dry run (`roofline/*`,
+   `launch/dryrun.py`, `obs.cost_drift.measure_drift`, the 8-bit arm on
+   a mesh; no kernel of its own): a. phase 15's one-rank fp32 step of
+   `TRAIN_ARCH` at full width, analysed (`roofline.hlo_analyze`) once on
+   the card and once on meta tensors on the host: flops, bytes and op
+   counts equal; the ``roofline_step`` line gives the predicted peak
+   beside ``torch.cuda.max_memory_allocated``, the roofline terms at the
+   H100's constants, a timed step against ``t_bound`` and the mfu
+   (`model_flops`, through `roofline.analysis.model_flops_for`); b.
+   ``python -m repro_torch.launch.dryrun`` as a child per cell of
+   `DRYRUN_CELLS` (qwen3-14b's decode on a fake 256-rank mesh, the
+   distributed BFS on rmat-22 with the rowsweep on the card): ``status``
+   ok, one ``dryrun`` line each with the per-rank terms; c.
+   `measure_drift` on the main path's graph (CSR ``fused_gather`` and
+   ``materialized``, SELL ``fused_gather``; one ``drift`` line each),
+   and the same rows on the card and on the CPU at SCALE 12; d. the
+   8-bit arm on 16a's config and meshes (`MESH_RANKS` gloo ranks on
+   cuda:0), q and v under `zero1_specs` and the scales under
+   `optimizer.qs_specs`: losses within `MESH_RTOL`, `MESH_ATOL` of the
+   one-rank 8-bit card run, and the gathered parameters and state
+   within `GATE_8BIT` of that run's, which the one-rank fp32 run's state
+   fails (one ``lm_mesh_8bit`` line).
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -402,6 +424,13 @@ TRAIN_LOOP_RTOL = 1e-5        # 15c: losses after a restore, relative
 MESH_RANKS, MESH_SHAPES = 8, ((2, 4), (4, 2))
 MESH_ADAMW = dict(lr=1e-3, warmup_steps=0)
 MESH_RTOL, MESH_ATOL = 2e-4, 2e-5
+#: 17d's state gate (`optimizer.gap_8bit` against the one-rank 8-bit
+#: run): q within one level on at most a 1e-3 share of entries, scales
+#: to fp32 rounding, v and the parameters (1e-5) off on at most a 1e-3
+#: share.  Another reduction order moves a few values of m across a
+#: rounding boundary; the fp32 arm's state is off on 2-54 % of entries.
+GATE_8BIT = {"q_levels": 1, "q_share": 1e-3, "s_rel": 1e-5,
+             "v_share": 1e-3, "p_share": 1e-3}
 MESH_FULL_ARCH = TRAIN_ARCH
 MESH_FULL_SHAPE, MESH_FULL_LAYERS = (2, 2), 20
 MESH_FULL_BATCH, MESH_FULL_STEPS = 4, 3
@@ -409,6 +438,16 @@ MESH_FULL_RTOL = 1e-3
 MESH_DEADLINE_S, MESH_FULL_DEADLINE_S = 300, 480
 #: H100 SXM dense bf16 peak (NVIDIA data sheet), the denominator of mfu
 BF16_PEAK_FLOPS = 989.4e12
+#: phase 17b: the dry run's cells (CLI arguments) and each child's
+#: deadline in seconds
+DRYRUN_CELLS = (
+    (["--arch", "qwen3-14b", "--shape", "decode_32k", "--mesh", "single"],
+     120),
+    (["--bfs", "--bfs-graph", "rmat-22", "--mesh", "single"], 120),
+)
+#: phase 17c: the pipelines `measure_drift` runs per format
+DRIFT_PIPELINES = {"csr": ("fused_gather", "materialized"),
+                   "sell": ("fused_gather",)}
 #: the fusion paths of phase 5 (TraversalSpec fields) and the kernel
 #: each must launch
 PATHS = {
@@ -4102,12 +4141,14 @@ def lm_train_parity(seed: int) -> None:
 
 
 def model_flops(cfg, tokens: int) -> float:
-    """6 (N - embedding) tokens, the embedding tables counted as the
-    reference's dry run counts them (both tables when untied)."""
+    """A training step's model FLOPs: `roofline.analysis.model_flops_for`
+    (6 (N - embedding) tokens), the embedding tables counted as the dry
+    run counts them (both tables when untied)."""
     from repro_torch.models.config import param_count
-    n_embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings
-                                              else 2)
-    return 6.0 * (param_count(cfg, active_only=True) - n_embed) * tokens
+    from repro_torch.roofline.analysis import (embedding_params,
+                                               model_flops_for)
+    return model_flops_for("train", param_count(cfg, active_only=True),
+                           tokens, embedding_params(cfg))
 
 
 def lm_train_arm(cfg, seed: int, eight: bool, tmp: str):
@@ -4493,10 +4534,12 @@ def spawn_ranks(target, world: int, tmp: str, label: str,
     return time.perf_counter() - t0
 
 
-def one_rank_steps(cfg, seed: int, batches, adamw: dict) -> tuple:
-    """The one-rank card run phase 16 holds a mesh to: weights from
-    ``seed``, fp32 AdamW, one step per batch.  Returns (losses, step
-    seconds, peak GiB)."""
+def one_rank_steps(cfg, seed: int, batches, adamw: dict,
+                   eight: bool = False, snapshot: bool = False) -> tuple:
+    """The one-rank card run phases 16 and 17d hold a mesh to: weights
+    from ``seed``, fp32 AdamW (the 8-bit arm with ``eight``), one step
+    per batch.  Returns (losses, step seconds, peak GiB, the final
+    `optimizer.snapshot_8bit` with ``snapshot``, else None)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.train import optimizer as opt
@@ -4504,9 +4547,9 @@ def one_rank_steps(cfg, seed: int, batches, adamw: dict) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = lm.init_params(cfg, seed, device="cuda")
-    state = opt.init(params)
+    state = (opt.init_8bit if eight else opt.init)(params)
     step_fn = make_train_step(cfg, TrainConfig(
-        adamw=opt.AdamWConfig(**adamw)))
+        adamw=opt.AdamWConfig(**adamw), opt_8bit=eight))
     losses, times = [], []
     for b in batches:
         torch.cuda.synchronize()
@@ -4517,9 +4560,10 @@ def one_rank_steps(cfg, seed: int, batches, adamw: dict) -> tuple:
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    snap = opt.snapshot_8bit(params, state) if snapshot else None
     del params, state
     torch.cuda.empty_cache()
-    return losses, times, peak
+    return losses, times, peak, snap
 
 
 def mesh_contracts(seed: int, tmp: str, smi: str) -> None:
@@ -4533,7 +4577,7 @@ def mesh_contracts(seed: int, tmp: str, smi: str) -> None:
         dtype="float32", n_layers=2, n_heads=4, n_kv_heads=2)
     dcfg = DataConfig(batch_size=4, seq_len=32)
     batches = [batch_at(cfg, dcfg, i, "cpu") for i in range(4)]
-    want, _, _ = one_rank_steps(cfg, seed, batches[:3], MESH_ADAMW)
+    want, _, _, _ = one_rank_steps(cfg, seed, batches[:3], MESH_ADAMW)
     torch.save({"cfg": cfg, "seed": seed, "batches": batches},
                f"{tmp}/16a_job.pt")
     wall = spawn_ranks(mesh_contract_rank, MESH_RANKS, tmp, "16a")
@@ -4576,7 +4620,8 @@ def mesh_full(seed: int, tmp: str, smi: str) -> None:
     dcfg = DataConfig(seed=seed, batch_size=MESH_FULL_BATCH,
                       seq_len=TRAIN_SEQ)
     batches = [batch_at(cfg, dcfg, i, "cpu") for i in range(MESH_FULL_STEPS)]
-    want, one_s, one_peak = one_rank_steps(cfg, seed, batches, TRAIN_ADAMW)
+    want, one_s, one_peak, _ = one_rank_steps(cfg, seed, batches,
+                                              TRAIN_ADAMW)
     torch.save({"cfg": cfg, "seed": seed, "batches": batches},
                f"{tmp}/16b_job.pt")
     world = math.prod(MESH_FULL_SHAPE)
@@ -4604,7 +4649,10 @@ def mesh_full(seed: int, tmp: str, smi: str) -> None:
         "losses": losses, "one_rank_losses": want, "max_rel_err": rel,
         "rtol": MESH_FULL_RTOL, "step_s": times,
         "step_s_p50_after_first": p50, "step_s_max": max(times),
-        "tokens_per_s": tokens / p50, "one_rank_step_s": one_s,
+        "tokens_per_s": tokens / p50,
+        "model_flops_per_step": model_flops(cfg, tokens),
+        "mfu": model_flops(cfg, tokens) / p50 / BF16_PEAK_FLOPS,
+        "one_rank_step_s": one_s,
         "one_rank_peak_gib": one_peak,
         "init_s": max(r["init_s"] for r in ranks),
         "local_params_per_rank": [r["local_params"] for r in ranks],
@@ -4640,6 +4688,251 @@ def phase_mesh(seed: int, smi: str | None = None) -> None:
         mesh_full(seed, tmp, smi)
     log(f"phase 16: contracts {t1 - t0:.1f} s, full width "
         f"{time.perf_counter() - t1:.1f} s")
+
+
+def mesh_8bit_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of 17d: the 8-bit arm on each mesh of `MESH_SHAPES`, q and
+    v under `zero1_specs`, the scales under `optimizer.qs_specs`; rank 0
+    writes ``<tmp>/17d.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.dryrun import qs_axis_size
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    _mesh_card_setup(rank, world, f"{tmp}/store17d")
+    try:
+        job = torch.load(f"{tmp}/17d_job.pt", weights_only=False)
+        cfg, batches = job["cfg"], job["batches"]
+        step_fn = make_train_step(cfg, TrainConfig(
+            adamw=opt.AdamWConfig(**MESH_ADAMW), opt_8bit=True))
+        runs, cut, snaps = {}, {}, {}
+        for shape in MESH_SHAPES:
+            mesh = lmesh.make_mesh(shape, ("data", "model"))
+            p = lm.init_params(cfg, job["seed"], device="cuda")
+            specs = lmesh.param_specs(p, model_divisor=shape[1])
+            qs = opt.qs_specs(opt.zero1_specs(specs, p, shape[0]), p,
+                              qs_axis_size(mesh))
+            p, s = lmesh.place_on_mesh(
+                mesh, p, lmesh.named_shardings(mesh, specs),
+                opt.init_8bit(p), lmesh.named_shardings(mesh, qs))
+            key = "x".join(map(str, shape))
+            runs[key] = _mesh_steps(mesh, step_fn, p, s, batches)
+            snaps[key] = opt.snapshot_8bit(p, s)
+            cut[key] = sum(any(pl.is_shard() for pl in mq["s"].placements)
+                           for mq in s["m"].values())
+        if rank == 0:
+            torch.save({"runs": runs, "scales_cut": cut, "snaps": snaps,
+                        "leaves": len(s["m"])}, f"{tmp}/17d.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def roofline_step(seed: int, smi: str) -> None:
+    """17a: phase 15's one-rank fp32 step of `TRAIN_ARCH` analysed on the
+    card and on meta tensors on the host: flops, bytes and op counts
+    equal; the predicted peak beside the measured one, the roofline
+    terms, the measured step against ``t_bound`` and the mfu."""
+    import gc
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.launch import inputs
+    from repro_torch.models import lm
+    from repro_torch.roofline.analysis import Roofline
+    from repro_torch.roofline.hlo_analyze import Analyzer, nbytes, tensors_in
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    cfg = registry.get(TRAIN_ARCH)
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(**TRAIN_ADAMW),
+                       accum_steps=TRAIN_ACCUM)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def analysed(params, state, batch):
+        args = (params, state, batch)
+        arg_bytes = sum(map(nbytes, tensors_in(args)))
+        t0 = time.perf_counter()
+        with Analyzer() as an:
+            make_train_step(cfg, tcfg)(*args)
+        torch.cuda.synchronize()
+        return an.cost, arg_bytes, time.perf_counter() - t0
+
+    params = inputs.params_specs(cfg)
+    meta = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
+    on_meta, meta_args, meta_s = analysed(params, opt.init(params), meta)
+    del params
+    params = lm.init_params(cfg, seed, device="cuda")
+    state = opt.init(params)
+    batch = batch_at(cfg, DataConfig(seed=seed, batch_size=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ), 0, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(make_train_step(cfg, tcfg)(params, state, batch)[2]["loss"])
+    step_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    on_card, card_args, card_s = analysed(params, state, batch)
+    measured_peak = torch.cuda.max_memory_allocated()
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("flops", "bytes", "ops"):
+        a, b = getattr(on_card, key), getattr(on_meta, key)
+        assert a == b, f"17a: {key} on the card {a} != on meta {b}"
+    assert card_args == meta_args, (card_args, meta_args)
+    roof = Roofline(flops=on_card.flops, bytes_accessed=on_card.bytes,
+                    wire_bytes=0.0, n_chips=1,
+                    model_flops=model_flops(cfg, tokens))
+    log(json.dumps({
+        "roofline_step": TRAIN_ARCH, "card": smi, "layers": cfg.n_layers,
+        "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+        "accum_steps": TRAIN_ACCUM, "arm": "fp32",
+        "equal_on_card_and_meta": ["flops", "bytes", "ops"],
+        "flops": on_card.flops, "bytes": on_card.bytes, "ops": on_card.ops,
+        "distinct_bytes": [on_card.distinct_bytes, on_meta.distinct_bytes],
+        "predicted_peak_gib": (card_args + on_card.peak_bytes) / 2**30,
+        "predicted_peak_on_meta_gib": (meta_args + on_meta.peak_bytes)
+        / 2**30,
+        "measured_peak_gib": measured_peak / 2**30,
+        "roofline": roof.to_dict(), "t_bound_s": roof.t_bound,
+        "step_s": step_s, "step_over_t_bound": step_s / roof.t_bound,
+        "mfu": roof.model_flops / step_s / BF16_PEAK_FLOPS,
+        "analysed_s": {"card": card_s, "meta": meta_s}}))
+
+
+def dryrun_cells(tmp: str, smi: str) -> None:
+    """17b: ``python -m repro_torch.launch.dryrun`` as a child per cell,
+    each under `DRYRUN_CELLS`' deadline: ``status`` ok, the per-rank
+    terms printed; the BFS cell's rowsweep launched on the card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "DRYRUN_RESULTS": f"{tmp}/dryrun"}
+    for argv, deadline_s in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--force"], env=env, capture_output=True, text=True,
+            timeout=deadline_s, cwd=tmp)
+        wall = time.perf_counter() - t0
+        assert done.returncode == 0, \
+            f"17b {argv}: exit {done.returncode}: {done.stderr[-2000:]}"
+        (path,) = Path(f"{tmp}/dryrun").glob(
+            "bfs-*" if "--bfs" in argv else
+            f"*__{argv[argv.index('--shape') + 1]}__*")
+        res = json.loads(path.read_text())
+        path.unlink()
+        assert res["status"] == "ok", f"17b {argv}: {res['status']}: " \
+            f"{res.get('traceback', '')[-2000:]}"
+        if "--bfs" in argv:
+            assert res["kernel_launches"]["rowsweep"] > 0, res
+        log(json.dumps({"dryrun": " ".join(argv), "card": smi,
+                        "wall_s": wall, **res}))
+
+
+def mesh_8bit(seed: int, tmp: str, smi: str) -> None:
+    """17d: the 8-bit arm on 16a's meshes, held to one rank's 8-bit run:
+    losses within `MESH_RTOL`, `MESH_ATOL`, parameters and state within
+    `GATE_8BIT`, which one rank's fp32 run must fail."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.train import optimizer as opt
+    cfg = registry.get("qwen3", reduced=True).with_(
+        dtype="float32", n_layers=2, n_heads=4, n_kv_heads=2)
+    dcfg = DataConfig(batch_size=4, seq_len=32)
+    batches = [batch_at(cfg, dcfg, i, "cpu") for i in range(3)]
+    want, _, _, one = one_rank_steps(cfg, seed, batches, MESH_ADAMW,
+                                     eight=True, snapshot=True)
+    fp32 = opt.gap_8bit(one, one_rank_steps(cfg, seed, batches, MESH_ADAMW,
+                                            snapshot=True)[3])
+    over = {k for k, limit in GATE_8BIT.items() if fp32[k] > limit}
+    assert over >= {"q_share", "s_rel", "p_share"}, \
+        f"17d: the fp32 arm's state passes the 8-bit gate: {fp32}"
+    torch.save({"cfg": cfg, "seed": seed, "batches": batches},
+               f"{tmp}/17d_job.pt")
+    wall = spawn_ranks(mesh_8bit_rank, MESH_RANKS, tmp, "17d")
+    got = torch.load(f"{tmp}/17d.pt", weights_only=False)
+    for key, run in got["runs"].items():
+        losses = [r["loss"] for r in run]
+        torch.testing.assert_close(torch.tensor(losses), torch.tensor(want),
+                                   rtol=MESH_RTOL, atol=MESH_ATOL,
+                                   msg=f"17d {key}: {losses} vs {want}")
+    gaps = {k: opt.gap_8bit(one, snap) for k, snap in got["snaps"].items()}
+    for key, gap in gaps.items():
+        over = {k: gap[k] for k, limit in GATE_8BIT.items()
+                if gap[k] > limit}
+        assert not over, f"17d {key}: state off one rank's 8-bit: {gap}"
+    log(json.dumps({
+        "lm_mesh_8bit": "qwen3-reduced", "card": smi, "ranks": MESH_RANKS,
+        "backend": "gloo on cuda:0", "one_rank_losses": want,
+        "mesh_losses": {k: [r["loss"] for r in run]
+                        for k, run in got["runs"].items()},
+        "rtol": MESH_RTOL, "atol": MESH_ATOL, "state_gate": GATE_8BIT,
+        "state_gap": gaps, "fp32_arm_state_gap": fp32,
+        "scales_cut_over_a_mesh_dim": got["scales_cut"],
+        "leaves": got["leaves"],
+        "comm_per_step": {k: run[0]["comm"]
+                          for k, run in got["runs"].items()},
+        "spawned_s": wall}))
+
+
+def drift_gate(g12, g12_cpu) -> None:
+    """17c's gate: `measure_drift` of the same SCALE-12 graph gives the
+    same rows on the card and on the CPU."""
+    from repro_torch import formats
+    from repro_torch.obs.cost_drift import measure_drift
+    for label, (gg, gc) in (
+            ("csr", (g12, g12_cpu)),
+            ("sell", (formats.SellFormat.from_csr(g12),
+                      formats.SellFormat.from_csr(g12_cpu)))):
+        pipes = DRIFT_PIPELINES[label]
+        a = measure_drift(gg, pipelines=pipes)
+        c = measure_drift(gc, pipelines=pipes, device="cpu")
+        assert a == c, f"17c {label} @ SCALE 12: card {a} != CPU {c}"
+    log("drift @ SCALE 12: card == CPU (analytic, compiled and distinct "
+        "bytes) for " + ", ".join(f"{k} {'/'.join(v)}"
+                                  for k, v in DRIFT_PIPELINES.items()))
+
+
+def drift_cells(seed: int, smi: str) -> None:
+    """17c: `measure_drift`'s rows on the main path's graph (made from
+    ``seed``), CSR and SELL, and `drift_gate` at SCALE 12."""
+    from repro_torch import formats
+    from repro_torch.obs.cost_drift import measure_drift
+    g = make_graph(MAIN.scale, seed, "cuda")
+    for label, fmt in (("csr", g), ("sell", formats.SellFormat.from_csr(g))):
+        for d in measure_drift(fmt, pipelines=DRIFT_PIPELINES[label]):
+            log(json.dumps({"drift": d._asdict(),
+                            "n_vertices": g.n_vertices, "ratio": d.ratio,
+                            "hlo_ratio": d.hlo_ratio, "card": smi}))
+    g12 = make_graph(12, seed, "cuda")
+    drift_gate(g12, type(g12)(g12.rows.cpu(), g12.colstarts.cpu(),
+                              g12.n_vertices, g12.n_edges))
+
+
+def phase_roofline(seed: int, smi: str | None = None) -> None:
+    """Phase 17: the roofline and the dry run (17a the analyzer on the
+    card against meta, 17b the dry run's cells, 17c `measure_drift`,
+    17d the 8-bit arm on a mesh)."""
+    import gc
+    import tempfile
+    import torch
+    smi = smi or card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    roofline_step(seed, smi)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun_cells(tmp, smi)
+    t2 = time.perf_counter()
+    drift_cells(seed, smi)
+    t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_8bit(seed, tmp, smi)
+    log(f"phase 17: analyzer {t1 - t0:.1f} s, dry run {t2 - t1:.1f} s, "
+        f"drift {t3 - t2:.1f} s, 8-bit mesh {time.perf_counter() - t3:.1f} "
+        f"s; whole {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -5106,6 +5399,12 @@ def main(argv=None) -> int:
     # 16. the sharding and launch slice: the reference's mesh contracts
     # with 8 ranks on the card, h2o-danube-1.8b on a (2 x 2) mesh
     phase_mesh(args.seed, smi)
+
+    # 17. the roofline and the dry run: the analyzer on the card against
+    # meta tensors, the dry run's cells, measure_drift (on the main
+    # path's graph, made again: phase 14 freed it), the 8-bit arm on a
+    # mesh
+    phase_roofline(args.seed, smi)
 
     # 8. launch counts of the paths' runs
     log("launch counts (main path, fusion and SELL paths): " + ", ".join(

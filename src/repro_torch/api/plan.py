@@ -321,6 +321,25 @@ class CompiledTraversal:
             self.resolved.merge, rows_l, colstarts_l, int(root))
         return parent[:n_vertices], layers
 
+    def lower(self, roots=None) -> "LoweredTraversal":
+        """The counterpart of the reference's ``jax.jit(...).lower`` of
+        the whole-search program, its dry-run/AOT hook: a
+        `LoweredTraversal` naming this plan's executable, format and
+        roots (default: a zero batch of the plan's ``batch`` width, or
+        1).  Torch builds no program ahead of time, so the port's
+        lowering of a search is the record of what it launches, which
+        `LoweredTraversal.cost_analysis` takes by running the search
+        once; unlike a compiled program, that record depends on the
+        roots."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh-bound plans lower through launch/dryrun.py's "
+                "shard_map path, not the single-chip executable")
+        if roots is None:
+            roots = np.zeros((self.batch or 1,), np.int32)
+        return LoweredTraversal(self, self._roots(np.atleast_1d(
+            roots.cpu() if isinstance(roots, torch.Tensor) else roots)))
+
     @property
     def traces(self) -> int:
         """Executables built for this plan: 1 (the steps, degree matrix
@@ -341,6 +360,29 @@ class CompiledTraversal:
 
     def __repr__(self) -> str:
         return f"CompiledTraversal({self.fmt!r}, spec={self.resolved})"
+
+
+class LoweredTraversal:
+    """A plan's search lowered for a root batch (`CompiledTraversal.lower`):
+    its ``executable``, ``fmt`` and ``roots``."""
+
+    def __init__(self, ct: CompiledTraversal, roots: torch.Tensor):
+        self._ct = ct
+        self.executable = ct.executable
+        self.fmt = ct.fmt
+        self.roots = roots
+
+    def cost_analysis(self) -> dict:
+        """Run the search once under `roofline.hlo_analyze.Analyzer`:
+        ``{"bytes accessed": ..., "flops": ..., "launches": {wrapper:
+        calls}}``, each kernel wrapper one op (the measure kernel's
+        calls included, which no layer's launches column charges)."""
+        from repro_torch.roofline.hlo_analyze import Analyzer
+        with Analyzer() as an:
+            self._ct.run_batched(self.roots)
+        return {"bytes accessed": float(an.cost.bytes),
+                "flops": float(an.cost.flops),
+                "launches": dict(an.cost.launches)}
 
 
 def plan(graph, spec: TraversalSpec | None = None, *,

@@ -257,6 +257,11 @@ class GraphFormat(abc.ABC):
         """Bytes one active tile moves, in the format's tile units."""
         return 4 * tile
 
+    def tile_count(self, tile: int) -> int:
+        """Tiles of ``tile`` grid units in one full sweep (CSR: edge
+        slots; SELL: slabs; the bitmap: one per root sweep)."""
+        return -(-self.edge_slots // max(tile, 1))
+
     def mask_bytes(self, packed: bool = True) -> int:
         """Per-layer frontier/visited/next membership bytes: 3 V_pad/8
         packed, 3 * 4 V_pad as dense int32 masks."""
@@ -272,8 +277,7 @@ class GraphFormat(abc.ABC):
     def plan_bytes(self, tile: int, packed: bool = True) -> int:
         """Per-layer bytes of the planning pass: the active-set read and
         the work-list round trip."""
-        n_blocks = -(-self.edge_slots // max(tile, 1))
-        return self.plan_mask_bytes(packed) + 2 * 4 * n_blocks
+        return self.plan_mask_bytes(packed) + 2 * 4 * self.tile_count(tile)
 
     # -- admission-time validation ---------------------------------------
     def validate_structure(self) -> "GraphFormat":

@@ -125,6 +125,9 @@ class BitmapCompressedFormat(GraphFormat):
     def tile_bytes(self, tile: int) -> int:
         return nbytes(self.adj)       # one "tile" per root sweep
 
+    def tile_count(self, tile: int) -> int:
+        return 1
+
     def plan_bytes(self, tile: int, packed: bool = True) -> int:
         return 0                      # nothing to plan
 

@@ -407,12 +407,14 @@ class SellFormat(GraphFormat):
         # one active slab group: ``tile`` slabs of cols + slab_rows
         return 4 * tile * (W_QUANT + 1) * SLICE_C
 
+    def tile_count(self, tile: int) -> int:
+        return -(-self.n_slabs // max(tile, 1))
+
     def plan_mask_bytes(self, packed: bool = True) -> int:
         # the slab planner is word-native whatever ``packed`` says
         return self.n_vertices_padded // 8
 
     def plan_bytes(self, tile: int, packed: bool = True) -> int:
         # every slab's row ids, the packed membership, the work-list
-        n_steps = -(-self.n_slabs // max(tile, 1))
         return (4 * self.n_slabs * SLICE_C
-                + self.plan_mask_bytes(packed) + 2 * 4 * n_steps)
+                + self.plan_mask_bytes(packed) + 2 * 4 * self.tile_count(tile))

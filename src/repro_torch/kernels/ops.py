@@ -17,6 +17,13 @@ Launch accounting, two counters:
   CUDA kernel, and nothing else; `chip_smoke.py` reads it to show that
   the main path went through the kernels.
 
+While a `roofline.hlo_analyze.Analyzer` is active (`ANALYZER`), each
+public wrapper reports itself to it as one op (its tensor arguments and
+results as bytes, no flops), as a Pallas call is one custom call in the
+reference's HLO; the ops of the arm it runs are not counted again, so
+the count is the same on either device.  With none active a wrapper
+only reads `ANALYZER`.
+
 Budgets.  The reference's VMEM budgets describe a TPU core's
 scratchpad.  On this card the fused kernels keep their state in device
 memory; what is scarce is a CTA's shared memory (the prefetch ring:
@@ -31,6 +38,8 @@ they fail, as the reference does.  The budgets are pure arithmetic, so
 the CPU path takes the same decisions.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -47,6 +56,9 @@ from repro_torch.kernels import sell_expand as se
 from repro_torch.kernels import traversal_fused as tf
 
 _LAUNCH_COUNT = [0]
+
+#: the active `roofline.hlo_analyze.Analyzer`, or None
+ANALYZER = [None]
 
 #: CUDA kernel launches per wrapper (see module docstring)
 KERNEL_LAUNCHES = {"restoration": 0, "frontier_compact_batched": 0,
@@ -90,6 +102,17 @@ class count_launches:
         return False
 
 
+def _reported(fn):
+    """The wrapper ``fn``, reported as one op to an active analyzer."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        analyzer = ANALYZER[0]
+        if analyzer is None:
+            return fn(*args, **kwargs)
+        return analyzer.kernel(fn.__name__, fn, args, kwargs)
+    return wrapper
+
+
 def _arm(t: torch.Tensor, name: str) -> bool:
     """True for the CUDA arm, False for the plain one; else raise."""
     if t.device.type == "cuda":
@@ -99,6 +122,7 @@ def _arm(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+@_reported
 def restore(parent: torch.Tensor, *, n_vertices: int):
     """K1 on a (V_pad,) or (B, V_pad) int32 P: returns (P fixed, delta
     words of shape (..., V_pad/32))."""
@@ -109,6 +133,7 @@ def restore(parent: torch.Tensor, *, n_vertices: int):
     return rest.restoration_plain(parent, n_vertices)
 
 
+@_reported
 def frontier_compact_batched(words: torch.Tensor, *, size: int,
                              fill: int):
     """K2: (B, W) packed bitmaps -> ((B, size) queues, (B,) counts)."""
@@ -119,6 +144,7 @@ def frontier_compact_batched(words: torch.Tensor, *, size: int,
     return ck.compact_plain(words, size, fill)
 
 
+@_reported
 def frontier_queue(words: torch.Tensor, *, size: int, fill: int,
                    deg: torch.Tensor, n_vertices: int,
                    n_slots: int) -> ck.EdgeQueue:
@@ -133,6 +159,7 @@ def frontier_queue(words: torch.Tensor, *, size: int, fill: int,
     return ck.queue_plain(words, size, fill, deg, n_vertices, n_slots)
 
 
+@_reported
 def apportion(colstarts, rows, queue: ck.EdgeQueue, *, n_vertices: int,
               n_slots: int):
     """The (u, v, valid) edge stream of ``n_slots`` slots per root over
@@ -147,6 +174,7 @@ def apportion(colstarts, rows, queue: ck.EdgeQueue, *, n_vertices: int,
                               n_slots)
 
 
+@_reported
 def rowsweep_candidates(rows_l, colstarts_l, frontier, visited, *,
                         base: int, n_vertices: int) -> torch.Tensor:
     """One shard's top-down layer of the distributed BFS
@@ -164,6 +192,7 @@ def rowsweep_candidates(rows_l, colstarts_l, frontier, visited, *,
                              n_vertices)
 
 
+@_reported
 def frontier_compact(words: torch.Tensor, *, size: int, fill: int):
     """K2 for one root ((W,) -> (size,), count): the batched call at
     B = 1."""
@@ -172,6 +201,7 @@ def frontier_compact(words: torch.Tensor, *, size: int, fill: int):
     return queue[0], total[0]
 
 
+@_reported
 def plan_union(graph, words: torch.Tensor, *, complement: bool = False,
                dense: torch.Tensor | None = None) -> ge.UnionPlan:
     """The union planner: the `gather_expand.UnionPlan` of (B, W)
@@ -190,6 +220,7 @@ def plan_union(graph, words: torch.Tensor, *, complement: bool = False,
                                dense=dense)
 
 
+@_reported
 def gather_expand_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
                           visited, out_init, p_init, *, n_vertices: int,
                           tile: int, bottom_up: bool = False,
@@ -213,6 +244,7 @@ def gather_expand_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
         n_vertices=n_vertices, tile=tile, bottom_up=bottom_up)
 
 
+@_reported
 def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
                   out_init, p_init, *, n_vertices: int, tile: int,
                   bottom_up: bool = False, prefetch_depth: int = 0):
@@ -231,6 +263,7 @@ def gather_expand(worklist, n_active, rows, colstarts, frontier, visited,
     return out_init, p_init
 
 
+@_reported
 def expand_batched(nbr, cand, valid, frontier, visited, out_init, p_init,
                    *, n_vertices: int, check_frontier: bool = False):
     """K7 over (B, E_slots) apportioned streams (``valid`` bool), (B, W)
@@ -248,6 +281,7 @@ def expand_batched(nbr, cand, valid, frontier, visited, out_init, p_init,
         n_vertices=n_vertices, check_frontier=check_frontier)
 
 
+@_reported
 def expand(nbr, cand, valid, frontier, visited, out_init, p_init, *,
            n_vertices: int, check_frontier: bool = False):
     """K7 for one root ((E_slots,) streams, (W,), (V_pad,)): the batched
@@ -260,6 +294,7 @@ def expand(nbr, cand, valid, frontier, visited, out_init, p_init, *,
     return out_init, p_init
 
 
+@_reported
 def gather_relax_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
                          vals, *, n_vertices: int, tile: int,
                          unit: int = 0, weighted: bool = False):
@@ -280,6 +315,7 @@ def gather_relax_batched(plan: ge.UnionPlan, rows, colstarts, frontier,
         tile=tile, unit=unit, weighted=weighted)
 
 
+@_reported
 def sell_relax_batched(graph: se.SellGraph, plan: ge.UnionPlan, frontier,
                        vals, *, unit: int = 0, weighted: bool = False):
     """K12: the semiring relax over the slab groups of ``plan``
@@ -293,6 +329,7 @@ def sell_relax_batched(graph: se.SellGraph, plan: ge.UnionPlan, frontier,
                                weighted=weighted)
 
 
+@_reported
 def layer_fused_batched(graph: lf.FusedCsr, frontier, visited, parent, *,
                         bottom_up: bool = False, prefetch_depth: int = 0):
     """K5: one whole layer of (B, W) bitmaps and (B, V_pad) P — plan,
@@ -308,6 +345,7 @@ def layer_fused_batched(graph: lf.FusedCsr, frontier, visited, parent, *,
                                 bottom_up=bottom_up)
 
 
+@_reported
 def layer_fused(graph: lf.FusedCsr, frontier, visited, parent, *,
                 bottom_up: bool = False, prefetch_depth: int = 0):
     """K5 for one root ((W,), (V_pad,)): the batched call at B = 1.
@@ -318,6 +356,7 @@ def layer_fused(graph: lf.FusedCsr, frontier, visited, parent, *,
     return out[0], p[0], na
 
 
+@_reported
 def traversal_fused_batched(graph: lf.FusedCsr, frontier, visited, parent,
                             *, code: tf.PolicyCode, max_layers: int,
                             prefetch_depth: int = 0):
@@ -333,6 +372,7 @@ def traversal_fused_batched(graph: lf.FusedCsr, frontier, visited, parent,
                                     code=code, max_layers=max_layers)
 
 
+@_reported
 def sell_batched(graph: se.SellGraph, frontier, visited, out_init, p_init,
                  *, plan: ge.UnionPlan | None = None, bottom_up: bool = False,
                  prefetch_depth: int = 0):
@@ -357,6 +397,7 @@ def sell_batched(graph: se.SellGraph, frontier, visited, out_init, p_init,
                                 p_init, bottom_up=bottom_up)
 
 
+@_reported
 def sell(graph: se.SellGraph, frontier, visited, out_init, p_init, *,
          plan: ge.UnionPlan | None = None, bottom_up: bool = False,
          prefetch_depth: int = 0):
@@ -370,6 +411,7 @@ def sell(graph: se.SellGraph, frontier, visited, out_init, p_init, *,
     return out_init, p_init
 
 
+@_reported
 def sell_layer_fused_batched(graph: se.SellGraph, frontier, visited, parent,
                              *, bottom_up: bool = False,
                              prefetch_depth: int = 0):
@@ -386,6 +428,7 @@ def sell_layer_fused_batched(graph: se.SellGraph, frontier, visited, parent,
                                      bottom_up=bottom_up)
 
 
+@_reported
 def sell_layer_fused(graph: se.SellGraph, frontier, visited, parent, *,
                      bottom_up: bool = False, prefetch_depth: int = 0):
     """K9 for one root: the batched call at B = 1."""
@@ -395,6 +438,7 @@ def sell_layer_fused(graph: se.SellGraph, frontier, visited, parent, *,
     return out[0], p[0], na
 
 
+@_reported
 def sell_traversal_fused_batched(graph: se.SellGraph, frontier, visited,
                                  parent, *, code: tf.PolicyCode,
                                  max_layers: int, prefetch_depth: int = 0):
@@ -410,6 +454,7 @@ def sell_traversal_fused_batched(graph: se.SellGraph, frontier, visited,
                                          code=code, max_layers=max_layers)
 
 
+@_reported
 def measure(frontier: torch.Tensor, visited: torch.Tensor | None = None,
             deg: torch.Tensor | None = None, *, log: bk.LayerLog | None = None,
             layer: int = 0, discovered: bool = True) -> bk.Counters:
@@ -432,6 +477,7 @@ def measure(frontier: torch.Tensor, visited: torch.Tensor | None = None,
                             discovered=discovered)
 
 
+@_reported
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """K13: total set bits of an int32 word tensor -> () int32 (on the
     card the measure kernel's count-only arm)."""

@@ -33,10 +33,10 @@ class MeshSizeError(ReproError, ValueError):
     """The process group's world size is not the mesh's rank count."""
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
@@ -195,8 +195,10 @@ def placements(mesh, spec) -> tuple:
 
 
 def named_shardings(mesh, spec_tree: dict) -> dict:
-    """{name: placements} of a {name: `Spec`} tree on ``mesh``."""
-    return {k: placements(mesh, s) for k, s in spec_tree.items()}
+    """{name: placements} of a {name: `Spec`} tree on ``mesh`` (nested
+    dicts, such as `train.optimizer.qs_specs`' {"q", "s"}, kept)."""
+    return {k: named_shardings(mesh, s) if isinstance(s, dict)
+            else placements(mesh, s) for k, s in spec_tree.items()}
 
 
 def batch_specs(mesh, batch: dict) -> dict:
@@ -242,9 +244,12 @@ def place_on_mesh(mesh, params: nn.Module, param_placements: dict,
     one already there is kept.  ``opt_state``'s ``m`` and ``v`` go under
     ``state_placements`` ({name: placements}; the parameters' when
     None, `train.optimizer.zero1_specs` for ZeRO-1); its ``step`` stays
-    a plain tensor.  `optimizer.init` of placed parameters makes its
-    moments at their placements, so the full-size state never exists.
-    Returns (params, opt_state)."""
+    a plain tensor.  An 8-bit state's m holds {"q", "s"} per leaf, and
+    takes {name: {"q": placements, "s": placements}}
+    (`train.optimizer.qs_specs`), its v the "q" placements.
+    `optimizer.init` of placed parameters makes its moments at their
+    placements, so the full-size fp32 state never exists.  Returns
+    (params, opt_state)."""
     for name, p in list(params.named_parameters()):
         placed = _distribute(p, mesh, param_placements[name])
         if placed is not p:
@@ -256,12 +261,16 @@ def place_on_mesh(mesh, params: nn.Module, param_placements: dict,
         return params, None
     places = state_placements or param_placements
 
+    def one(t, place):
+        if isinstance(t, dict):                 # the 8-bit arm's q and s
+            return {part: _distribute(x, mesh, place[part])
+                    for part, x in t.items()}
+        if isinstance(place, dict):             # its v, at q's placements
+            place = place["q"]
+        return _distribute(t, mesh, place)
+
     def moments(tree):
-        if any(isinstance(t, dict) for t in tree.values()):
-            raise NotImplementedError(
-                "the 8-bit optimizer state on a mesh needs per-block scale "
-                "placements, which come with the dry run; use the fp32 arm")
-        return {k: _distribute(t, mesh, places[k]) for k, t in tree.items()}
+        return {k: one(t, places[k]) for k, t in tree.items()}
 
     return params, {"m": moments(opt_state["m"]),
                     "v": moments(opt_state["v"]),

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.sharding import settle
 
 
 class Params(nn.Module):
@@ -119,7 +120,12 @@ def rmsnorm_init(d: int, device):
 
 
 def rmsnorm_apply(params, x, eps: float = 1e-6):
-    """fp32 statistics, cast back to the input dtype."""
+    """fp32 statistics, cast back to the input dtype.  On a mesh a
+    residual stream that is a pending partial sum (a row-cut projection
+    added in) is reduced first: normalised as a partial sum, it would
+    reach the next column-cut projection as one, which then runs whole
+    on every rank of the cut."""
+    x = settle(x)
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)

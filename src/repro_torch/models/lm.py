@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import common as cm, transformer as tf
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import settle, shard
+from repro_torch.models.sharding import pin, settle, shard
 
 
 class LM(cm.Params):
@@ -94,7 +94,10 @@ def _embed(params, cfg: ModelConfig, tokens, prefix):
 def forward_hidden(params, cfg: ModelConfig, tokens, prefix=None,
                    memory=None):
     """(B,T[,+P]) -> (hidden (B,T_total,D), aux)."""
-    x = shard(_embed(params, cfg, tokens, prefix), "data", None, None)
+    # the lookup of a vocab-cut table is a masked partial sum, reduced
+    # here; its gradient, a plain partial sum where the blocks reduce
+    # their norms' inputs, is reduced before it reaches the lookup
+    x = pin(shard(_embed(params, cfg, tokens, prefix), "data", None, None))
     x, aux = tf.stack_seq(params["layers"], cfg, x, _positions(x), memory)
     return cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -110,8 +113,10 @@ def logits_fn(params, cfg: ModelConfig, hidden):
 
 
 def _ce_chunk(hc, lc, table):
-    """Summed cross entropy of one token chunk (labels < 0 count 0)."""
-    logits = shard(hc.float() @ table.T, None, "model")
+    """Summed cross entropy of one token chunk (labels < 0 count 0).  On
+    a mesh each rank computes its (tokens / data, vocab / model) block of
+    the logits."""
+    logits = shard(hc.float() @ table.T, "data", "model")
     lse = torch.logsumexp(logits, dim=-1)
     # a vocab-sharded gather's partial sum is reduced while it is 2-D
     gold = settle(torch.gather(logits, 1, lc.clamp(min=0)[:, None]))[:, 0]
@@ -121,22 +126,28 @@ def _ce_chunk(hc, lc, table):
 def chunked_ce(params, cfg: ModelConfig, hidden, labels):
     """Token-chunked cross entropy; labels < 0 are masked.  Under
     ``cfg.remat`` each chunk's fp32 logits are recomputed in the backward
-    pass (the reference's ``jax.checkpoint`` of its chunk)."""
+    pass (the reference's ``jax.checkpoint`` of its chunk).
+
+    A chunk is a run of time steps of every batch row (``vocab_chunk``
+    tokens, or one step of each row when the batch is wider), not the
+    reference's run of flattened tokens: on a mesh the batch dim is cut
+    over data, and a slice of it would gather the hidden states onto
+    every rank, while a slice of the time dim leaves each rank its rows.
+    The sum is the reference's up to the order of its terms."""
     b, t, d = hidden.shape
-    h = hidden.reshape(b * t, d)
-    l = labels.reshape(b * t)
-    chunk = min(cfg.vocab_chunk, h.shape[0])
+    steps = max(1, min(cfg.vocab_chunk, b * t) // b)
     table = _readout_table(params).float()
     remat = cfg.remat and torch.is_grad_enabled()
-    total = h.new_zeros((), dtype=torch.float32)
-    for i in range(0, h.shape[0], chunk):
-        hc, lc = h[i:i + chunk], l[i:i + chunk]
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for j in range(0, t, steps):
+        hc = hidden[:, j:j + steps].reshape(-1, d)
+        lc = labels[:, j:j + steps].reshape(-1)
         if remat:
             total = total + checkpoint(_ce_chunk, hc, lc, table,
                                        use_reentrant=False)
         else:
             total = total + _ce_chunk(hc, lc, table)
-    n_valid = torch.clamp((l >= 0).sum(), min=1)
+    n_valid = torch.clamp((labels >= 0).sum(), min=1)
     return total / n_valid
 
 
@@ -180,7 +191,11 @@ def decode_step(params, cfg: ModelConfig, states, tokens, position,
     tokens: (B,) int; position: (B,) int absolute positions.
     Returns (states', logits (B,V)); ``states`` is left as it was.
     """
-    x = cm.embedding_lookup(params["embed"], tokens[:, None], _dtype(cfg))
+    # a vocab-cut table's gather is a masked partial sum: reduced here,
+    # once, as the training path's cut point does (torch 2.11 drops its
+    # mask after the first of the residual stream's two reads)
+    x = settle(cm.embedding_lookup(params["embed"], tokens[:, None],
+                                   _dtype(cfg)))
     states, x = tf.stack_decode(params["layers"], cfg, states, x,
                                 position, memory)
     h = cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

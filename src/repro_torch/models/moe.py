@@ -130,7 +130,12 @@ def _apply_einsum(params, tokens, gate_vals, gate_idx, g, n, e, k, c):
     expert_in = shard(torch.einsum("gnec,gnd->egcd", dispatch, tokens),
                       "model", None, None, None)
     expert_out = _expert_ffn(params, expert_in, dt)
-    out = torch.einsum("gnec,egcd->gnd", combine.to(dt), expert_out)
+    # the combine ("gnec,egcd->gnd") as one batched product over (e, c)
+    # flattened with e leading, so a cut of E stays a cut of the
+    # flattened dim: torch 2.11's einsum flattens (c, e) here, which
+    # DTensor refuses when E is cut
+    eo = expert_out.permute(1, 0, 2, 3).reshape(g, e * c, -1)
+    out = torch.bmm(combine.to(dt).reshape(g, n, e * c), eo)
     ce = (dispatch.sum(-1) > 0).float().mean(dim=1)
     return out, ce
 

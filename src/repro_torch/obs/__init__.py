@@ -11,12 +11,11 @@ of ``repro.obs``).
   records latency, tick time, queue depth and slot occupancy through
   it, and `record_degrade` is the port's one emission point for
   degrades.
-* `obs.cost_drift` — the analytic half only: `Drift`,
-  `analytic_layer_bytes` and `drift_rows`.  ``measure_drift`` compares
-  the model against XLA's compiled program, which has no torch
-  counterpart, and is not ported yet.
+* `obs.cost_drift` — the analytic `layer_bytes` models against what
+  the plan's single-layer tick moves, counted by
+  `roofline.hlo_analyze` (`measure_drift`), per (format, pipeline).
 """
-from repro_torch.obs.cost_drift import Drift, drift_rows
+from repro_torch.obs.cost_drift import Drift, drift_rows, measure_drift
 from repro_torch.obs.metrics import (Counter, DegradeEvent, Gauge, Histogram,
                                      MetricsRegistry, clear_degrade_log,
                                      degrade_log, get_registry,
@@ -37,6 +36,7 @@ __all__ = [
     "degrade_log",
     "drift_rows",
     "get_registry",
+    "measure_drift",
     "record_degrade",
     "torch_profiler",
     "trace_run",

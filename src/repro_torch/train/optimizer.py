@@ -19,7 +19,9 @@ parameter's placements (the data-parallel reduction); m and v may sit
 at other placements (`zero1_specs`: cut over "data" as well), and are
 brought to the parameter's for the update and written back to their
 own.  The update itself runs on each rank's local shards.  The 8-bit
-arm's per-block scales have no placements yet, so it raises on a mesh.
+arm's q and v sit at the moments' placements and its scales at
+`qs_specs`' (each rank keeps the scales of its own blocks where they
+divide), and it updates each rank's local shards the same way.
 
 Scale groups of the 8-bit arm.  The reference quantises each *stacked*
 leaf: the same parameter of every layer at one stride position of a
@@ -33,7 +35,6 @@ of the group holds that scale as its ``s``.
 """
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -125,12 +126,18 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if is_dtensor(t) else t
 
 
+def _to(t: torch.Tensor, placements) -> torch.Tensor:
+    """DTensor ``t`` at ``placements`` (itself when they agree, or when
+    ``placements`` is None), or ``t``."""
+    if placements is None or not is_dtensor(t) \
+            or tuple(t.placements) == placements:
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
 def _at(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """DTensor ``t`` at ``like``'s placements (itself when they agree),
-    or ``t``."""
-    if is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
-        return t.redistribute(like.device_mesh, like.placements)
-    return t
+    """DTensor ``t`` at ``like``'s placements, or ``t``."""
+    return _to(t, tuple(like.placements)) if is_dtensor(like) else t
 
 
 def _write_back(leaf: torch.Tensor, updated: torch.Tensor) -> None:
@@ -277,59 +284,179 @@ def scale_groups(params) -> list[list[str]]:
     return list(groups.values())
 
 
+def _work_placements(mq: dict):
+    """Where a leaf's 8-bit update runs: at q's placements, except that a
+    cut of the last dim is dropped where the scales keep no cut of their
+    blocks (`qs_specs`: the blocks do not divide over it), so that every
+    rank holds whole blocks and their scales.  None off a mesh."""
+    q, s = mq["q"], mq["s"]
+    if not is_dtensor(q):
+        return None
+    last = q.ndim - 1
+    pl = list(q.placements)
+    if s.ndim:
+        from torch.distributed.tensor import Replicate
+        for i, p in enumerate(pl):
+            if p.is_shard(last) and not s.placements[i].is_shard(last):
+                pl[i] = Replicate()
+    return tuple(pl)
+
+
+def _global_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The maximum of each rank's ``x`` over every rank of ``mesh`` (one
+    all-reduce with MAX per mesh dim), or ``x`` off a mesh."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Partial
+    return DTensor.from_local(x, mesh, [Partial("max")] * mesh.ndim,
+                              run_check=False).full_tensor()
+
+
 @torch.no_grad()
 def update_8bit(cfg: AdamWConfig, params, grads: dict, state: dict):
     """AdamW on int8-blockwise m and bf16 v (dequant -> update -> requant),
     in place.  A group that shares one scale is walked twice: first for
     the new m's absolute maximum over every member, then to write each
-    member with the group's new scale, so no more than one member's fp32
-    temporaries live at a time."""
+    member with the group's new scale; each member is brought to its work
+    placements once for both walks, and no more than one member's fp32
+    temporaries live at a time.
+
+    On a mesh each leaf is updated at its work placements
+    (`_work_placements`: q's, so the moments' under `zero1_specs`).  The
+    gradients are brought there first (a gradient partial over data is
+    reduced), so that the clipping norm is taken of reduced gradients,
+    as `update` does; the parameter, q and v follow, each rank updates
+    its local shards against its local scales, and what moved goes back
+    to its own placements.  A group's shared scale needs its
+    absolute maximum over every shard of every member: each rank takes
+    the maximum of its shards, and one all-reduce with MAX per mesh dim
+    (DTensor's ``Partial("max")`` made replicated) gives every rank the
+    group's."""
     by_name = _named(params)
-    if any(is_dtensor(p) for p in by_name.values()):
-        raise NotImplementedError(
-            "the 8-bit optimizer arm on a mesh needs placements for its "
-            "per-block scales, which come with the dry run; use the fp32 "
-            "arm (update) on a mesh")
+    grads = {k: _to(g, _work_placements(state["m"][k]))
+             for k, g in grads.items()}
     step, lr, gnorm, scale, b1c, b2c = _coefficients(cfg, grads, state)
     groups = scale_groups(params)
+    mesh = next((p.device_mesh for p in by_name.values() if is_dtensor(p)),
+                None)
 
-    def new_m(name, sl):
-        g = grads[name][sl].to(torch.float32) * scale
+    def leaf(name):
+        """The leaf's (p, g, q, s, v) at its work placements, and the
+        DTensors to write back (own, moved)."""
         mq = state["m"][name]
-        s = mq["s"][sl] if mq["s"].ndim else mq["s"]
-        m = cfg.b1 * _dequantize({"q": mq["q"][sl], "s": s}, g.shape) \
+        wp = _work_placements(mq)
+        own = (by_name[name], mq["q"], state["v"][name])
+        moved = tuple(_to(t, wp) for t in own)
+        p, q, v = (_local(t) for t in moved)
+        return ((p, _local(grads[name]), q, _local(mq["s"]), v),
+                tuple(zip(own, moved)))
+
+    def new_m(t, sl):
+        p, g, q, s, v = t
+        g = g[sl].to(torch.float32) * scale
+        s = s[sl] if s.ndim else s
+        m = cfg.b1 * _dequantize({"q": q[sl], "s": s}, g.shape) \
             + (1 - cfg.b1) * g
         return g, m
 
-    def write(name, sl, g, m, group_scale=None):
-        p, vb, mq = by_name[name], state["v"][name], state["m"][name]
+    def write(t, sl, g, m, group_scale=None):
+        p, _, q, s, vb = t
         v = cfg.b2 * vb[sl].to(torch.float32) + (1 - cfg.b2) * torch.square(g)
         u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
             + cfg.weight_decay * p[sl].to(torch.float32)
         p[sl] = (p[sl].to(torch.float32) - lr * u).to(p.dtype)
         qs = _quantize(m, group_scale)
-        mq["q"][sl] = qs["q"]
+        q[sl] = qs["q"]
         if group_scale is None:
-            mq["s"][sl] = qs["s"]
+            s[sl] = qs["s"]
         else:
-            mq["s"].copy_(qs["s"])
+            s.copy_(qs["s"])
         vb[sl] = v.to(torch.bfloat16)
+
+    def written(pairs):
+        for own, moved in pairs:
+            _write_back(own, moved)
 
     for group in groups:
         if state["m"][group[0]]["s"].ndim:          # per-block scales
             for name in group:
-                for sl in _slices(by_name[name]):
-                    write(name, sl, *new_m(name, sl))
+                t, pairs = leaf(name)
+                for sl in _slices(t[0]):
+                    write(t, sl, *new_m(t, sl))
+                written(pairs)
             continue
         everything = slice(None)
-        absmax = functools.reduce(torch.maximum, (
-            torch.max(torch.abs(new_m(name, everything)[1]))
-            for name in group))
-        group_scale = _fallback_scale(absmax)
-        for name in group:
-            write(name, everything, *new_m(name, everything), group_scale)
+        members = [leaf(name) for name in group]
+        absmax = torch.stack([torch.max(torch.abs(new_m(t, everything)[1]))
+                              for t, _ in members]).max()
+        group_scale = _fallback_scale(_global_max(absmax, mesh))
+        for t, pairs in members:
+            write(t, everything, *new_m(t, everything), group_scale)
+            written(pairs)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def snapshot_8bit(params, state: dict) -> dict:
+    """The full values of an 8-bit run's parameters and state on the CPU,
+    {"p", "q", "s", "v"} each {name: tensor} (v as fp32), gathered from
+    DTensors.  An fp32 state's m is quantized first under the 8-bit arm's
+    rule (`scale_groups`), and its v rounded to bf16: what the 8-bit arm
+    would store of those moments."""
+    def full(t):
+        t = t.full_tensor() if is_dtensor(t) else t
+        return t.detach().cpu()
+
+    named = _named(params)
+    m = state["m"]
+    if isinstance(next(iter(m.values())), dict):
+        qs = {k: {"q": full(x["q"]), "s": full(x["s"])} for k, x in m.items()}
+    else:
+        qs = {}
+        for group in scale_groups(params):
+            ms = [full(m[k]) for k in group]
+            scale = None
+            if not _blocked(ms[0]):
+                scale = _fallback_scale(torch.stack(
+                    [torch.max(torch.abs(x)) for x in ms]).max())
+            qs.update({k: _quantize(x, scale) for k, x in zip(group, ms)})
+    return {"p": {k: full(t).float() for k, t in named.items()},
+            "q": {k: x["q"] for k, x in qs.items()},
+            "s": {k: x["s"] for k, x in qs.items()},
+            "v": {k: full(t).to(torch.bfloat16).float()
+                  for k, t in state["v"].items()}}
+
+
+#: one bf16 unit in the last place, relative (the widest: just below a
+#: power of two)
+BF16_ULP = 2.0 ** -7
+
+
+def gap_8bit(a: dict, b: dict, p_atol: float = 1e-5) -> dict:
+    """How far two `snapshot_8bit`s are apart: the share of q entries that
+    differ and the most levels any differs by, the largest relative gap
+    of a scale, the share of v entries more than `BF16_ULP` apart
+    (relative), and the share of parameter entries more than ``p_atol``
+    apart with the largest such gap."""
+    def total(part, fn):
+        return sum(int(fn(a[part][k], b[part][k]).sum()) for k in a[part])
+
+    def count(part):
+        return sum(a[part][k].numel() for k in a[part])
+
+    dq = [(a["q"][k].int() - b["q"][k].int()).abs() for k in a["q"]]
+    return {
+        "q_share": sum(int((d > 0).sum()) for d in dq) / count("q"),
+        "q_levels": max(int(d.max()) if d.numel() else 0 for d in dq),
+        "s_rel": max(float(((x - b["s"][k]).abs()
+                            / x.abs().clamp_min(1e-30)).max())
+                     for k, x in a["s"].items()),
+        "v_share": total("v", lambda x, y: (x - y).abs()
+                         > BF16_ULP * x.abs()) / count("v"),
+        "p_share": total("p", lambda x, y: (x - y).abs() > p_atol)
+        / count("p"),
+        "p_abs": max(float((x - b["p"][k]).abs().max())
+                     for k, x in a["p"].items())}
 
 
 # ---------------------------------------------------------------------------
@@ -362,3 +489,33 @@ def zero1_specs(param_spec_tree: dict, params_shape, data_divisor: int):
         return Spec(*dims)
 
     return {k: one(spec, shapes[k]) for k, spec in param_spec_tree.items()}
+
+
+def qs_specs(spec_tree: dict, params_shape, axis_size) -> dict:
+    """The 8-bit arm's m specs, {name: {"q": spec, "s": spec}}, from the
+    moments' specs (`zero1_specs`, or the parameters'): q shares the
+    leaf's spec; the per-block scale (``(..., n // Q_BLOCK)``) keeps its
+    leading dims' entries, and the last dim's only when the block count
+    divides by that entry's size (``axis_size(name)``: the mesh size of a
+    spec entry's name), else replicates it.  A leaf whose last dim is no
+    multiple of `Q_BLOCK` has one 0-d scale (its group's), replicated
+    (the reference's rule there gives the scale its leading dims' spec,
+    which a 0-d scale cannot take).  This is the reference dry run's
+    ``qs_spec`` rule."""
+    shapes = {k: tuple(getattr(v, "shape", v))
+              for k, v in _named(params_shape).items()}
+
+    def one(spec: Spec, shape) -> dict:
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        q = Spec(*dims)
+        if not shape or shape[-1] % Q_BLOCK:
+            return {"q": q, "s": Spec()}
+        last = dims[-1]
+        if last is not None:
+            names = [last] if isinstance(last, str) else list(last)
+            div = math.prod(axis_size(a) for a in names)
+            if (shape[-1] // Q_BLOCK) % div:
+                last = None
+        return {"q": q, "s": Spec(*dims[:-1], last)}
+
+    return {k: one(spec, shapes[k]) for k, spec in spec_tree.items()}

@@ -9,7 +9,11 @@ DTensors:
    weights and batches (``<job>.pkl``), and the same run with m and v
    under `zero1_specs`;
 2. a checkpoint saved from that mesh restores onto a (4 x 2) mesh, its
-   values bitwise those saved, and one more step trains there.
+   values bitwise those saved, and one more step trains there;
+3. three steps of the 8-bit arm on the (2 x 4) mesh, q and v under
+   `zero1_specs`, the scales under `optimizer.qs_specs`, and the gap of
+   its gathered state (and of the fp32 mesh run's) to one rank's 8-bit
+   run (`optimizer.gap_8bit`).
 
 Rank 0 writes the losses, the restore's verdict and the collective
 counts to ``<out>.npz`` for the parent test.
@@ -116,12 +120,40 @@ def run_rank(rank: int, world: int, store: str, job: str, ckpt: str,
             torch.equal(t.full_tensor(), saved_m[k])
             for k, t in s2["m"].items())
         elastic = train(mesh2, p2, s2, batches[3:4])
+
+        # the 8-bit arm on the (2, 4) mesh
+        from repro_torch.launch.dryrun import qs_axis_size
+        step = make_train_step(cfg, TrainConfig(adamw=opt.AdamWConfig(
+            lr=1e-3, warmup_steps=0), opt_8bit=True))
+        p8 = fresh()[0]
+        qs = opt.qs_specs(opt.zero1_specs(specs, p8, data_divisor=2), p8,
+                          qs_axis_size(mesh))
+        p8, s8 = lmesh.place_on_mesh(mesh, p8, places, opt.init_8bit(p8),
+                                     lmesh.named_shardings(mesh, qs))
+        losses_8bit = train(mesh, p8, s8, batches[:3])
+        scales_cut = sum(any(pl.is_shard() for pl in mq["s"].placements)
+                         for mq in s8["m"].values())
+        # its state against one rank's 8-bit run, and the fp32 mesh run's
+        # state (quantized as the 8-bit arm would store it) against the
+        # same: the gate must tell the two arms apart
+        snap_8bit = opt.snapshot_8bit(p8, s8)
+        snap_fp32 = opt.snapshot_8bit(p, s)
+        p1 = fresh()[0]
+        s1 = opt.init_8bit(p1)
+        for b in batches[:3]:
+            step(p1, s1, b)
+        one = opt.snapshot_8bit(p1, s1)
+        gaps = {"mesh": opt.gap_8bit(one, snap_8bit),
+                "fp32": opt.gap_8bit(one, snap_fp32)}
         if rank == 0:
             np.savez(out, mesh_losses=np.array(mesh_losses),
                      zero1_losses=np.array(zero1_losses),
                      zero1_sharded=zero1_sharded, bitwise=bitwise,
                      elastic_loss=np.array(elastic),
                      comm=np.array(json.dumps(counts[0])),
-                     update_comm=np.array(json.dumps(update_comm)))
+                     update_comm=np.array(json.dumps(update_comm)),
+                     losses_8bit=np.array(losses_8bit),
+                     scales_cut=scales_cut,
+                     gaps_8bit=np.array(json.dumps(gaps)))
     finally:
         dist.destroy_process_group()

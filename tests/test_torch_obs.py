@@ -3,8 +3,8 @@ reference's (`repro.obs`), case by case of ``tests/test_obs.py``: the
 span tracer, the metrics registry (the same operations give the same
 snapshot and Prometheus text, wall times masked), the degrade record,
 `trace_run` on each of its three branches (LayerStats rows, depths and
-spans equal to the reference's, durations masked) and the analytic
-bytes model.  ``measure_drift`` has no counterpart in the port yet."""
+spans equal to the reference's, durations masked), the analytic bytes
+model and `measure_drift`'s rows."""
 import json
 import logging
 import math
@@ -333,8 +333,24 @@ def test_trace_run_reuses_plan_and_tracer(g8):
 
 # -- cost drift (the analytic half) -------------------------------------------
 
+def _ref_tile_count(ref_fmt, name: str, tile: int) -> int:
+    """Tiles of one full sweep in the format's own unit: the reference
+    counts ``ceil(edge_slots / tile)``, CSR's unit, for every format."""
+    if name == "sell":
+        return -(-ref_fmt.n_slabs // tile)
+    if name == "bitmap":
+        return 1
+    return -(-ref_fmt.edge_slots // tile)
+
+
 @pytest.mark.parametrize("name", ["csr", "sell", "bitmap"])
 def test_analytic_layer_bytes_matches_reference(g8, name):
+    """The reference's model, from the reference format's own
+    ``tile_bytes`` and ``plan_bytes``, with the fused pipelines' tiles
+    counted in the format's unit: the reference's figure itself for CSR
+    and for ``materialized``; for SELL (a tile is slabs) and the bitmap
+    (one tile, the matrix) the reference multiplies by a count in edge
+    slots, which the port does not."""
     ref_fmt = ref_build(g8, name)
     fmt = formats.build(to_port(g8), name)
     for pipeline, tile in (("materialized", None), ("fused_gather", 256),
@@ -343,6 +359,13 @@ def test_analytic_layer_bytes_matches_reference(g8, name):
                                            tile=tile)
         got = cost_drift.analytic_layer_bytes(fmt, pipeline=pipeline,
                                               tile=tile)
+        if pipeline != "materialized":
+            slots = -(-ref_fmt.edge_slots // tile)
+            assert want == ref_fmt.tile_bytes(tile) * slots \
+                + ref_fmt.plan_bytes(tile, True)
+            want = ref_fmt.tile_bytes(tile) \
+                * _ref_tile_count(ref_fmt, name, tile) \
+                + ref_fmt.plan_bytes(tile, True)
         assert got == want > 0, (pipeline, tile)
     with pytest.raises(ValueError):
         cost_drift.analytic_layer_bytes(fmt, pipeline="nope", tile=256)
@@ -360,9 +383,47 @@ def test_drift_rows_match_reference():
     assert list(rows[1]) == ["obs.cost_drift.csr.fused_gather"]
 
 
+@pytest.mark.parametrize("pipeline", ["fused_gather", "materialized"])
+def test_measure_drift_matches_reference(g8, pipeline):
+    """The port's rows carry the reference's keys, format, pipeline, tile
+    and analytic bytes; its two measured counts are the analyzer's, every
+    op's bytes above the distinct storages' (both > 0)."""
+    (want,) = ref_cd.measure_drift(
+        g8, RefSpec(prefetch_depth=0), pipelines=(pipeline,))
+    (got,) = cost_drift.measure_drift(
+        to_port(g8), tbfs.TraversalSpec(prefetch_depth=0, tile=want.tile),
+        pipelines=(pipeline,), device="cpu")
+    assert got._fields == want._fields
+    assert (got.format, got.pipeline, got.tile, got.analytic_bytes) \
+        == (want.format, want.pipeline, want.tile, want.analytic_bytes)
+    assert got.compiled_bytes > got.hlo_bytes > 0
+    assert got.ratio == got.compiled_bytes / got.analytic_bytes
+    row = cost_drift.drift_rows([got])[f"obs.cost_drift.csr.{pipeline}"]
+    assert set(row) == set(ref_cd.drift_rows([want])[
+        f"obs.cost_drift.csr.{pipeline}"])
+    assert cost_drift.measure_drift(
+        to_port(g8), tbfs.TraversalSpec(prefetch_depth=0, tile=want.tile),
+        pipelines=(pipeline,), device="cpu") == [got]     # deterministic
+
+
+def test_measure_drift_counts_sell_tiles_in_slabs(g8):
+    """SELL's fused row: the analytic figure counts slab groups, so the
+    counted bytes sit within a small factor of it, as CSR's do (the
+    reference's unit would put the ratio near 1/1024)."""
+    sell = formats.SellFormat.from_csr(to_port(g8))
+    (got,) = cost_drift.measure_drift(
+        sell, tbfs.TraversalSpec(prefetch_depth=0),
+        pipelines=("fused_gather",), device="cpu")
+    assert got.format == "sell"
+    assert got.analytic_bytes == sell.tile_bytes(got.tile) \
+        * sell.tile_count(got.tile) + sell.plan_bytes(got.tile)
+    assert got.compiled_bytes > got.hlo_bytes > 0
+    assert 0.1 < got.ratio < 10, got
+
+
 def test_obs_surface_matches_reference():
     import repro.obs as ref_obs
-    want = set(ref_obs.__all__) - {"measure_drift", "xla_profiler"}
+    want = set(ref_obs.__all__) - {"xla_profiler"}
     assert set(obs.__all__) == want | {"torch_profiler"}
     for name in obs.__all__:
         assert hasattr(obs, name)

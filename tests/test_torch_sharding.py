@@ -251,9 +251,19 @@ def test_place_on_mesh(group):
         assert isinstance(t, DTensor) and t.placements == places[k]
         assert torch.equal(t.full_tensor(), full[k])
         assert state["m"][k].placements == zero1[k]
-    with pytest.raises(NotImplementedError, match="8-bit"):
-        lmesh.place_on_mesh(mesh, p, places, opt.init_8bit(
-            lm.init_params(cfg, 0, device="cpu")))
+    # the 8-bit state: q and s under qs_specs, v at q's placements
+    p8 = lm.init_params(cfg, 0, device="cpu")
+    s8 = opt.init_8bit(p8)
+    want = {k: {part: t.clone() for part, t in mq.items()}
+            for k, mq in s8["m"].items()}
+    qs = lmesh.named_shardings(mesh, opt.qs_specs(
+        opt.zero1_specs(lmesh.param_specs(p8, 1), p8, 1), p8, lambda a: 1))
+    p8, s8 = lmesh.place_on_mesh(mesh, p8, places, s8, qs)
+    for k, mq in s8["m"].items():
+        for part in ("q", "s"):
+            assert mq[part].placements == qs[k][part]
+            assert torch.equal(mq[part].full_tensor(), want[k][part])
+        assert s8["v"][k].placements == qs[k]["q"]
 
 
 # ---------------------------------------------------------------------------

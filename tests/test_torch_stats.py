@@ -214,6 +214,10 @@ def test_new_modules_import_without_jax():
         "import repro_torch.serve.graph_engine, repro_torch.serve.robust\n"
         "import repro_torch.core.stats\n"
         "import repro_torch.configs.bfs_graph500\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline.analysis, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.hlo_analyze\n"
+        "from repro_torch.obs.cost_drift import measure_drift\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
