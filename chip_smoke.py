@@ -277,6 +277,26 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    one-rank 8-bit card run, and the gathered parameters and state
    within `GATE_8BIT` of that run's, which the one-rank fp32 run's state
    fails (one ``lm_mesh_8bit`` line).
+18. (run after 12) the affinity table (`formats.affinity`, its rows
+   ``formats/affinity_table.json`` swept on the card by
+   ``tools/sweep_affinity.py``; no kernel of its own).  Phases 1-17 run
+   with the table set aside (`affinity.table_at(None)`: every auto knob
+   at its built-in default, the paths they held before the table), and
+   name the knobs where they plan a spec of their own
+   (`BUILTIN_KNOBS`).  On the main path's graph (phase 2's roots) and
+   on the reference sweep's `TORUS_SIDE` x `TORUS_SIDE` torus: a. the
+   geometry class on the card equals that of a CPU copy; b. the
+   all-auto ``TraversalSpec()`` resolves field by field to the table's
+   lowest rows (`table_choices`, read from the file as written), on CSR
+   and on ``SellFormat.from_csr`` with the table's σ; c. its batch
+   equals the ``fused_gather`` depth-0 plan of the same layout and tile
+   (visited, depths, direction log, stats columns 0-6; column 5 only on
+   non-scalar layers under CSR ``persistent``, whose scalar layers
+   report their planned blocks), trees valid, no degrade; d. the profiler lists the kernels of its pipeline
+   (`PIPELINE_KERNELS`) and none that marks another; one
+   ``affinity_wall`` line per resolved plan with its wall beside the
+   ``fused_gather`` depth-0 wall on the same roots and the card's name
+   and power limit (a record, not a claim).
 
 The ``kernels`` line names each row's timing ``method``: ``events``
 (the median of CUDA events around one call) or ``back_to_back``
@@ -470,6 +490,28 @@ SELL_PATHS = {
                         ("sell_traversal_fused_batched",), 0),
 }
 PREFETCH_DEPTHS = (1, 2, 4)
+#: the knobs the phases before 18 name where they plan a spec of their
+#: own: the built-in defaults (phases 1-17 run with the affinity table
+#: set aside, `affinity.table_at(None)`, so that the entry points that
+#: resolve an auto spec inside, the serve tier, the harness and the
+#: legacy shims, keep their paths too; phase 18 reads the table)
+BUILTIN_KNOBS = dict(pipeline="fused_gather", prefetch_depth=0)
+BUILTIN_CSR_TILE = 1024       # csr_format.DEFAULT_TILE
+#: phase 18: the reference sweep's uniform torus (class skew1)
+TORUS_SIDE = 64
+#: phase 18: the kernels (device names, as the profiler gives them) a
+#: resolved plan must launch, by format and pipeline, and the kernels
+#: that mark the other pipelines
+PIPELINE_KERNELS = {
+    ("csr", "persistent"): ("traversal_fused_kernel",),
+    ("csr", "megakernel"): ("layer_fused_kernel",),
+    ("csr", "fused_gather"): ("gather_expand_kernel", "restoration_kernel",
+                              "plan_masks_csr", "measure_kernel"),
+    ("sell", "persistent"): ("sell_traversal_fused_kernel",),
+    ("sell", "megakernel"): ("sell_layer_fused_kernel",),
+    ("sell", "fused_gather"): ("sell_expand_kernel", "restoration_kernel",
+                               "plan_masks_sell", "measure_kernel"),
+}
 #: the build-log entries printed whole (every ptxas line, kernel names
 #: included): the kernels that walk the union of the lists, and the
 #: planner that builds it
@@ -1597,7 +1639,8 @@ def phase_sell_layer(g, roots, reps: int, label: str = ""):
             contextlib.ExitStack() as stack:
         for d in dirs.values():
             stack.enter_context(d)
-        bfs.plan(fmt, bfs.TraversalSpec()).run_batched(roots)
+        bfs.plan(fmt, bfs.TraversalSpec(**BUILTIN_KNOBS)) \
+            .run_batched(roots)
     measure_gates(measured.calls, f"_sell{label}")
     del measured
     res = layer_kernel_both_ways("sell", spy.best["sell_batched"], dirs,
@@ -1634,12 +1677,14 @@ def phase_sell(g, roots, base, oracle, edges: int, reps: int,
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     assert isinstance(fmt, formats.SellFormat), type(fmt)
+    assert fmt.sigma == formats.SellFormat.DEFAULT_SIGMA, fmt.sigma
     log(f"sell layout: {fmt.n_slabs} slabs, sigma {fmt.sigma}, fill "
         f"{fmt.fill_ratio:.6f}, {fmt.footprint().summary()}; built on the "
         f"card in {build_s:.6f} s, peak device memory during the build "
         f"{peak / 2**30:.3f} GiB")
     plan_gates(plan_layers, {"sell": fmt.sell_graph(
-        bfs.plan(fmt, bfs.TraversalSpec()).resolved.tile)}, "_sell")
+        bfs.plan(fmt, bfs.TraversalSpec(**BUILTIN_KNOBS)).resolved.tile)},
+        "_sell")
     kres, launches = {}, {}
     n_layers = int(base.state.layer)
     for name, (fields, kernels, per_layer) in SELL_PATHS.items():
@@ -1880,9 +1925,10 @@ def phase_wide_batch(g, sell, seed: int, reps: int) -> None:
     roots = pick_roots(g, WIDE_BATCH, seed + 3)
     assert len(roots) == WIDE_BATCH
     label = f"_b{WIDE_BATCH}"
-    ct = bfs.plan(g, bfs.TraversalSpec())
-    sell_graph = sell.sell_graph(bfs.plan(sell, bfs.TraversalSpec())
-                                 .resolved.tile)
+    ct = bfs.plan(g, bfs.TraversalSpec(**BUILTIN_KNOBS,
+                                       tile=BUILTIN_CSR_TILE))
+    sell_graph = sell.sell_graph(bfs.plan(
+        sell, bfs.TraversalSpec(**BUILTIN_KNOBS)).resolved.tile)
     dirs = direction_spies(ops, "gather_expand_batched")
     with plan_layers_spy(ops) as layers, \
             Spy(ops, {"plan_union": None,
@@ -3101,8 +3147,9 @@ def phase_legacy(g, root: int, oracle) -> None:
         ("run_bfs_vectorized simd_layers",
          lambda: bfs_vectorized.run_bfs_vectorized(g, root,
                                                    simd_layers=(1, 2))),
-        ("traverse", lambda: bfs.traverse(g, root,
-                                          spec=bfs.TraversalSpec()).state),
+        ("traverse", lambda: bfs.traverse(
+            g, root, spec=bfs.TraversalSpec(**BUILTIN_KNOBS,
+                                            tile=BUILTIN_CSR_TILE)).state),
     )
     for name, fn in legacy:
         st, took = timed(name, fn)
@@ -3155,8 +3202,9 @@ def phase_repairs(seed: int, device) -> None:
                           device=device)
     g16 = csr_mod.from_edges(edges, device=device)
     roots16 = pick_roots(g16, BATCH, seed + 3)
-    a = bfs.plan(edges, bfs.TraversalSpec()).run_batched(roots16)
-    b = bfs.plan(g16, bfs.TraversalSpec()).run_batched(roots16)
+    fixed = bfs.TraversalSpec(**BUILTIN_KNOBS, tile=BUILTIN_CSR_TILE)
+    a = bfs.plan(edges, fixed).run_batched(roots16)
+    b = bfs.plan(g16, fixed).run_batched(roots16)
     for what, x, y in (("stats", a.stats, b.stats),
                        ("visited", a.state.visited, b.state.visited),
                        ("depths", a.depths, b.depths)):
@@ -4935,6 +4983,219 @@ def phase_roofline(seed: int, smi: str | None = None) -> None:
         f"s; whole {time.perf_counter() - t0:.1f} s")
 
 
+def table_choices(table: dict, fmt_name: str, geom: str) -> dict:
+    """{knob token: value} of the rows under ``affinity.<fmt>.<geom>.``,
+    the lowest ``us_per_call`` of each knob group, read from the table
+    as written (not through `affinity`)."""
+    import re
+    best = {}
+    prefix = f"affinity.{fmt_name}.{geom}."
+    for key, rec in table.items():
+        if not key.startswith(prefix):
+            continue
+        tail = key[len(prefix):]
+        m = re.fullmatch(r"(pipeline|policy|algorithm|merge)_(.+)", tail) \
+            or re.fullmatch(r"([a-z_]+?)(\d+)", tail)
+        knob, value = m.group(1), m.group(2)
+        value = value if knob in ("pipeline", "policy", "algorithm",
+                                  "merge") else int(value)
+        us = float(rec["us_per_call"])
+        if knob not in best or us < best[knob][1]:
+            best[knob] = (value, us)
+    return {k: v for k, (v, _) in best.items()}
+
+
+def expected_spec(choices: dict, fmt, skew: float) -> dict:
+    """The all-auto spec's fields that ``choices`` (a `table_choices`)
+    decide for ``fmt``, with the built-in default where no row
+    exists; the CSR tile under its cap (``e_pad / 8``, the edge
+    stream)."""
+    import repro_torch.bfs as bfs
+    from repro_torch.formats.autotune import SKEW_THRESHOLD
+    want = dict(pipeline=choices.get("pipeline", "fused_gather"),
+                prefetch_depth=choices.get("prefetch", 0),
+                algorithm=choices.get("algorithm", "simd"),
+                packed=bool(choices.get("packed", True)),
+                max_layers=choices.get("maxlayers", 64),
+                merge=choices.get("merge", "packed"),
+                policy=type(bfs.POLICIES[choices["policy"]]())
+                if "policy" in choices else
+                (bfs.BeamerHybrid if skew >= SKEW_THRESHOLD
+                 else bfs.ThresholdSimd))
+    if fmt.name == "csr":
+        e_pad = fmt.n_edges_padded
+        tile = max(128, min(choices.get("tile", BUILTIN_CSR_TILE),
+                            max(e_pad // 8, 128)))
+        want["tile"] = min(tile, max(e_pad, 128))
+    return want
+
+
+def has_kernel(kernels: dict, name: str) -> bool:
+    """Whether a device kernel named exactly ``name`` (not a name that
+    merely contains it) is among the profiler's ``kernels``."""
+    import re
+    pat = re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
+    return any(pat.search(k) for k in kernels)
+
+
+def phase_affinity(g, roots, oracle, seed: int, smi: str) -> None:
+    """Phase 18: the affinity table on the card, on the main path's
+    graph (phase 2's roots) and on the reference sweep's torus.  a. the
+    geometry class on the card equals the class of a CPU copy made with
+    `interop`; b. the all-auto `TraversalSpec()` resolves field by field
+    to the committed table's lowest rows, on CSR and on
+    `SellFormat.from_csr` (whose σ comes from the table); c. the resolved
+    plan's batch equals the ``fused_gather`` depth-0 plan of the same
+    layout and tile in visited sets, depths, direction log and stats
+    columns 0-6 (column 7 counts launches, which differ by pipeline;
+    column 5 as in `tests/test_torch_traversal_union.py`), with valid
+    trees and no degrade; d. the profiler lists the kernels
+    its pipeline launches (`PIPELINE_KERNELS`), and none that marks
+    another pipeline; one wall per resolved plan beside the
+    ``fused_gather`` depth-0 wall on the same roots (a record, not a
+    claim)."""
+    import numpy as np
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch import interop
+    from repro_torch.api.spec import as_format
+    from repro_torch.core.engine import MODE_SCALAR
+    from repro_torch.formats import SellFormat, affinity, autotune
+    from repro_torch.obs.metrics import clear_degrade_log, degrade_log
+    t0 = time.perf_counter()
+    path = affinity._table_path()
+    table = json.loads(path.read_text())
+    log(f"affinity table: {path.name}, {len(table) - 1} rows, "
+        f"swept on {table['card']}")
+    dev = str(g.device)
+    torus = torus_graph(TORUS_SIDE, dev)
+    torus_roots = pick_roots(torus, BATCH, seed + 5)
+    rows_np = torus.rows.cpu().numpy()
+    cs_np = torus.colstarts.cpu().numpy()
+
+    def torus_oracle(root):
+        from repro_torch.core import bfs_serial
+        return bfs_serial.bfs_serial(rows_np, cs_np, torus.n_vertices,
+                                     root)[1]
+
+    walls = []
+    with affinity.table_at(path):
+        for label, graph, rts, orc in (
+                (f"rmat-{MAIN.scale}", g, roots, oracle),
+                (f"torus{TORUS_SIDE}", torus, torus_roots, torus_oracle)):
+            # a. the class on the card equals the class on the CPU
+            cpu = interop.csr_from_arrays(
+                graph.rows.cpu().numpy(), graph.colstarts.cpu().numpy(),
+                graph.n_vertices, graph.n_edges, device="cpu")
+            affinity.clear_cache()
+            geom_cpu = affinity.geometry_class(cpu)
+            del cpu
+            affinity.clear_cache()
+            geom = affinity.geometry_class(graph)
+            assert geom == geom_cpu, (label, geom, geom_cpu)
+            skew = autotune.measure(graph).degree_skew
+            sell_sigma = table_choices(table, "sell", geom).get(
+                "sigma", SellFormat.DEFAULT_SIGMA)
+            for fmt_name in ("csr", "sell"):
+                fmt = (as_format(graph) if fmt_name == "csr"
+                       else SellFormat.from_csr(graph))
+                if fmt_name == "sell":
+                    assert fmt.sigma == sell_sigma, (fmt.sigma, sell_sigma)
+                # b. the all-auto spec resolves to the table's rows
+                clear_degrade_log()
+                ct = bfs.plan(fmt, bfs.TraversalSpec(), device=dev)
+                r = ct.resolved
+                want = expected_spec(table_choices(table, fmt_name, geom),
+                                     fmt, skew)
+                got = {k: getattr(r, k) for k in want}
+                got["policy"] = type(r.policy)
+                assert got == want, f"{label} {fmt_name}: {got} != {want}"
+                assert not degrade_log(), degrade_log()
+                # c. the resolved plan against fused_gather at depth 0
+                base_ct = bfs.plan(fmt, r.replace(pipeline="fused_gather",
+                                                  prefetch_depth=0),
+                                   device=dev)
+                res = ct.run_batched(rts)
+                base = base_ct.run_batched(rts)
+                # a scalar CSR layer of K6 reports its planned blocks in
+                # column 5, fused_gather the full stream's (as in
+                # tests/test_torch_traversal_union.py)
+                tiles_rows = (base.stats[:, 3] != MODE_SCALAR) \
+                    | (fmt_name != "csr" or r.pipeline != "persistent")
+                for what, a, b in (
+                        ("visited", res.state.visited, base.state.visited),
+                        ("depths", res.depths, base.depths),
+                        ("stats columns 0-4 and 6",
+                         res.stats[:, [0, 1, 2, 3, 4, 6]],
+                         base.stats[:, [0, 1, 2, 3, 4, 6]]),
+                        ("stats column 5", res.stats[tiles_rows, 5],
+                         base.stats[tiles_rows, 5])):
+                    assert torch.equal(a, b), \
+                        f"{label} {fmt_name} {r.pipeline}: {what} differ " \
+                        f"from fused_gather at depth 0"
+                assert bfs.direction_log(res) == bfs.direction_log(base)
+                trees_ok(graph, res, rts, orc, r.max_layers)
+                assert not degrade_log(), degrade_log()
+                # d. the kernels it launched, and the walls
+                kernels = device_kernels(lambda: ct.run_batched(rts))
+                need = PIPELINE_KERNELS[(fmt_name, r.pipeline)]
+                others = {k for (f, p), ks in PIPELINE_KERNELS.items()
+                          if p != r.pipeline for k in ks[:1]}
+                launched = sorted(k for k in set(need) | others
+                                  if has_kernel(kernels, k))
+                assert set(need) <= set(launched) \
+                    and not others & set(launched), \
+                    f"{label} {fmt_name} {r.pipeline}: launched {launched}"
+                times = {"resolved": [], "fused_gather_d0": []}
+                for which in ("fused_gather_d0", "resolved", "resolved",
+                              "fused_gather_d0"):
+                    c = ct if which == "resolved" else base_ct
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    c.run_batched(rts)
+                    torch.cuda.synchronize()
+                    times[which].append(time.perf_counter() - t1)
+                wall = {k: float(np.mean(v)) * 1e3 for k, v in times.items()}
+                walls.append(dict(
+                    graph=label, format=fmt_name, geometry=geom,
+                    pipeline=r.pipeline, prefetch_depth=r.prefetch_depth,
+                    tile=r.tile, sigma=getattr(fmt, "sigma", None),
+                    roots=len(rts), layers=int(res.state.layer),
+                    kernels=launched, ms=wall["resolved"],
+                    fused_gather_d0_ms=wall["fused_gather_d0"], card=smi))
+                log(f"affinity {label} {fmt_name} ({geom}): resolves to "
+                    f"{r.pipeline}, depth {r.prefetch_depth}, tile "
+                    f"{r.tile}" + (f", sigma {fmt.sigma}"
+                                   if fmt_name == "sell" else "")
+                    + f" = the table's rows; equals fused_gather at depth "
+                    f"0 (visited, depths, direction log, stats 0-4 and 6, "
+                    f"5 on {int((tiles_rows & (base.stats[:, 4] != 0)).sum())}"
+                    f" of {int(base.state.layer)} layers), trees valid, "
+                    f"no degrade; launched {launched}")
+                del ct, base_ct, res, base, fmt
+                bfs.clear_plan_cache()
+    affinity.clear_cache()
+    for w in walls:
+        log(json.dumps({"affinity_wall": w}))
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_affinity_alone(seed: int = 0) -> None:
+    """Phase 18 by itself: the main path's graph and phase 2's roots
+    made anew, their depths from the level-synchronous oracle."""
+    import torch
+    g = make_graph(MAIN.scale, seed, "cuda")
+    roots = pick_roots(g, BATCH, seed)
+    src = torch.repeat_interleave(
+        torch.arange(g.n_vertices, device="cuda"), g.degrees().long(),
+        output_size=g.n_edges)
+    dst = g.rows[:g.n_edges].long()
+    depths = {r: level_bfs_depths(src, dst, g.n_vertices, r)
+              for r in roots}
+    del src, dst
+    phase_affinity(g, roots, depths.__getitem__, seed, card_line())
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4954,6 +5215,24 @@ def make_graph(scale: int, seed: int, device: str):
     return g
 
 
+def torus_graph(side: int, device: str):
+    """The reference sweep's uniform 4-regular 2-D torus, ``side`` x
+    ``side`` vertices, symmetrized (the ``skew1`` geometry class)."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core.rmat import EdgeList
+    v = side * side
+    idx = torch.arange(v, dtype=torch.int32, device=device)
+    x, y = idx % side, idx // side
+    right = (x + 1) % side + y * side
+    down = x + (y + 1) % side * side
+    src = torch.cat([idx, idx])
+    dst = torch.cat([right, down])
+    return csr_mod.from_edges(EdgeList(torch.cat([src, dst]),
+                                       torch.cat([dst, src]), v),
+                              device=device)
+
+
 def pick_roots(g, n: int, seed: int):
     import torch
     deg = g.degrees().cpu()
@@ -4963,7 +5242,11 @@ def pick_roots(g, n: int, seed: int):
     return cands[pick].tolist()
 
 
-def trees_ok(g, res, roots, oracle):
+def trees_ok(g, res, roots, oracle, max_layers: int | None = None):
+    """Each root's tree is valid with the oracle's depths, and its layer
+    count is the tree's depth + 1, or ``max_layers`` where the search
+    reached its last vertices in its last allowed layer (the torus of
+    phase 18: eccentricity 64 = the default 64 layers)."""
     import torch
     import repro_torch.bfs as bfs
     from repro_torch.core.validate import validate
@@ -4971,7 +5254,10 @@ def trees_ok(g, res, roots, oracle):
     for b, r in enumerate(roots):
         v = validate(g, parents[b], r, reference_depth=oracle(r))
         assert v.ok, f"root {r}: tree invalid {v[:7]}"
-        assert int(res.depths[b]) == int(v.depth.max()) + 1, \
+        want = int(v.depth.max()) + 1
+        if max_layers is not None:
+            want = min(want, max_layers)
+        assert int(res.depths[b]) == want, \
             f"root {r}: engine depth {int(res.depths[b])} vs tree"
     return parents
 
@@ -5061,6 +5347,16 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from repro_torch.formats import affinity
+    # phases 1-17 hold every auto knob at its built-in default; phase 18
+    # reads the committed table
+    with affinity.table_at(None):
+        return run_phases(args)
+
+
+def run_phases(args) -> int:
+    """Every phase, in order (see the module docstring)."""
+    import torch
     import repro_torch.bfs as bfs
     from repro_torch.obs.metrics import clear_degrade_log, degrade_log
     from repro_torch.core import bfs_serial
@@ -5096,7 +5392,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"graph: SCALE {args.scale} V={g.n_vertices} E={g.n_edges} "
         f"(generated + CSR in {time.perf_counter() - t0:.3f} s)")
-    ct = bfs.plan(g, bfs.TraversalSpec())
+    ct = bfs.plan(g, bfs.TraversalSpec(**BUILTIN_KNOBS,
+                                       tile=BUILTIN_CSR_TILE))
     r = ct.resolved
     log(f"resolved spec: {r}")
     assert isinstance(r.policy, bfs.BeamerHybrid), r.policy
@@ -5277,6 +5574,11 @@ def main(argv=None) -> int:
     phase_serve(g, roots64, oracle, portfolio, roots)
     free_oracle()
     phase_trace(ct, roots, simd_stats)
+
+    # 18. the affinity table: the all-auto spec on the main path's graph
+    # and on the torus resolves to the committed rows and equals the
+    # fused_gather depth-0 path
+    phase_affinity(g, roots, oracle_depths.__getitem__, args.seed, smi)
 
     # 13. the distributed BFS: one rank over NCCL, the rowsweep kernel on
     # every shard at D = 1, 2, 4, two ranks on the card over gloo

@@ -4,24 +4,30 @@ The same eight fields as ``repro.api.spec.TraversalSpec``, the same
 validation messages for the values this port supports, and the same
 ``to_dict`` layout, so a dict from either package loads in the other.
 
-Every field accepts ``"auto"``, resolved once at plan time from
-built-in defaults only (no benchmark table is read):
+Every field accepts ``"auto"``, resolved once at plan time through
+one lookup, `formats.affinity.resolve`: ``REPRO_BFS_TILE`` for the
+tile, then the row of the port's affinity table
+(``formats/affinity_table.json``, swept on the card) for the graph's
+format and geometry class, then the built-in default:
 
-* ``policy``: `BeamerHybrid` when the degree skew max/mean is >= 4,
-  else `ThresholdSimd` (the reference's autotune rule);
+* ``policy``: the row, else `BeamerHybrid` when the degree skew
+  max/mean is >= `autotune.SKEW_THRESHOLD`, else `ThresholdSimd`;
 * ``algorithm``: ``"simd"``; ``pipeline``: ``"fused_gather"``;
   ``packed``: True; ``prefetch_depth``: 0; ``max_layers``: 64;
   ``merge``: ``"packed"`` (read only by the distributed path);
 * ``tile``: the format's rule (``fmt.resolve_tile``: rows slots per
-  block on CSR, slabs per group on SELL).
+  block on CSR, which reads the table; slabs per group on SELL).
 
 ``pipeline`` runs ``"fused_gather"``, ``"materialized"``,
 ``"megakernel"`` and ``"persistent"``, at any ``prefetch_depth``, where
 the format supports them (its ``supports_*`` flags; the reference's
-messages); the auto choice stays ``fused_gather`` at depth 0 (changing
-it needs measurements).  ``persistent`` with a policy its kernel cannot
-encode runs the ``megakernel`` steps, with a recorded
-``pipeline_unsupported`` degrade (`engine.persistent_fallback`).
+messages).  A table row the format or algorithm cannot run degrades
+(``persistent`` -> ``megakernel`` -> ``fused_gather``; depth 0 for a
+semiring) with a recorded ``pipeline_unsupported`` /
+``prefetch_unsupported`` event, as in the reference.  ``persistent``
+with a policy its kernel cannot encode runs the ``megakernel`` steps,
+with a recorded ``pipeline_unsupported`` degrade
+(`engine.persistent_fallback`).
 ``packed=False`` is the dense-mask arm of the CSR planning and queues;
 SELL and bitmap ignore it, as in the reference.  ``algorithm`` also
 takes the semiring portfolio (``"sssp"``, ``"cc"``, ``"ksource_bfs"``:
@@ -36,8 +42,6 @@ from typing import Any
 import warnings
 import weakref
 
-import torch
-
 from repro_torch.algorithms.semiring import SEMIRING_ALGORITHMS
 from repro_torch.core import engine as _engine
 
@@ -47,7 +51,6 @@ _ALGORITHMS = ("simd", "nonsimd")
 #: the reference's pipelines, all ported
 PIPELINES = ("fused_gather", "materialized", "megakernel", "persistent")
 _MERGES = ("allreduce", "owner", "packed")
-SKEW_THRESHOLD = 4.0       # max_deg / mean_deg floor for BeamerHybrid
 
 #: registered policy names <-> engine policy classes
 POLICIES = {
@@ -289,38 +292,113 @@ class TraversalSpec:
     # -- auto resolution (exactly once, at plan time) --------------------
     def resolve(self, graph) -> "TraversalSpec":
         """Resolve every ``"auto"`` against the graph's format (a Csr or
-        EdgeList is viewed by `as_format`) from built-in defaults; the
-        result `is_resolved` and has been validated against the
-        format."""
+        EdgeList is viewed by `as_format`); the result `is_resolved` and
+        has been validated against the format.
+
+        Every auto field routes through one lookup,
+        `formats.affinity.resolve`: ``REPRO_BFS_TILE`` (the tile) > the
+        geometry-keyed row of the port's table (per format and
+        density/skew class) > the flat ``affinity.tile*`` rows > the
+        field's built-in default.  A table row the format or algorithm
+        cannot run degrades to the next pipeline with a recorded
+        ``pipeline_unsupported`` / ``prefetch_unsupported`` event, as in
+        the reference."""
         self.validate()
         fmt = as_format(graph)
+        from repro_torch.formats import affinity, autotune
+        from repro_torch.obs.metrics import record_degrade
+
+        def auto(knob, default):
+            return affinity.resolve(fmt, knob, default)
+
+        fmt_label = getattr(fmt, "name", type(fmt).__name__)
         policy = self.policy
         if policy == AUTO:
-            deg = fmt.degrees().to("cpu", dtype=torch.float64)
-            mean = float(deg.mean()) if deg.numel() else 0.0
-            skew = float(deg.max()) / mean if mean > 0 else 0.0
-            policy = (_engine.BeamerHybrid() if skew >= SKEW_THRESHOLD
-                      else _engine.ThresholdSimd())
+            name = auto("policy", None)
+            if isinstance(name, str) and name in POLICIES:
+                policy = POLICIES[name]()
+            else:
+                s = autotune.measure(fmt)
+                policy = (_engine.BeamerHybrid()
+                          if s.degree_skew >= autotune.SKEW_THRESHOLD
+                          else _engine.ThresholdSimd())
         elif isinstance(policy, str):
             policy = POLICIES[policy]()
-        self._validate_for(fmt)
-        # the auto pipeline is fused_gather at depth 0 (no affinity
-        # table), which the semiring portfolio runs, so the reference's
-        # `pipeline_unsupported` / `prefetch_unsupported` degrades of an
-        # auto choice cannot arise here
+        # the auto tile stays the format's rule (floors and caps are
+        # layout facts); the rule reads the table through `affinity`
+        tile = fmt.resolve_tile(None if self.tile == AUTO else self.tile)
+        algorithm = (auto("algorithm", "simd")
+                     if self.algorithm == AUTO else self.algorithm)
+        pipeline = self.pipeline
+        if pipeline == AUTO:
+            pipeline = auto("pipeline", "fused_gather")
+            if pipeline == "persistent":
+                allowed = getattr(fmt, "persistent_algorithms", ())
+                persistent = getattr(fmt, "supports_persistent", False)
+                if not (persistent
+                        and (not allowed or algorithm in allowed)):
+                    # a row tuned elsewhere must not force a
+                    # whole-traversal kernel the format cannot run
+                    record_degrade(
+                        "pipeline_unsupported",
+                        reason=(f"{fmt_label!r} cannot honor the "
+                                f"affinity table's "
+                                f"pipeline='persistent' (supports_"
+                                f"persistent={persistent}, "
+                                f"algorithm={algorithm!r} vs "
+                                f"{allowed})"),
+                        fallback="megakernel/fused_gather per-layer "
+                                 "steps")
+                    pipeline = ("megakernel"
+                                if getattr(fmt, "supports_megakernel",
+                                           False)
+                                else "fused_gather")
+            if pipeline == "megakernel" \
+                    and not getattr(fmt, "supports_megakernel", True):
+                record_degrade(
+                    "pipeline_unsupported",
+                    reason=(f"{fmt_label!r} has no whole-layer "
+                            f"megakernel (supports_megakernel=False) "
+                            f"but the affinity table selected "
+                            f"pipeline='megakernel'"),
+                    fallback="pipeline='fused_gather' unfused steps")
+                pipeline = "fused_gather"
+        if self.is_semiring and pipeline != "fused_gather":
+            # the portfolio runs the fused_gather relax arm only
+            record_degrade(
+                "pipeline_unsupported",
+                reason=(f"semiring algorithm {algorithm!r} has no "
+                        f"{pipeline!r} kernel (the portfolio only "
+                        f"implements the 'fused_gather' relax arm) "
+                        f"but the affinity table selected it"),
+                fallback="pipeline='fused_gather' relax steps")
+            pipeline = "fused_gather"
+        depth = self.prefetch_depth
+        if depth == AUTO:
+            depth = int(auto("prefetch_depth", 0))
+            if depth > 0 and not getattr(fmt, "supports_prefetch", True):
+                depth = 0
+            if depth > 0 and self.is_semiring:
+                record_degrade(
+                    "prefetch_unsupported",
+                    reason=(f"semiring algorithm {algorithm!r} has no "
+                            f"manual prefetch stream but the affinity "
+                            f"table selected prefetch_depth={depth}"),
+                    fallback="prefetch_depth=0 automatic pipelining")
+                depth = 0
         resolved = self.replace(
             policy=policy,
-            algorithm="simd" if self.algorithm == AUTO else self.algorithm,
-            pipeline=("fused_gather" if self.pipeline == AUTO
-                      else self.pipeline),
-            packed=True if self.packed == AUTO else self.packed,
-            tile=fmt.resolve_tile(None if self.tile == AUTO
-                                  else self.tile),
-            prefetch_depth=(0 if self.prefetch_depth == AUTO
-                            else self.prefetch_depth),
-            max_layers=64 if self.max_layers == AUTO else self.max_layers,
-            merge="packed" if self.merge == AUTO else self.merge)
-        return resolved.validate()
+            algorithm=algorithm,
+            pipeline=pipeline,
+            packed=(bool(auto("packed", True))
+                    if self.packed == AUTO else self.packed),
+            tile=int(tile),
+            prefetch_depth=depth,
+            max_layers=(int(auto("max_layers", 64))
+                        if self.max_layers == AUTO else self.max_layers),
+            merge=(auto("merge", "packed")
+                   if self.merge == AUTO else self.merge))
+        return resolved.validate(fmt)
 
     # -- serialization ---------------------------------------------------
     def to_dict(self) -> dict:

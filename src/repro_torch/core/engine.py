@@ -954,18 +954,29 @@ def _next_pow2(n: int, lo: int = 128) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def default_tile_csr() -> int:
-    """Legacy alias: the auto CSR tile, `csr_format.DEFAULT_TILE` (no
-    benchmark table, no environment override)."""
+def default_tile_csr(fmt=None) -> int:
+    """The auto CSR tile through `formats.affinity.resolve`:
+    ``REPRO_BFS_TILE`` > the geometry-keyed row of the port's table
+    (when ``fmt`` is given) > the flat ``affinity.tile<N>`` rows >
+    `csr_format.DEFAULT_TILE`."""
+    from repro_torch.formats import affinity
     from repro_torch.formats.csr_format import DEFAULT_TILE
-    return DEFAULT_TILE
+    return int(affinity.resolve(fmt, "tile", DEFAULT_TILE))
 
 
-def _resolve_tile_csr(tile: int | None, e_pad: int) -> int:
-    """Legacy alias: `CsrFormat.resolve_tile` for ``e_pad`` rows slots."""
-    from repro_torch.formats.csr_format import CsrFormat
-    return CsrFormat(None, torch.empty((e_pad,), device="meta"), 0,
-                     0).resolve_tile(tile)
+def _resolve_tile_csr(tile: int | None, e_pad: int, fmt=None) -> int:
+    """The CSR tile rule (`CsrFormat.resolve_tile`) for ``e_pad`` rows
+    slots: ``tile`` floored at `MIN_TILE` (one lane set, so small graphs
+    still split into several blocks) or, for auto, `default_tile_csr`
+    capped at ``e_pad / 8`` so small graphs keep >= 8 blocks to skip,
+    and never past the edge stream (rows are padded up to a tile
+    multiple, so an oversized tile would balloon the stream)."""
+    from repro_torch.formats.csr_format import MIN_TILE
+    if tile is None:
+        tile = max(MIN_TILE, min(default_tile_csr(fmt),
+                                 max(e_pad // 8, MIN_TILE)))
+        tile = min(tile, max(e_pad, MIN_TILE))
+    return max(int(tile), MIN_TILE)
 
 
 # ---------------------------------------------------------------------------

@@ -86,15 +86,14 @@ class CsrFormat(GraphFormat):
         return self.colstarts[1:] - self.colstarts[:-1]
 
     def resolve_tile(self, tile: int | None) -> int:
-        """The CSR tile rule: ``tile`` (floored at 128) or, for auto,
-        1024 capped at ``e_pad / 8`` so small graphs keep >= 8 blocks
-        to skip, and never past the edge stream itself."""
-        e_pad = self.n_edges_padded
-        if tile is None:
-            tile = max(MIN_TILE, min(DEFAULT_TILE, max(e_pad // 8,
-                                                       MIN_TILE)))
-            tile = min(tile, max(e_pad, MIN_TILE))
-        return max(int(tile), MIN_TILE)
+        """The CSR tile rule (`engine._resolve_tile_csr`): ``tile``
+        (floored at 128) or, for auto, the affinity table's value for
+        this graph (1024 without a row) capped at ``e_pad / 8`` so
+        small graphs keep >= 8 blocks to skip, and never past the edge
+        stream itself."""
+        from repro_torch.core import engine
+        return engine._resolve_tile_csr(tile, self.n_edges_padded,
+                                        fmt=self)
 
     def _build_steps(self, spec) -> dict:
         from repro_torch.core import engine

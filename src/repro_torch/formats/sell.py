@@ -17,8 +17,8 @@ bitwise:
 The build runs in torch on the graph's device: one stable sort keyed by
 (window, -length) replaces the reference's per-window ``argsort`` loop,
 and every edge lands in its (slab, column, lane) slot by one indexed
-write.  Auto σ is the built-in `DEFAULT_SIGMA` (the port reads no
-benchmark table).
+write.  Auto σ is the affinity table's row for the graph's geometry
+class (`formats.affinity`), else `DEFAULT_SIGMA`.
 
 Steps (``make_steps``):
 
@@ -122,7 +122,14 @@ class SellFormat(GraphFormat):
                                              max_width, tail[owner])
             del owner, chunk
 
-        sig = cls.DEFAULT_SIGMA if sigma is None else int(sigma)
+        if sigma is None:
+            # auto σ reads the affinity table like any other tuned knob
+            # (affinity.sell.<geom>.sigma<N> rows)
+            from repro_torch.formats import affinity
+            sig = int(affinity.resolve(csr, "sigma", cls.DEFAULT_SIGMA,
+                                       fmt_name="sell"))
+        else:
+            sig = int(sigma)
         sig = min(round_up(max(sig, c), c), n_rows)
 
         # σ-windowed descending length sort as ONE stable sort keyed by

@@ -118,12 +118,27 @@ def run_reference(csr, policy, roots, max_layers=128, algorithm="simd"):
 def run_port(csr_t, policy, roots, tile, max_layers=128,
              algorithm="simd"):
     spec = tbfs.TraversalSpec(policy=policy, tile=tile,
-                              max_layers=max_layers, algorithm=algorithm)
+                              max_layers=max_layers, algorithm=algorithm,
+                              pipeline="fused_gather", prefetch_depth=0)
     return tbfs.plan(csr_t, spec, device="cpu").run_batched(roots)
 
 
 def words_np(t: torch.Tensor) -> np.ndarray:
     return interop.words_to_numpy(t)
+
+
+@pytest.fixture
+def builtin_knobs():
+    """The port's auto knobs at their built-in defaults (no affinity
+    table: ``fused_gather`` at depth 0, the default tile and σ), the
+    path the reference's pinned ``fused_gather`` depth-0 results hold;
+    for tests whose entry points resolve an auto spec inside (the serve
+    tier, ``trace_run``, the legacy shims).  Use it with
+    ``pytestmark = pytest.mark.usefixtures("builtin_knobs")`` after
+    importing it."""
+    from repro_torch.formats import affinity
+    with affinity.table_at(None):
+        yield
 
 
 @pytest.fixture

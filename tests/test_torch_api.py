@@ -21,6 +21,11 @@ import repro_torch.bfs as bfs
 from repro_torch import interop
 from repro_torch.api.plan import check_roots
 from repro_torch.errors import GraphValidationError
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -34,6 +34,11 @@ from repro_torch.formats import build
 from repro_torch.formats.csr_format import CsrFormat
 from repro_torch.models import common as cm, transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 #: the reference's auto pipeline reaches ``pltpu.TPUMemorySpace``, which
 #: jax 0.9 lacks, so it runs the fused_gather arm at depth 0

@@ -41,6 +41,11 @@ from repro_torch.core import bfs_distributed as bd
 from repro_torch.core import engine as t_engine
 from repro_torch.errors import GraphValidationError
 from repro_torch.kernels import ops
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 MERGES = ("allreduce", "owner", "packed")
 JOIN_S = 120.0

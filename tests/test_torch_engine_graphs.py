@@ -6,6 +6,11 @@ import pytest
 
 from _torch_parity import BUILDERS, POLICY_IDS, check_slice, to_port
 import repro_torch.bfs as tbfs
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 
 @pytest.fixture(scope="module")

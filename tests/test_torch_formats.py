@@ -30,6 +30,11 @@ from repro_torch import formats
 from repro_torch.core import engine as t_engine
 from repro_torch.formats import autotune, registry
 from repro_torch.formats.base import membership_bytes, traversal_bytes
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 GRAPHS = list(FORMAT_BUILDERS)
 

@@ -42,6 +42,11 @@ from repro_torch.core import engine as t_engine
 from repro_torch.core.validate import validate as t_validate
 from repro_torch.formats import csr_format
 from repro_torch.formats.csr_format import CsrFormat
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 CPU = "cpu"
 
@@ -203,16 +208,19 @@ def test_compact_worklist_single_root(density):
 
 def test_tile_rules():
     """`_next_pow2` as the reference's; `default_tile_csr` is the
-    card's 1024, `csr_format.DEFAULT_TILE`; `_resolve_tile_csr` is the
-    CSR format's rule."""
+    card's 1024, `csr_format.DEFAULT_TILE`, with no table row;
+    `_resolve_tile_csr` is the CSR format's rule, given the format or
+    not."""
     for n in (0, 1, 127, 128, 129, 1000, 4096, 70_000):
         assert t_engine._next_pow2(n) == ref_engine._next_pow2(n)
     assert t_engine.default_tile_csr() == csr_format.DEFAULT_TILE == 1024
     for e_pad in (128, 2048, 16384, 1 << 20):
         fmt = CsrFormat(torch.zeros(2, dtype=torch.int32),
                         torch.zeros(e_pad, dtype=torch.int32), 1, 0)
+        assert t_engine.default_tile_csr(fmt) == 1024
         for tile in (None, 64, 512, 4096):
             assert t_engine._resolve_tile_csr(tile, e_pad) == \
+                t_engine._resolve_tile_csr(tile, e_pad, fmt=fmt) == \
                 fmt.resolve_tile(tile)
 
 

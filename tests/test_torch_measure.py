@@ -30,6 +30,11 @@ from repro_torch import interop
 from repro_torch.core import engine as t_engine
 from repro_torch.kernels import bitmap_kernels as t_bk
 from repro_torch.kernels import ops
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 #: (roots, words): one root, a word count that is not a multiple of 4,
 #: the main path's batch and two root-mask words

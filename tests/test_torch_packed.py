@@ -36,6 +36,11 @@ from repro_torch.kernels import compact as t_ck
 from repro_torch.kernels import gather_expand as t_ge
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import clear_degrade_log, degrade_log
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 LAUNCH = t_engine._ST_LAUNCH
 SIGMA = 1024

@@ -36,6 +36,11 @@ from repro_torch.roofline.hlo_analyze import Analyzer, analyze, tensors_in
 
 from _torch_lm import models
 from _torch_parity import to_port
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 #: the port's matmul flops against the reference's dot flops on the
 #: reduced phi3 step: both count 2MNK per product, every layer and the

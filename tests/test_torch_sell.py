@@ -44,6 +44,11 @@ from repro_torch.kernels import restoration as t_rest
 from repro_torch.kernels import sell_expand as t_se
 from repro_torch.kernels import traversal_fused as t_tf
 from repro_torch.obs.metrics import clear_degrade_log, degrade_log
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 
 @pytest.fixture(scope="module")

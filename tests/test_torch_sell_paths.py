@@ -31,6 +31,11 @@ from repro_torch import formats
 from repro_torch.core.validate import validate as t_validate
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import clear_degrade_log, degrade_log
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 SIGMA = 1024       # the built-in auto σ, passed explicitly to both
 

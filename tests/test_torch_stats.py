@@ -28,6 +28,11 @@ from repro_torch.configs import bfs_graph500 as cfg
 from repro_torch.core.bfs_parallel import run_bfs
 from repro_torch.core.stats import (HarnessResult, RunResult, choose_roots,
                                     run_harness)
+from _torch_parity import builtin_knobs  # noqa: F401
+
+# the reference's pinned fused_gather depth-0 results hold the port's
+# built-in knobs, not the affinity table's picks
+pytestmark = pytest.mark.usefixtures("builtin_knobs")
 
 N = 8          # vertices 0..6 form a path; vertex 7 is isolated
 ISOLATED = 7
