@@ -324,6 +324,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.bfs_graph500 import GRAPHS, SERVE  # noqa: E402
+from repro_torch.obs.trace import CALL_RANGES  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 #: the main path's workload: Graph500 R-MAT SCALE 22, edgefactor 16
@@ -834,11 +835,12 @@ def traced_device_events(fn, activities):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only (kernels, copies), not the host ops
-        # that launched them, whose device time would count the same
-        # work twice
+        # that launched them nor the port's per-call ranges, whose
+        # device time would count the same work twice
         events = [e for e in prof.key_averages()
                   if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and e.self_device_time_total > 0]
+                  and e.self_device_time_total > 0
+                  and e.key not in CALL_RANGES]
         if events:
             return events, wall_us
         log(f"profiler session {attempt + 1} recorded no device event; "
@@ -1445,8 +1447,10 @@ def barrier_sass() -> dict:
     out = {}
     for kernel in ("traversal_fused_kernel", "sell_traversal_fused_kernel",
                    "layer_fused_kernel", "sell_layer_fused_kernel"):
-        tag = f"{len(kernel)}{kernel}E"
-        body = [ln for k, v in funcs.items() if tag in k for ln in v]
+        # a plain kernel's mangled name, or a template's untraced build
+        tags = (f"{len(kernel)}{kernel}E", f"{len(kernel)}{kernel}ILb0E")
+        body = [ln for k, v in funcs.items() if any(t in k for t in tags)
+                for ln in v]
         out[kernel] = {op: sum(op in ln for ln in body) for op in SASS_OPS}
         log(json.dumps({"sass": kernel, **out[kernel]}))
     return out
@@ -2865,7 +2869,8 @@ def planning_split(ct, roots, required: bool = True) -> dict | None:
             kernels = [e for e in prof.key_averages()
                        if str(getattr(e, "device_type", "")).endswith("CUDA")
                        and e.self_device_time_total > 0
-                       and e.key not in SPLIT_RANGES]
+                       and e.key not in SPLIT_RANGES
+                       and e.key not in CALL_RANGES]
             if kernels:
                 break
             log(f"profiler session {attempt + 1} recorded no device event; "

@@ -50,6 +50,7 @@ from repro_torch.core.rmat import EdgeList
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.errors import GraphValidationError
 from repro_torch.formats.base import GraphFormat
+from repro_torch.obs import trace as obs_trace
 
 
 def check_roots(roots, n_vertices: int) -> None:
@@ -202,22 +203,27 @@ class CompiledTraversal:
         self._partition = None            # mesh path: built once, lazily
 
     def _roots(self, roots) -> torch.Tensor:
-        check_roots(roots, self.fmt.n_vertices)
-        return torch.as_tensor(np.asarray(
-            roots.cpu() if isinstance(roots, torch.Tensor) else roots),
-            dtype=torch.int32).reshape(-1).to(self.fmt.device)
+        with obs_trace.call_range(obs_trace.ROOTS_RANGE):
+            check_roots(roots, self.fmt.n_vertices)
+            return torch.as_tensor(np.asarray(
+                roots.cpu() if isinstance(roots, torch.Tensor) else roots),
+                dtype=torch.int32).reshape(-1).to(self.fmt.device)
 
     def run(self, roots) -> _engine.EngineResult:
         """One root (int: unbatched result arrays) or a sequence of
         roots (leading root axis).  On a mesh-bound plan, runs the
         distributed program for one root and returns its ``(parent,
-        layers)`` pair."""
+        layers)`` pair.  While a ``torch.profiler`` session records,
+        the call is one ``bfs.run`` range (`obs.trace.traced_call`)."""
         if self.mesh is not None:
             check_roots(roots, self.fmt.n_vertices)
             return self._run_distributed(roots)
+        return obs_trace.traced_call(self._run, roots)
+
+    def _run(self, roots) -> _engine.EngineResult:
         single = np.ndim(roots.cpu() if isinstance(roots, torch.Tensor)
                          else roots) == 0
-        res = self.run_batched(roots)
+        res = self._run_batched(roots)
         if single:
             st = res.state
             return _engine.EngineResult(
@@ -231,11 +237,15 @@ class CompiledTraversal:
         """Run a (B,) root batch in one traversal.  A plan built with
         ``batch=N`` pads smaller batches up to N (repeating the last
         root) and slices the results back; the stats buffer then counts
-        the padded batch."""
+        the padded batch.  While a ``torch.profiler`` session records,
+        the call is one ``bfs.run`` range (`obs.trace.traced_call`)."""
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh-bound plans run one root per launch via .run(); "
                 "batched multi-root distributed search is not wired up")
+        return obs_trace.traced_call(self._run_batched, roots)
+
+    def _run_batched(self, roots) -> _engine.EngineResult:
         r = self._roots(roots)
         n = int(r.shape[0])
         if n == 0:

@@ -91,6 +91,7 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core.csr import Csr, padding_premarked_visited
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import record_degrade
 from repro_torch.kernels import bitmap_kernels as bk
 from repro_torch.kernels import gather_expand as ge
@@ -812,9 +813,10 @@ def _init_state(roots: torch.Tensor, base_visited: torch.Tensor,
 
 
 def _init_batched(roots: torch.Tensor, n_vertices: int, v_pad: int):
-    base = padding_premarked_visited(n_vertices, device=roots.device)
-    assert base.shape[0] * bm.BITS_PER_WORD == v_pad
-    return _init_state(roots.to(torch.int32), base, n_vertices)
+    with obs_trace.call_range(obs_trace.INIT_RANGE):
+        base = padding_premarked_visited(n_vertices, device=roots.device)
+        assert base.shape[0] * bm.BITS_PER_WORD == v_pad
+        return _init_state(roots.to(torch.int32), base, n_vertices)
 
 
 def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
@@ -824,8 +826,9 @@ def _traverse_persistent(fmt, roots: torch.Tensor, spec) -> EngineResult:
     stats)``."""
     frontier, visited, parent = _init_batched(roots, fmt.n_vertices,
                                               fmt.n_vertices_padded)
-    frontier, visited, parent, depths, layers, stats = \
-        fmt.persistent_run(frontier, visited, parent, spec)
+    with obs_trace.call_range(obs_trace.LAUNCH_RANGE):
+        frontier, visited, parent, depths, layers, stats = \
+            fmt.persistent_run(frontier, visited, parent, spec)
     return EngineResult(BfsState(frontier, visited, parent, layers[0]),
                         depths, stats)
 

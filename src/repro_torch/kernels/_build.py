@@ -48,13 +48,13 @@ SIGNATURES = {
     "repro_layer_fused_grid": (_I,) * 4 + (_P,),
     "repro_layer_fused": (_P,) * 17 + (_I,) * 11 + (_P,),
     "repro_traversal_fused_grid": (_I,) * 4 + (_P,),
-    "repro_traversal_fused": (_P,) * 25 + (_I,) * 11 + (_F,) * 3
+    "repro_traversal_fused": (_P,) * 27 + (_I,) * 11 + (_F,) * 3
     + (_I, _P),
     "repro_sell_expand": (_P,) * 9 + (_I,) * 8 + (_P,),
     "repro_sell_layer_fused_grid": (_I,) * 3 + (_P,),
     "repro_sell_layer_fused": (_P,) * 14 + (_I,) * 9 + (_P,),
     "repro_sell_traversal_fused_grid": (_I, _I, _I, _P),
-    "repro_sell_traversal_fused": (_P,) * 22 + (_I,) * 9 + (_F,) * 3
+    "repro_sell_traversal_fused": (_P,) * 24 + (_I,) * 9 + (_F,) * 3
     + (_I, _P),
     "repro_measure": (_P,) * 11 + (_LL,) + (_I,) * 5 + (_F,) * 3
     + (_I, _P),

@@ -52,11 +52,13 @@ struct SellLayer {
 };
 
 // At least kTraversalCtas resident CTAs per SM, as K6 (traversal_fused.cu).
+// kTraced: the phase-traced build of the loop (traversal_loop.cuh).
+template <bool kTraced>
 __global__ void __launch_bounds__(bfs::kThreads, bfs::kTraversalCtas)
     sell_traversal_fused_kernel(SellLayer layer, bfs::Traversal t,
                                 bfs::UnionBuffers buf, bfs::Policy pol) {
   extern __shared__ __align__(16) int ring[];
-  bfs::traversal_loop(layer, t, buf, pol, ring);
+  bfs::traversal_loop<kTraced>(layer, t, buf, pol, ring);
 }
 
 size_t ring_bytes(int depth, int spp) {
@@ -69,7 +71,7 @@ size_t ring_bytes(int depth, int spp) {
 
 extern "C" int repro_sell_traversal_fused_grid(int depth, int spp,
                                                int ctas_per_sm, int* grid) {
-  return bfs::cooperative_grid(sell_traversal_fused_kernel,
+  return bfs::cooperative_grid(sell_traversal_fused_kernel<false>,
                                ring_bytes(depth, spp), ctas_per_sm, grid);
 }
 
@@ -80,16 +82,18 @@ extern "C" int repro_sell_traversal_fused_grid(int depth, int spp,
 // rmask (n_steps, ceil(B / 32)), ulist (n_steps,), ucount (1,), cnt
 // (B + 1, grid), na (B,), fi, vi, oi ((n_words, B) each) and acc
 // ((max_layers + 1) * B * 4 uint64) are scratch.  simd_layer:
-// (max_layers,) int32 (PaperLiteralLayers).
+// (max_layers,) int32 (PaperLiteralLayers).  stamps and waits: the phase
+// tracing of traversal_loop.cuh (as K6's): the traced kernel runs where
+// either is set.
 extern "C" int repro_sell_traversal_fused(
     const void* cols, const void* slab_rows, const void* deg, const void* f0,
     const void* vis0, const void* p0, void* frontier, void* visited, void* p,
     void* rmask, void* ulist, void* ucount, void* cnt, void* na, void* fi,
     void* vi, void* oi, void* acc, void* depths, void* layers, void* stats,
-    const void* simd_layer, int n_batch, int n_steps, int spp, int n_words,
-    int v_pad, int n_vertices, int depth, int max_layers, int kind,
-    float alpha, float v_over_beta, float threshold, int grid,
-    void* stream) {
+    const void* simd_layer, void* stamps, void* waits, int n_batch,
+    int n_steps, int spp, int n_words, int v_pad, int n_vertices, int depth,
+    int max_layers, int kind, float alpha, float v_over_beta,
+    float threshold, int grid, void* stream) {
   if (n_batch == 0) return 0;
   const bfs::SellGraph g{static_cast<const int*>(cols),
                          static_cast<const int*>(slab_rows),
@@ -105,6 +109,8 @@ extern "C" int repro_sell_traversal_fused(
                    static_cast<int*>(depths),
                    static_cast<int*>(layers),
                    static_cast<int*>(stats),
+                   static_cast<long long*>(stamps),
+                   static_cast<unsigned long long*>(waits),
                    n_batch, max_layers, depth};
   bfs::UnionBuffers buf{
       nullptr,                     static_cast<unsigned*>(rmask),
@@ -116,6 +122,7 @@ extern "C" int repro_sell_traversal_fused(
                   static_cast<const int*>(simd_layer)};
   SellLayer layer{g};
   void* args[] = {&layer, &t, &buf, &pol};
-  return bfs::launch_cooperative(sell_traversal_fused_kernel, grid,
-                                 ring_bytes(depth, spp), stream, args);
+  return bfs::launch_traversal(sell_traversal_fused_kernel<false>,
+                               sell_traversal_fused_kernel<true>, t, grid,
+                               ring_bytes(depth, spp), stream, args);
 }

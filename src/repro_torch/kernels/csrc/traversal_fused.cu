@@ -62,11 +62,13 @@ struct CsrLayer {
 // registers and spills some, and the walks gain more from the resident
 // warps than they lose to the spill (`tools/sweep_launch_bounds.py`
 // times K6 and K10 at each minimum; PERF.md).
+// kTraced: the phase-traced build of the loop (traversal_loop.cuh).
+template <bool kTraced>
 __global__ void __launch_bounds__(bfs::kThreads, bfs::kTraversalCtas)
     traversal_fused_kernel(CsrLayer layer, bfs::Traversal t,
                            bfs::UnionBuffers buf, bfs::Policy pol) {
   extern __shared__ __align__(16) int smem[];
-  bfs::traversal_loop(layer, t, buf, pol, smem);
+  bfs::traversal_loop<kTraced>(layer, t, buf, pol, smem);
 }
 
 // Dynamic shared memory: the rows ring at depth > 0, then `sub` owners
@@ -81,7 +83,7 @@ size_t smem_bytes(int depth, int tile, int sub) {
 
 extern "C" int repro_traversal_fused_grid(int depth, int tile, int sub,
                                           int ctas_per_sm, int* grid) {
-  return bfs::cooperative_grid(traversal_fused_kernel,
+  return bfs::cooperative_grid(traversal_fused_kernel<false>,
                                smem_bytes(depth, tile, sub), ctas_per_sm,
                                grid);
 }
@@ -92,18 +94,21 @@ extern "C" int repro_traversal_fused_grid(int depth, int tile, int sub,
 // ulist (n_blocks,), ucount (1,), cnt (B + 1, grid), na (B,), fi, vi, oi
 // ((n_words, B) each) and acc ((max_layers + 1) * B * 4 uint64) are
 // scratch.  simd_layer: (max_layers,) int32 (PaperLiteralLayers only;
-// may be null for other kinds).  `grid` must come from
-// repro_traversal_fused_grid with the same depth, tile and sub.
+// may be null for other kinds).  stamps ((3 + 4 max_layers) int64) and
+// waits ((4 (max_layers + 1) + 2) uint64, zeroed) are the phase tracing
+// of traversal_loop.cuh: the traced kernel runs where either is set.
+// `grid` must come from repro_traversal_fused_grid with the same depth,
+// tile and sub.
 extern "C" int repro_traversal_fused(
     const void* rows, const void* cs, const void* blk_lo, const void* blk_hi,
     const void* nz, const void* deg, const void* f0, const void* vis0,
     const void* p0, void* frontier, void* visited, void* p, void* rmask,
     void* ulist, void* ucount, void* cnt, void* na, void* fi, void* vi,
     void* oi, void* acc, void* depths, void* layers, void* stats,
-    const void* simd_layer, int n_batch, int n_blocks, int tile, int n_cs,
-    int n_words, int v_pad, int n_vertices, int depth, int sub,
-    int max_layers, int kind, float alpha, float v_over_beta,
-    float threshold, int grid, void* stream) {
+    const void* simd_layer, void* stamps, void* waits, int n_batch,
+    int n_blocks, int tile, int n_cs, int n_words, int v_pad, int n_vertices,
+    int depth, int sub, int max_layers, int kind, float alpha,
+    float v_over_beta, float threshold, int grid, void* stream) {
   if (n_batch == 0) return 0;
   bfs::FusedGraph g{static_cast<const int*>(rows),
                     static_cast<const int*>(cs),
@@ -122,6 +127,8 @@ extern "C" int repro_traversal_fused(
                    static_cast<int*>(depths),
                    static_cast<int*>(layers),
                    static_cast<int*>(stats),
+                   static_cast<long long*>(stamps),
+                   static_cast<unsigned long long*>(waits),
                    n_batch, max_layers, depth};
   bfs::UnionBuffers buf{
       nullptr,                     static_cast<unsigned*>(rmask),
@@ -133,6 +140,7 @@ extern "C" int repro_traversal_fused(
                   static_cast<const int*>(simd_layer)};
   CsrLayer layer{g, sub};
   void* args[] = {&layer, &t, &buf, &pol};
-  return bfs::launch_cooperative(traversal_fused_kernel, grid,
-                                 smem_bytes(depth, tile, sub), stream, args);
+  return bfs::launch_traversal(traversal_fused_kernel<false>,
+                               traversal_fused_kernel<true>, t, grid,
+                               smem_bytes(depth, tile, sub), stream, args);
 }

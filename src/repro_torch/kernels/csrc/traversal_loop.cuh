@@ -34,6 +34,21 @@
 // barrier and decides the same direction, so the loop needs no
 // broadcast and ends in step.
 //
+// Phase tracing (`Traversal::stamps` and `waits`).  The kernels are
+// built twice, untraced and traced (`kTraced`), and `launch_traversal`
+// launches the traced one where either buffer is set, so the untraced
+// loop carries no line of tracing; the traced one writes each buffer
+// that is set and changes no output.  stamps, int64 %globaltimer ns
+// written by CTA 0's thread 0: [0] at entry, [1], [2] after the start-up
+// barriers, [3 + 4 l + k] after barrier k of layer l; as every CTA has
+// arrived when CTA 0 leaves a barrier, consecutive stamps bound a phase
+// of the whole grid.  waits, uint64 SM cycles (`clock64`, divided only
+// by cycles): [4 l + k] the summed wait of every CTA at barrier k of
+// layer l (from its `__syncthreads` before the barrier to its exit),
+// [4 max_layers + k] the start-up barriers', then [4 (max_layers + 1)]
+// every CTA's entry-to-exit cycles and [4 (max_layers + 1) + 1] the
+// CTAs that exited.
+//
 // State across layers.  The planning reads each root's words in rows,
 // (B, n_words); the walk reads them root-interleaved, (n_words, B), so
 // that the B words of one vertex share a sector.  The start-up pass
@@ -70,8 +85,64 @@ struct Traversal {
   int* depths;               // (B,)
   int* layers;               // (1,)
   int* stats;                // (max_layers, 8)
+  long long* stamps;         // (3 + 4 max_layers) or null: phase stamps
+  unsigned long long* waits; // (4 (max_layers + 1) + 2) or null
   int n_batch, max_layers, depth;
 };
+
+__device__ __forceinline__ long long global_ns() {
+  long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// grid.sync(), with the barrier's stamp and wait in the traced loop
+// (the slots as in the header above)
+template <bool kTraced>
+__device__ __forceinline__ void grid_barrier(
+    cooperative_groups::grid_group& grid, const Traversal& t, int stamp,
+    int wait) {
+  if constexpr (!kTraced) {
+    grid.sync();
+  } else {
+    long long before = 0;
+    if (t.waits != nullptr) {
+      __syncthreads();
+      before = clock64();
+    }
+    grid.sync();
+    if (threadIdx.x == 0) {
+      const long long after = clock64();
+      if (t.stamps != nullptr && blockIdx.x == 0)
+        t.stamps[stamp] = global_ns();
+      if (t.waits != nullptr)
+        atomicAdd(t.waits + wait,
+                  static_cast<unsigned long long>(after - before));
+    }
+  }
+}
+
+// A CTA's entry (`sign` -1) and exit (+1) into the cycle total: the
+// sum of (exit - entry) modulo 2^64, with no clock held across the loop
+__device__ __forceinline__ void cta_cycles(const Traversal& t, int sign) {
+  if (t.waits == nullptr || threadIdx.x != 0) return;
+  unsigned long long* total = t.waits + 4LL * (t.max_layers + 1);
+  const unsigned long long now = clock64();
+  atomicAdd(total, sign < 0 ? 0ull - now : now);
+  if (sign > 0) atomicAdd(total + 1, 1ull);
+}
+
+// Launch the traced instantiation where `t` carries a tracing buffer,
+// else the untraced one, on the untraced one's grid: the traced build
+// holds the same registers (the launch bounds) and shared memory, so
+// its CTAs are as co-resident (a grid that were not would fail the
+// launch, cudaErrorCooperativeLaunchTooLarge).
+template <class Kernel>
+int launch_traversal(Kernel plain, Kernel traced, const Traversal& t,
+                     int grid, size_t smem, void* stream, void** args) {
+  const bool on = t.stamps != nullptr || t.waits != nullptr;
+  return launch_cooperative(on ? traced : plain, grid, smem, stream, args);
+}
 
 // The start-up pass (kStart) or a layer's update pass over every root's
 // state, counting the next layer's counters into acc ((B, 4)).  A warp
@@ -182,7 +253,7 @@ __device__ void update_state(const G& g, const Traversal& t,
 // n_batch, rmask, begin, end) (the root masks of items [begin, end))
 // and walk(buf, p, n_batch, bottom_up, scalar, depth, smem).  buf.out
 // is unused: the update pass writes the frontier rows.
-template <class Layer>
+template <bool kTraced, class Layer>
 __device__ void traversal_loop(const Layer& L, const Traversal& t,
                                const UnionBuffers& buf, const Policy& pol,
                                int* smem) {
@@ -194,6 +265,12 @@ __device__ void traversal_loop(const Layer& L, const Traversal& t,
   const long long n_acc = (t.max_layers + 1LL) * n_batch * 4;
   const long long n_stats = static_cast<long long>(t.max_layers) * kStatCols;
   const bool unvisited = pol.kind == kBeamer;
+  const int startup = 4 * t.max_layers;    // the start-up barriers' waits
+  if constexpr (kTraced) {
+    cta_cycles(t, -1);
+    if (t.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+      t.stamps[0] = global_ns();
+  }
 
   // start-up: zero counters and outputs; copy the initial state into
   // both layouts and count layer 0
@@ -204,9 +281,9 @@ __device__ void traversal_loop(const Layer& L, const Traversal& t,
     if (i < n_batch) t.depths[i] = 0;
     if (i == 0) t.layers[0] = 0;
   }
-  grid.sync();
+  grid_barrier<kTraced>(grid, t, 1, startup);
   update_state<true>(g, t, buf, unvisited, false, t.acc);
-  grid.sync();
+  grid_barrier<kTraced>(grid, t, 2, startup + 1);
 
   int begin, end;
   chunk_of_cta(L.n_items(), &begin, &end);
@@ -230,18 +307,18 @@ __device__ void traversal_loop(const Layer& L, const Traversal& t,
     L.masks(is_bu ? t.visited : t.frontier, is_bu, n_batch, buf.rmask,
             begin, end);
     union_counts(buf.rmask, n_mask_words, n_batch, begin, end, buf.cnt);
-    grid.sync();
+    grid_barrier<kTraced>(grid, t, 3 + 4 * l, 4 * l);
     // 2. the union list, its count, each root's count
     union_write<true>(buf.rmask, buf.cnt, buf.ulist, buf.ucount, buf.na,
                       L.n_items(), n_batch);
-    grid.sync();
+    grid_barrier<kTraced>(grid, t, 4 + 4 * l, 4 * l + 1);
     // 3. one CTA per union item for every root of its mask
     L.walk(buf, t.p, n_batch, is_bu, mode == kModeScalar, t.depth, smem);
-    grid.sync();
+    grid_barrier<kTraced>(grid, t, 5 + 4 * l, 4 * l + 2);
     // 4. restoration, the new state in both layouts, next counters
     update_state<false>(g, t, buf, unvisited, l == 0,
                         t.acc + 4LL * n_batch * (l + 1));
-    grid.sync();
+    grid_barrier<kTraced>(grid, t, 6 + 4 * l, 4 * l + 3);
 
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       const unsigned long long* acc_n = acc_l + 4LL * n_batch;
@@ -265,6 +342,7 @@ __device__ void traversal_loop(const Layer& L, const Traversal& t,
       t.layers[0] = l + 1;
     }
   }
+  if constexpr (kTraced) cta_cycles(t, 1);
 }
 
 }  // namespace bfs

@@ -30,6 +30,11 @@ restore pass also counts the next layer's counters.  The plain versions
 walk each root's own list, layer by layer, on the host; both give the
 same state, depths and stats.  The Table 1 counters come from the
 padded degree array, which SELL keeps itself (it has no colstarts).
+Inside a traced call (`repro_torch.obs.trace.traced_call`) the CUDA
+wrappers give the kernel two small zeroed buffers, for which it runs
+its traced build (phase stamps and barrier waits), and hand the launch
+to `obs.trace.PHASES`; elsewhere they pass null pointers and the
+untraced build runs.  The outputs are the same either way.
 """
 from __future__ import annotations
 
@@ -166,6 +171,19 @@ def loop_buffers(code: PolicyCode, n_batch: int, max_layers: int, dev):
             torch.empty((max_layers, N_STATS), **i32), simd_layer)
 
 
+def _phase_buffers(max_layers: int, dev):
+    """The launch's (collector, stamps, waits) while a traced call
+    records (`repro_torch.obs.trace.PHASES`), else Nones."""
+    from repro_torch.obs.trace import PHASES
+    if not PHASES.on:
+        return None, None, None
+    return (PHASES, *PHASES.buffers(max_layers, dev))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def traversal_fused_grid(g: lf.FusedCsr, depth: int):
     """K6's co-resident grid and owner slots at ``depth`` (K5's
     shared memory)."""
@@ -202,6 +220,7 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
                                          grid, g.rows.device)
     acc, depths, layers, stats, simd_layer = loop_buffers(
         code, n_batch, max_layers, g.rows.device)
+    phases, stamps, waits = _phase_buffers(max_layers, g.rows.device)
     _build.check(_build.load().repro_traversal_fused(
         g.rows.data_ptr(), g.colstarts.data_ptr(), g.blk_lo.data_ptr(),
         g.blk_hi.data_ptr(), g.nz.data_ptr(), g.deg.data_ptr(),
@@ -209,10 +228,14 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
         f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), *ptrs[:4],
         na.data_ptr(), *ptrs[4:], acc.data_ptr(), depths.data_ptr(),
         layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
-        n_batch, g.n_blocks, g.tile, int(g.colstarts.shape[0]), n_words,
-        int(g.deg.shape[0]), g.n_vertices, depth, sub, int(max_layers),
-        code.kind, code.alpha, code.v_over_beta, code.threshold, grid,
-        _build.stream_of(parent)), "traversal_fused")
+        _ptr(stamps), _ptr(waits), n_batch, g.n_blocks, g.tile,
+        int(g.colstarts.shape[0]), n_words, int(g.deg.shape[0]),
+        g.n_vertices, depth, sub, int(max_layers), code.kind, code.alpha,
+        code.v_over_beta, code.threshold, grid, _build.stream_of(parent)),
+        "traversal_fused")
+    if phases is not None:
+        phases.add("traversal_fused", n_batch, grid, int(max_layers),
+                   stamps, waits, stats, layers)
     return f_out, v_out, p_out, depths, layers, stats
 
 
@@ -236,14 +259,18 @@ def sell_traversal_fused_cuda(g: se.SellGraph, frontier, visited, parent,
                                          grid, g.cols.device)
     acc, depths, layers, stats, simd_layer = loop_buffers(
         code, n_batch, max_layers, g.cols.device)
+    phases, stamps, waits = _phase_buffers(max_layers, g.cols.device)
     _build.check(_build.load().repro_sell_traversal_fused(
         g.cols.data_ptr(), g.slab_rows.data_ptr(), g.deg.data_ptr(),
         frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),
         f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), *ptrs[:4],
         na.data_ptr(), *ptrs[4:], acc.data_ptr(), depths.data_ptr(),
         layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
-        n_batch, g.n_steps, g.spp, g.n_words, int(g.deg.shape[0]),
-        g.n_vertices, depth, int(max_layers), code.kind, code.alpha,
-        code.v_over_beta, code.threshold, grid, _build.stream_of(parent)),
-        "sell_traversal_fused")
+        _ptr(stamps), _ptr(waits), n_batch, g.n_steps, g.spp, g.n_words,
+        int(g.deg.shape[0]), g.n_vertices, depth, int(max_layers),
+        code.kind, code.alpha, code.v_over_beta, code.threshold, grid,
+        _build.stream_of(parent)), "sell_traversal_fused")
+    if phases is not None:
+        phases.add("sell_traversal_fused", n_batch, grid, int(max_layers),
+                   stamps, waits, stats, layers)
     return f_out, v_out, p_out, depths, layers, stats

@@ -4,8 +4,10 @@ of ``repro.obs``).
 * `obs.trace`      — span tracer (traversal → layer → step nesting,
   wall clock + optional device sync) exporting Chrome trace-event
   JSON, the host-stepped instrumented traversal (`trace_run`) over the
-  plan's `layer_step`, and `torch_profiler`, which takes the place of
-  the reference's ``xla_profiler``.
+  plan's `layer_step`, `torch_profiler`, which takes the place of
+  the reference's ``xla_profiler``, and the main path's own tracing
+  while a profiler records (`traced_call`: the ``bfs.*`` ranges of a
+  call and the K6 / K10 phase stamps that `PHASES` keeps).
 * `obs.metrics`    — process-local counters/gauges/histograms with a
   JSON snapshot and Prometheus-style text exposition; the serve tier
   records latency, tick time, queue depth and slot occupancy through

@@ -15,8 +15,18 @@
   never from plain-torch counters on the card.
 * `torch_profiler` — ``torch.profiler`` around a block, writing a
   Chrome trace into a log directory.  The kernels show under their own
-  symbol names (``gather_expand_kernel``, ``restoration_kernel``, ...);
-  the wrappers carry no ``record_function`` ranges.
+  symbol names (``gather_expand_kernel``, ``restoration_kernel``, ...).
+* `traced_call`, `call_range` and `PHASES` — the main path's own
+  tracing, on exactly while a ``torch.profiler`` session records
+  (tested once a `CompiledTraversal.run` / ``run_batched`` call): the
+  call runs inside a ``bfs.run`` range with ``bfs.roots`` (root checks
+  and upload), ``bfs.init`` (the batch's initial state) and
+  ``bfs.launch`` (the whole-traversal wrapper's buffers and launch)
+  inside it, on the profiler's clock beside the kernels, and each K6 /
+  K10 launch writes phase stamps and barrier waits
+  (``kernels/csrc/traversal_loop.cuh``) into small device buffers that
+  `KernelPhases` keeps, unread, until the caller has synced
+  (`read_phases` decodes one launch on the host).
 
 The host-stepped loop pays one device sync per layer — the price of
 per-layer timing, and the reason `trace_run` is a separate entry point
@@ -24,9 +34,11 @@ instead of a flag on ``run``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Iterator, NamedTuple
@@ -44,12 +56,197 @@ STEP_SPAN = "bfs.layer_step"
 #: the whole-traversal persistent pipeline is ONE kernel launch (K6 on
 #: CSR, K10 on SELL) — there is no per-layer host boundary to time, so
 #: trace_run records ONE span of this name and recovers per-layer
-#: counters from the kernel's stats buffer
+#: counters from the kernel's stats buffer and, on the card, per-layer
+#: seconds from its phase stamps
 PERSISTENT_SPAN = "bfs.traversal.persistent"
 #: the semiring portfolio (sssp/cc/ksource_bfs) runs its own layer
 #: loop with its own carry, so trace_run records ONE span of this name
 #: and recovers per-layer counters from that loop's stats buffer
 SEMIRING_SPAN = "bfs.traversal.semiring"
+#: the per-call profiler ranges of `traced_call` and `call_range`
+RUN_RANGE = "bfs.run"
+ROOTS_RANGE = "bfs.roots"
+INIT_RANGE = "bfs.init"
+LAUNCH_RANGE = "bfs.launch"
+CALL_RANGES = (RUN_RANGE, ROOTS_RANGE, INIT_RANGE, LAUNCH_RANGE)
+#: the latest K6 / K10 launches `PHASES` keeps
+PHASES_CAP = 4096
+#: a layer's phases in the whole-traversal loop, each ended by a grid
+#: barrier
+LAYER_PHASES = ("plan", "union", "walk", "update")
+
+
+def stamp_count(max_layers: int) -> int:
+    """Stamps of a launch: entry, 2 start-up barriers, 4 a layer."""
+    return 3 + 4 * max_layers
+
+
+def wait_count(max_layers: int) -> int:
+    """Wait slots of a launch: 4 barriers for each layer and the
+    start-up, then the CTAs' summed cycles and their number."""
+    return 4 * (max_layers + 1) + 2
+
+
+class Launch(NamedTuple):
+    """One traced K6 / K10 launch, its tensors still on the device:
+    ``kernel`` is ``"traversal_fused"`` (K6) or
+    ``"sell_traversal_fused"`` (K10); ``stamps`` (`stamp_count`) and
+    ``waits`` (`wait_count`, uint64 bits in int64) are the kernel's
+    tracing buffers, ``stats`` (max_layers, 8) and ``layers`` (1,) its
+    outputs."""
+    kernel: str
+    n_batch: int
+    grid: int
+    max_layers: int
+    stamps: torch.Tensor
+    waits: torch.Tensor
+    stats: torch.Tensor
+    layers: torch.Tensor
+
+
+class Phases(NamedTuple):
+    """One launch read on the host (`read_phases`).  ``stamps_ns`` are
+    the stamps written (%globaltimer ns: entry, the 2 start-up barriers,
+    4 a layer); ``layer_ns[l]`` the layer's `LAYER_PHASES`, each from
+    the stamp before to the stamp after its barrier; ``wait_cycles``
+    (layers + 1, 4) every CTA's summed barrier waits, the last row the
+    start-up's; ``cta_cycles`` every CTA's entry-to-exit cycles, summed
+    over ``ctas`` CTAs; ``modes`` the layers' stats column 3."""
+    kernel: str
+    n_batch: int
+    grid: int
+    stamps_ns: np.ndarray
+    layer_ns: np.ndarray
+    wait_cycles: np.ndarray
+    cta_cycles: int
+    ctas: int
+    modes: np.ndarray
+
+    @property
+    def layers(self) -> int:
+        return len(self.layer_ns)
+
+    @property
+    def startup_ns(self) -> int:
+        """Entry to the stamp after the second start-up barrier."""
+        return int(self.stamps_ns[2] - self.stamps_ns[0])
+
+    @property
+    def span_ns(self) -> int:
+        """Entry to the last stamp."""
+        return int(self.stamps_ns[-1] - self.stamps_ns[0])
+
+    @property
+    def walk_ns(self) -> int:
+        return int(self.layer_ns[:, LAYER_PHASES.index("walk")].sum())
+
+    @property
+    def wait_total(self) -> int:
+        """Every CTA's waits at every barrier, in cycles."""
+        return int(self.wait_cycles.sum())
+
+    def layer_seconds(self) -> list[float]:
+        """Each layer from the stamp after the previous layer's last
+        barrier (the start-up's for layer 0) to the stamp after its
+        own."""
+        return [float(ns) / 1e9 for ns in self.layer_ns.sum(axis=1)]
+
+
+def read_phases(launch: Launch) -> Phases:
+    """Copy one launch's buffers to the host and decode them (after the
+    caller's sync)."""
+    layers = int(launch.layers.cpu()[0])
+    stamps = launch.stamps.cpu().numpy()[:stamp_count(layers)]
+    waits = launch.waits.cpu().numpy().view(np.uint64)
+    m = launch.max_layers
+    wait_cycles = np.concatenate(
+        [waits[:4 * layers].reshape(layers, 4), waits[4 * m:4 * m + 4][None]])
+    return Phases(launch.kernel, launch.n_batch, launch.grid, stamps,
+                  np.diff(stamps[2:]).reshape(layers, 4), wait_cycles,
+                  int(waits[4 * (m + 1)]), int(waits[4 * (m + 1) + 1]),
+                  launch.stats[:layers, 3].cpu().numpy())
+
+
+def align_us(phases: Phases, event_ts_us: float) -> np.ndarray:
+    """The stamps on a profiler trace's clock (µs): the entry stamp at
+    the launch's kernel event ``ts``, the others at their offsets."""
+    return event_ts_us + (phases.stamps_ns - phases.stamps_ns[0]) / 1e3
+
+
+class KernelPhases:
+    """The latest `PHASES_CAP` traced K6 / K10 launches, in launch
+    order.  The wrappers record a launch while `on` (inside a traced
+    call or `recording`): `buffers` gives its zeroed device buffers and
+    `add` keeps them with its outputs; nothing is copied to the host.
+    ``added`` counts every launch ever added."""
+
+    def __init__(self, cap: int = PHASES_CAP):
+        self.launches: collections.deque[Launch] = collections.deque(
+            maxlen=cap)
+        self.added = 0
+        self._local = threading.local()
+        self._lock = threading.Lock()
+
+    @property
+    def on(self) -> bool:
+        return getattr(self._local, "on", False)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record this thread's K6 / K10 launches inside the block."""
+        prev = self.on
+        self._local.on = True
+        try:
+            yield self
+        finally:
+            self._local.on = prev
+
+    @staticmethod
+    def buffers(max_layers: int, device) -> tuple:
+        """Zeroed (stamps, waits) for one launch, one allocation."""
+        n = stamp_count(max_layers)
+        buf = torch.zeros((n + wait_count(max_layers),), dtype=torch.int64,
+                          device=device)
+        return buf[:n], buf[n:]
+
+    def add(self, kernel: str, n_batch: int, grid: int, max_layers: int,
+            stamps, waits, stats, layers) -> None:
+        with self._lock:
+            self.launches.append(Launch(kernel, n_batch, grid, max_layers,
+                                        stamps, waits, stats, layers))
+            self.added += 1
+
+    def last(self, kernel: str, n: int) -> list[Launch]:
+        """The latest ``n`` launches of ``kernel`` kept (fewer where
+        fewer were)."""
+        if n <= 0:
+            return []
+        with self._lock:
+            kept = list(self.launches)
+        return [x for x in kept if x.kernel == kernel][-n:]
+
+
+PHASES = KernelPhases()
+
+
+def traced_call(fn, *args):
+    """``fn(*args)`` as one `CompiledTraversal.run` / ``run_batched``
+    call: while a ``torch.profiler`` session records (the one test a
+    call makes), inside a `RUN_RANGE` range with its K6 / K10 launches
+    recorded into `PHASES`; else the bare call."""
+    if not torch._C._autograd._profiler_enabled():
+        return fn(*args)
+    from torch.profiler import record_function
+    with PHASES.recording(), record_function(RUN_RANGE):
+        return fn(*args)
+
+
+def call_range(name: str):
+    """A profiler range ``name`` inside a traced call, else nothing."""
+    if not PHASES.on:
+        return contextlib.nullcontext()
+    from torch.profiler import record_function
+    return record_function(name)
 
 
 @dataclass
@@ -190,15 +387,25 @@ def _one_span(ct, roots_b, tracer, profile_logdir, name: str, top_args,
               layer_args):
     """The one-span branches (persistent, semiring): one run, counters
     from its stats buffer (``layer_args(stats)`` adds the span's own
-    args), the span's seconds amortized over the recovered layers."""
+    args).  The run records its K6 / K10 launch, and where one ran (a
+    persistent plan on the card) each layer's seconds are its stamped
+    ones; elsewhere (the plain versions on the CPU, a degraded or
+    semiring run) the span's seconds are split evenly over the layers,
+    which is no measurement."""
+    added = PHASES.added
     with torch_profiler(profile_logdir), \
             tracer.span(name, **top_args) as top:
-        res = ct.run_batched(roots_b)
+        with PHASES.recording():
+            res = ct.run_batched(roots_b)
         tracer.device_sync(res.state.parent, res.stats)
         stats = _engine.layer_stats(res)
         top.args["n_layers"] = len(stats)
         top.args["launches"] = sum(s.launches for s in stats)
         top.args.update(layer_args(stats))
+    if PHASES.added > added:
+        seconds = read_phases(PHASES.launches[-1]).layer_seconds()
+        if len(seconds) == len(stats):
+            return res, stats, seconds
     per_layer_s = (top.dur_us / 1e6) / max(len(stats), 1)
     return res, stats, [per_layer_s] * len(stats)
 
