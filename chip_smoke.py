@@ -59,6 +59,13 @@ Drives ``repro_torch`` only (never ``jax``, never ``repro``):
    initial state (frontier, visited, depths, layers, stats bitwise, P
    restored where the plain version's is), timed at 4 and 8 CTAs per
    SM in turns, its grid and state layout printed;
+5a. K6's bottom-up walk (`phase_bottom_up_walk`, SCALE 16 with two hub
+   components whose lists span at least 3 rows-blocks, one never
+   reached by most roots): K6 under BeamerHybrid at 1, 8 and 40 roots,
+   depths 0 and 1, against its plain version as in phase 5, and each
+   bottom-up layer's neighbour entries tested over the slots walked
+   from one traced launch (``bottom_up_walk_b<B>`` lines); alone:
+   ``python3 -c "import chip_smoke as c; c.phase_bottom_up_walk(0)"``;
 5b. SELL-C-σ at the same size: the autotuner must pick ``sell`` for the
    graph; ``formats.build(g, "auto")`` builds the layout on the card
    (slabs, fill, bytes, build seconds and peak memory printed); the
@@ -1395,6 +1402,95 @@ def phase_traversal_kernel(kind: str, ct, roots, layers, reps: int):
                                             grids.items()},
                     "layout": TRAVERSAL_LAYOUT}))
     return res
+
+
+def bottom_up_graph(scale: int, seed: int, tile: int, device: str):
+    """An R-MAT graph at ``scale`` with two hub components appended,
+    symmetrized: hub ``h`` (3 ``tile`` + 8 leaves, its list spanning at
+    least 3 rows-blocks) reached from the R-MAT hub by a path of 3
+    vertices, the last of which ends ``h``'s list; hub ``h2`` with as
+    many leaves and no edge to the rest, so that every root outside it
+    leaves ``h2`` and its leaves unvisited with no frontier neighbour in
+    each bottom-up layer.  Returns (graph, R-MAT hub, a leaf of h2,
+    h, h2)."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core import rmat
+    base = rmat.generate(seed, scale, 16, symmetrize=False, device=device)
+    n0 = base.n_vertices
+    deg = torch.bincount(torch.cat([base.src, base.dst]).long(),
+                         minlength=n0)
+    g0 = int(torch.argmax(deg))
+    leaves = 3 * tile + 8
+    h = n0                                   # its leaves h + 1 .. h + leaves
+    x1, x2, x3 = h + leaves + 1, h + leaves + 2, h + leaves + 3
+    h2 = x3 + 1                              # its leaves after it
+    n = h2 + leaves + 1
+    src = [g0, x1, x2, x3] + [h] * leaves + [h2] * leaves
+    dst = [x1, x2, x3, h] + list(range(h + 1, h + 1 + leaves)) \
+        + list(range(h2 + 1, h2 + 1 + leaves))
+    add_s = torch.tensor(src, dtype=torch.int32, device=device)
+    add_d = torch.tensor(dst, dtype=torch.int32, device=device)
+    s = torch.cat([base.src, add_s])
+    d = torch.cat([base.dst, add_d])
+    edges = rmat.EdgeList(torch.cat([s, d]), torch.cat([d, s]), n)
+    return csr_mod.from_edges(edges, device=device), g0, h2 + 1, h, h2
+
+
+def phase_bottom_up_walk(seed: int = 0) -> None:
+    """Phase 5a: K6's bottom-up walk (vertex by vertex, each root's break
+    at its first frontier parent) against K6's plain version
+    (`traversal_gate`) under BeamerHybrid at B = 1, 8 and 40 (two
+    root-mask words), depths 0 and 1, on `bottom_up_graph` at SCALE 16,
+    tile 256: the batch must run bottom-up layers, its last root sits in
+    ``h2``'s component, and ``h2`` stays unvisited for the others; then
+    one traced launch of each batch (outputs as untraced) prints each
+    bottom-up layer's neighbour entries tested over the slots walked."""
+    import torch
+    import repro_torch.bfs as bfs
+    from repro_torch.kernels.traversal_fused import MODE_BOTTOMUP
+    from repro_torch.obs.trace import PHASES, read_phases
+    tile = 256
+    g, g0, leaf2, h, h2 = bottom_up_graph(16, seed, tile, "cuda")
+    cs = g.colstarts.cpu()
+    for v in (h, h2):
+        first, last = int(cs[v]) // tile, (int(cs[v + 1]) - 1) // tile
+        assert last - first + 1 >= 3, (v, first, last)
+    ct = bfs.plan(g, bfs.TraversalSpec(policy=bfs.BeamerHybrid(),
+                                       pipeline="persistent", tile=tile))
+    giant = [int(g.rows[int(cs[g0])])] + [
+        r for r in pick_roots(g, 64, seed + 5) if r < h and r != g0]
+    for n_batch in (1, 8, 40):
+        roots = giant[:1] if n_batch == 1 \
+            else giant[:n_batch - 1] + [leaf2]
+        assert len(roots) == n_batch
+        name, cuda, plain, _, graph, state, kw = traversal_case(
+            "csr", ct.fmt, ct.resolved, roots)
+        want = plain(graph, *state, **kw)
+        modes = want[5][:int(want[4][0]), 3].tolist()
+        assert MODE_BOTTOMUP in modes, modes
+        vis = want[1].cpu()
+        for b in range(n_batch - (n_batch > 1)):
+            assert not (int(vis[b, h2 >> 5]) >> (h2 & 31)) & 1
+        for depth in (0, 1):
+            traversal_gate(f"{name}_bottom_up_b{n_batch}", cuda, graph,
+                           state, kw, want, depth)
+        with PHASES.recording():
+            got = cuda(graph, *state, **kw, prefetch_depth=1)
+        torch.cuda.synchronize()
+        for i in (0, 1, 3, 4, 5):
+            assert torch.equal(got[i], want[i]), (n_batch, i)
+        p = read_phases(PHASES.launches[-1])
+        walked = [(l, int(p.walked[l, 0]), int(p.walked[l, 1]))
+                  for l in range(p.layers) if p.modes[l] == MODE_BOTTOMUP]
+        assert walked and all(s > 0 and 0 < e for _, e, s in walked), walked
+        assert all(e == 0 and s == 0 for (l, (e, s)) in
+                   enumerate(p.walked.tolist())
+                   if p.modes[l] != MODE_BOTTOMUP), p.walked
+        log(f"bottom_up_walk_b{n_batch}: K6 at depths [0, 1] equals its "
+            f"plain version (modes {modes}); examined / slots by "
+            f"bottom-up layer "
+            f"{[(l, e, s, round(e / s, 4)) for l, e, s in walked]}")
 
 
 def wide_traversal_gates(g, sell, roots, label: str) -> None:
@@ -5537,6 +5633,9 @@ def run_phases(args) -> int:
         del ct_path
     del fused_layers
     launches.update(path_launches)
+
+    # 5a. K6's bottom-up walk on hub lists that span rows-blocks
+    phase_bottom_up_walk(args.seed)
 
     # 5b. SELL-C-σ at the main path's size
     sell_kres, sell_launches = phase_sell(g, roots, res,

@@ -48,7 +48,7 @@ SIGNATURES = {
     "repro_layer_fused_grid": (_I,) * 4 + (_P,),
     "repro_layer_fused": (_P,) * 17 + (_I,) * 11 + (_P,),
     "repro_traversal_fused_grid": (_I,) * 4 + (_P,),
-    "repro_traversal_fused": (_P,) * 27 + (_I,) * 11 + (_F,) * 3
+    "repro_traversal_fused": (_P,) * 28 + (_I,) * 11 + (_F,) * 3
     + (_I, _P),
     "repro_sell_expand": (_P,) * 9 + (_I,) * 8 + (_P,),
     "repro_sell_layer_fused_grid": (_I,) * 3 + (_P,),

@@ -45,8 +45,10 @@ struct SellLayer {
     bfs::union_masks_sell<false, true>(g, words, complement, n_batch,
                                        nullptr, rmask, begin, end);
   }
+  template <bool kTraced>
   __device__ void walk(const bfs::UnionBuffers& buf, int* p, int n_batch,
-                       bool bottom_up, bool, int depth, int* ring) const {
+                       bool bottom_up, bool, int depth, int* ring,
+                       unsigned long long*) const {
     bfs::walk_sell(g, buf, p, n_batch, bottom_up, depth, ring);
   }
 };

@@ -11,13 +11,21 @@
 // What it computes: the engine's layer loop over a root batch
 // (traversal_loop.cuh) whose layers are K5's phases (union_phases.cuh):
 // the union of the roots' rows-block lists planned in the launch
-// (`union_masks_csr` on `covered`, `union_write`), one CTA per union
-// block for every root of its mask (`walk_csr`: the block's rows read
-// once, from a cp.async ring at depth > 0, its owners found once by a
-// shared-memory scan of colstarts, then K3's racy expand per root), and
-// at the layer's end restoration with the next layer's counters in one
-// pass.  A scalar-mode layer tests the pre-layer visited only
-// (`_gather_tile_dyn`; `expand_roots`' scalar arm).
+// (`union_masks_csr` on `covered`, `union_write`), the union's blocks
+// walked for every root of their masks, and at the layer's end
+// restoration with the next layer's counters in one pass.  Top-down and
+// scalar layers walk slot by slot, a CTA per block (`walk_csr`: the
+// block's rows read once, from a cp.async ring at depth > 0, its owners
+// found once by a shared-memory scan of colstarts, then K3's racy expand
+// per root); a scalar-mode layer tests the pre-layer visited only
+// (`_gather_tile_dyn`; `expand_roots`' scalar arm).  Bottom-up layers
+// walk vertex by vertex, a warp per block (`walk_csr_bottom_up`): each
+// vertex whose list starts in the block is scanned by a lane or a group
+// of lanes until every root it is unvisited for has its first frontier
+// parent, so most of a block's rows are never read.  The two directions
+// want opposite shapes (top-down tests every edge of a frontier vertex;
+// bottom-up stops early), and the layer's direction, which the kernel
+// decides from its counters, picks the walk.
 //
 // The TPU kernel keeps the state in VMEM across layers; here it lives in
 // device memory (and mostly L2), in rows for the planning and
@@ -38,7 +46,7 @@
 
 namespace {
 
-// K5's planning and walk as the loop's layer.
+// K5's planning and walks as the loop's layer.
 struct CsrLayer {
   bfs::FusedGraph g;
   int sub;               // owner slots per scan
@@ -49,12 +57,22 @@ struct CsrLayer {
     bfs::union_masks_csr<false>(g, words, complement, n_batch, nullptr,
                                 rmask, begin, end);
   }
+  // Top-down and scalar layers walk slot by slot (`walk_csr`);
+  // bottom-up ones vertex by vertex with each root's early exit
+  // (`walk_csr_bottom_up`), which leaves the ring and the owner slots
+  // idle and keeps its warps' records there.
+  template <bool kTraced>
   __device__ void walk(const bfs::UnionBuffers& buf, int* p, int n_batch,
-                       bool bottom_up, bool scalar, int depth,
-                       int* smem) const {
-    int* own = smem + (depth > 0 ? (depth + 1) * g.tile : 0);
-    bfs::walk_csr<true>(g, buf, p, n_batch, bottom_up, depth, sub, smem,
-                        own, scalar);
+                       bool bottom_up, bool scalar, int depth, int* smem,
+                       unsigned long long* walked) const {
+    const int ring = depth > 0 ? (depth + 1) * g.tile : 0;
+    if (bottom_up) {
+      bfs::walk_csr_bottom_up<kTraced>(g, buf, p, n_batch, smem, ring + sub,
+                                       walked);
+      return;
+    }
+    bfs::walk_csr<true>(g, buf, p, n_batch, false, depth, sub, smem,
+                        smem + ring, scalar);
   }
 };
 
@@ -94,9 +112,11 @@ extern "C" int repro_traversal_fused_grid(int depth, int tile, int sub,
 // ulist (n_blocks,), ucount (1,), cnt (B + 1, grid), na (B,), fi, vi, oi
 // ((n_words, B) each) and acc ((max_layers + 1) * B * 4 uint64) are
 // scratch.  simd_layer: (max_layers,) int32 (PaperLiteralLayers only;
-// may be null for other kinds).  stamps ((3 + 4 max_layers) int64) and
-// waits ((4 (max_layers + 1) + 2) uint64, zeroed) are the phase tracing
-// of traversal_loop.cuh: the traced kernel runs where either is set.
+// may be null for other kinds).  stamps ((3 + 4 max_layers) int64),
+// waits ((4 (max_layers + 1) + 2) uint64, zeroed) and walked
+// ((2 max_layers) uint64, zeroed: each bottom-up layer's neighbour
+// entries tested and slots walked) are the tracing of
+// traversal_loop.cuh: the traced kernel runs where any is set.
 // `grid` must come from repro_traversal_fused_grid with the same depth,
 // tile and sub.
 extern "C" int repro_traversal_fused(
@@ -105,7 +125,8 @@ extern "C" int repro_traversal_fused(
     const void* p0, void* frontier, void* visited, void* p, void* rmask,
     void* ulist, void* ucount, void* cnt, void* na, void* fi, void* vi,
     void* oi, void* acc, void* depths, void* layers, void* stats,
-    const void* simd_layer, void* stamps, void* waits, int n_batch,
+    const void* simd_layer, void* stamps, void* waits, void* walked,
+    int n_batch,
     int n_blocks, int tile, int n_cs, int n_words, int v_pad, int n_vertices,
     int depth, int sub, int max_layers, int kind, float alpha,
     float v_over_beta, float threshold, int grid, void* stream) {
@@ -129,7 +150,8 @@ extern "C" int repro_traversal_fused(
                    static_cast<int*>(stats),
                    static_cast<long long*>(stamps),
                    static_cast<unsigned long long*>(waits),
-                   n_batch, max_layers, depth};
+                   n_batch, max_layers, depth,
+                   static_cast<unsigned long long*>(walked)};
   bfs::UnionBuffers buf{
       nullptr,                     static_cast<unsigned*>(rmask),
       static_cast<int*>(ulist),    static_cast<int*>(ucount),

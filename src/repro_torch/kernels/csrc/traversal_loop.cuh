@@ -18,7 +18,8 @@
 //   2.       the ascending union of the batch's lists, its count and
 //            each root's n_active (`union_write`);
 //   3. walk  one CTA per union item for every root of its mask
-//            (`Layer::walk`: `walk_csr` or `walk_sell`), on the
+//            (`Layer::walk`: `walk_csr`, or on K6's bottom-up layers
+//            `walk_csr_bottom_up`, or `walk_sell`), on the
 //            root-interleaved state;
 //   4. update restore P, frontier = out | delta, visited |= frontier,
 //            the interleaved out zeroed, and the next layer's counters,
@@ -34,11 +35,11 @@
 // barrier and decides the same direction, so the loop needs no
 // broadcast and ends in step.
 //
-// Phase tracing (`Traversal::stamps` and `waits`).  The kernels are
-// built twice, untraced and traced (`kTraced`), and `launch_traversal`
-// launches the traced one where either buffer is set, so the untraced
-// loop carries no line of tracing; the traced one writes each buffer
-// that is set and changes no output.  stamps, int64 %globaltimer ns
+// Phase tracing (`Traversal::stamps`, `waits` and `walked`).  The
+// kernels are built twice, untraced and traced (`kTraced`), and
+// `launch_traversal` launches the traced one where any is set, so the
+// untraced loop carries no line of tracing; the traced one writes each
+// buffer that is set and changes no output.  stamps, int64 %globaltimer ns
 // written by CTA 0's thread 0: [0] at entry, [1], [2] after the start-up
 // barriers, [3 + 4 l + k] after barrier k of layer l; as every CTA has
 // arrived when CTA 0 leaves a barrier, consecutive stamps bound a phase
@@ -47,7 +48,9 @@
 // layer l (from its `__syncthreads` before the barrier to its exit),
 // [4 max_layers + k] the start-up barriers', then [4 (max_layers + 1)]
 // every CTA's entry-to-exit cycles and [4 (max_layers + 1) + 1] the
-// CTAs that exited.
+// CTAs that exited.  walked (K6 only), uint64: [2 l] the neighbour
+// entries layer l's bottom-up walk tested, [2 l + 1] the slots of the
+// blocks it walked (`walk_csr_bottom_up`; 0 on other layers).
 //
 // State across layers.  The planning reads each root's words in rows,
 // (B, n_words); the walk reads them root-interleaved, (n_words, B), so
@@ -88,6 +91,8 @@ struct Traversal {
   long long* stamps;         // (3 + 4 max_layers) or null: phase stamps
   unsigned long long* waits; // (4 (max_layers + 1) + 2) or null
   int n_batch, max_layers, depth;
+  unsigned long long* walked = nullptr;  // (2 max_layers) or null: K6's
+                                         // bottom-up examined, slots
 };
 
 __device__ __forceinline__ long long global_ns() {
@@ -140,7 +145,8 @@ __device__ __forceinline__ void cta_cycles(const Traversal& t, int sign) {
 template <class Kernel>
 int launch_traversal(Kernel plain, Kernel traced, const Traversal& t,
                      int grid, size_t smem, void* stream, void** args) {
-  const bool on = t.stamps != nullptr || t.waits != nullptr;
+  const bool on =
+      t.stamps != nullptr || t.waits != nullptr || t.walked != nullptr;
   return launch_cooperative(on ? traced : plain, grid, smem, stream, args);
 }
 
@@ -251,8 +257,10 @@ __device__ void update_state(const G& g, const Traversal& t,
 // The whole loop; every CTA calls it.  Layer provides `g` (deg,
 // n_words, v_pad, n_vertices), n_items(), masks(words, complement,
 // n_batch, rmask, begin, end) (the root masks of items [begin, end))
-// and walk(buf, p, n_batch, bottom_up, scalar, depth, smem).  buf.out
-// is unused: the update pass writes the frontier rows.
+// and walk<kTraced>(buf, p, n_batch, bottom_up, scalar, depth, smem,
+// walked) (walked: the layer's slots of `Traversal::walked`, null in
+// the untraced loop).  buf.out is unused: the update pass writes the
+// frontier rows.
 template <bool kTraced, class Layer>
 __device__ void traversal_loop(const Layer& L, const Traversal& t,
                                const UnionBuffers& buf, const Policy& pol,
@@ -313,7 +321,9 @@ __device__ void traversal_loop(const Layer& L, const Traversal& t,
                       L.n_items(), n_batch);
     grid_barrier<kTraced>(grid, t, 4 + 4 * l, 4 * l + 1);
     // 3. one CTA per union item for every root of its mask
-    L.walk(buf, t.p, n_batch, is_bu, mode == kModeScalar, t.depth, smem);
+    L.template walk<kTraced>(
+        buf, t.p, n_batch, is_bu, mode == kModeScalar, t.depth, smem,
+        kTraced && t.walked != nullptr ? t.walked + 2LL * l : nullptr);
     grid_barrier<kTraced>(grid, t, 5 + 4 * l, 4 * l + 2);
     // 4. restoration, the new state in both layouts, next counters
     update_state<false>(g, t, buf, unvisited, l == 0,

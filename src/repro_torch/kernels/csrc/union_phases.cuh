@@ -30,6 +30,10 @@
 // * walk_csr (K5, K6): per slot of a rows-block, with its owner from
 //   the block's shared-memory owner scan (`owners_by_scan`), K3's
 //   `expand_roots` for each root of the mask (bfs_common.cuh).
+// * walk_csr_bottom_up (K6's bottom-up layers): per vertex whose list
+//   starts in a listed rows-block (or piece of a long list), a group of
+//   lanes scans its neighbours until each pending root has its first
+//   frontier parent (the per-root break).
 // * sweep_sell over sell_group_union (K8 over the planner's list,
 //   `walk_sell` for K9 and K10 over the list of their launch): per lane
 //   of a slab group, its row and 8 neighbours read once; the roots of
@@ -345,6 +349,247 @@ __device__ __forceinline__ void walk_csr(const FusedGraph& g,
           if (s0 + sub < g.tile) __syncthreads();   // own is rewritten
         }
       });
+}
+
+// K6's bottom-up walk, vertex-major: each root of a vertex stops at the
+// vertex's first frontier neighbour (Beamer's early exit), which the
+// slot walk above cannot do, since the slots of one vertex test the
+// racy `out` in lockstep.  The planning is K5's, unchanged.
+//
+// Units.  A listed rows-block hands out the vertices whose first slot
+// lies in it, each scanned over its whole list (which may run past the
+// block's end), and, of a vertex of degree above kBuPiece, the pieces
+// of kBuPiece slots that start in it (from the vertex's first slot), so
+// that a hub's list is spread over groups and warps and no group holds
+// the grid at the barrier.  Every listed block's owner range holds each
+// vertex it has slots of (`covered`), so an unvisited vertex of degree
+// > 0 is listed for its roots in every block its list spans: each slot
+// is scanned once.  A unit keeps the roots of the block's mask for
+// which the vertex is unvisited (the pieces of a long list also drop
+// those another piece has already found).
+//
+// Work.  Each warp takes its own listed blocks (no CTA barrier in the
+// walk, so a long unit holds one warp, not the CTA): its lanes read the
+// owner range a vertex each, up to 32 at a time.  A lane scans a list
+// of at most kBuShort neighbours alone, its ids loaded at once, testing
+// them in order until no root is pending (most vertices of a skewed
+// graph have such lists, and a group would leave most of its lanes
+// idle on them); the other units' counts, first slots and pending roots
+// go to the warp's slice of shared memory, and its groups of kBuLanes
+// lanes take them in turn.
+//
+// Scan.  A group tests kBuLanes neighbours a step: each lane loads its
+// neighbour's words of the pending roots (one sector of the
+// interleaved state at B <= 8, two 16-byte loads), a prefix OR over
+// the group gives each root found to its first lane in list order,
+// which writes the negative P mark and the root's `out` bit
+// (`atomicOr`, so every mark has its bit, as `update_state`'s
+// restoration needs), and the group drops the roots found; the unit
+// ends when no root is pending or its list is done.  The next step's
+// neighbour ids are loaded a step ahead, and a unit's first ones are
+// prefetched into L2 when the unit is found.
+//
+// walked (kTraced only, may be null): [0] += the neighbour entries
+// tested, [1] += the slots of the listed blocks walked (padding left
+// out), the walk's examined share.
+constexpr int kBuLanes = 8;
+constexpr int kBuPiece = 128;
+constexpr int kBuShort = 4;
+
+// Bit `bit` of each word at[j] for the roots j of `want` (j < nb), as a
+// root set; vec4 (B a multiple of 4, the state 16-byte aligned) reads 8
+// roots' words by two 16-byte loads at once.
+__device__ __forceinline__ unsigned root_bits(const unsigned* at,
+                                              unsigned want, int nb,
+                                              bool vec4, int bit) {
+  unsigned got = 0u;
+  if (vec4) {
+    for (int j0 = 0; j0 < nb; j0 += 8) {
+      const unsigned w8 = (want >> j0) & 0xffu;
+      if (!w8) continue;
+      uint4 a = make_uint4(0u, 0u, 0u, 0u), c = a;
+      if (w8 & 0xfu) a = *reinterpret_cast<const uint4*>(at + j0);
+      if (w8 >> 4) c = *reinterpret_cast<const uint4*>(at + j0 + 4);
+      const unsigned m = ((a.x >> bit) & 1u) | ((a.y >> bit) & 1u) << 1 |
+                         ((a.z >> bit) & 1u) << 2 | ((a.w >> bit) & 1u) << 3 |
+                         ((c.x >> bit) & 1u) << 4 | ((c.y >> bit) & 1u) << 5 |
+                         ((c.z >> bit) & 1u) << 6 | ((c.w >> bit) & 1u) << 7;
+      got |= m << j0;
+    }
+    return got & want;
+  }
+  for (unsigned m = want; m; m &= m - 1) {
+    const int j = __ffs(m) - 1;
+    got |= ((ld_walk<false>(at + j) >> bit) & 1u) << j;
+  }
+  return got;
+}
+
+// K6's bottom-up walk over the union written earlier in the launch, a
+// warp per listed block; `smem` (`n_ints` ints, K6's dynamic shared
+// memory, whose ring and owner slots the walk does not use) holds each
+// warp's records of up to 32 vertices (4 ints each).
+template <bool kTraced>
+__device__ __forceinline__ void walk_csr_bottom_up(
+    const FusedGraph& g, const UnionBuffers& buf, int* p, int n_batch,
+    int* smem, int n_ints, unsigned long long* walked) {
+  const int n_mask_words = (n_batch + 31) >> 5;
+  const long long B = n_batch;
+  const int count = __ldcg(buf.ucount);
+  const int n_edges = __ldg(g.cs + g.n_cs - 1);
+  const bool vec4 =
+      (n_batch & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(buf.fi) |
+        reinterpret_cast<uintptr_t>(buf.vi) |
+        reinterpret_cast<uintptr_t>(buf.oi)) & 15) == 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane & (kBuLanes - 1), grp = lane / kBuLanes;
+  const unsigned gmask = (0xffffffffu >> (32 - kBuLanes))
+                         << (lane & ~(kBuLanes - 1));
+  // this warp's records: vertex, first unit's slot, pending roots and
+  // the exclusive prefix of the unit counts
+  const int chunk = min(32, n_ints / (4 * kWarps));
+  int* rec_u = smem + warp * 4 * chunk;
+  int* rec_s = rec_u + chunk;
+  unsigned* rec_p = reinterpret_cast<unsigned*>(rec_s + chunk);
+  int* rec_off = rec_s + 2 * chunk;
+  unsigned long long examined = 0, slots = 0;
+  for (int t = blockIdx.x * kWarps + warp; t < count;
+       t += gridDim.x * kWarps) {
+    const int blk = buf.ulist[t];
+    const int b0 = blk * g.tile, b1 = b0 + g.tile;
+    const int lo = __ldg(g.blk_lo + blk);
+    const int hi = min(__ldg(g.blk_hi + blk), g.n_vertices - 1);
+    if constexpr (kTraced)
+      if (lane == 0) slots += max(0, min(g.tile, n_edges - b0));
+    for (int k = 0; k < n_mask_words; ++k) {
+      const unsigned mask = ld_walk<false>(
+          buf.rmask + static_cast<long long>(blk) * n_mask_words + k);
+      if (!mask) continue;
+      const int nb = min(32, n_batch - 32 * k);
+      for (int u0 = lo; u0 <= hi; u0 += chunk) {
+        // a lane per vertex: its units that start in the block
+        const int u = u0 + lane;
+        int n = 0, s = 0;
+        unsigned pending = 0u;
+        if (lane < chunk && u <= hi) {
+          const int c0 = __ldg(g.cs + u), c1 = __ldg(g.cs + u + 1);
+          const int d = c1 - c0;
+          s = c0;
+          if (d > kBuPiece && s < b0)
+            s += (b0 - c0 + kBuPiece - 1) / kBuPiece * kBuPiece;
+          if (d > 0 && s >= b0 && s < b1 && s < c1) {
+            const long long uw = (u >> 5) * B + 32 * k;
+            pending = mask & ~root_bits(buf.vi + uw, mask, nb, vec4, u & 31);
+            if (pending && d > kBuPiece)
+              pending &= ~root_bits(buf.oi + uw, pending, nb, vec4, u & 31);
+            if (pending && d <= kBuShort) {
+              // a short list: this lane scans it alone, its ids first
+              int nbr[kBuShort];
+#pragma unroll
+              for (int j = 0; j < kBuShort; ++j)
+                nbr[j] = j < d ? __ldg(g.rows + c0 + j) : -1;
+#pragma unroll
+              for (int j = 0; j < kBuShort; ++j) {
+                if (nbr[j] < 0 || !pending) continue;
+                const int v = nbr[j];
+                const unsigned hit = root_bits(
+                    buf.fi + (v >> 5) * B + 32 * k, pending, nb, vec4,
+                    v & 31);
+                if constexpr (kTraced) ++examined;
+                for (unsigned m = hit; m; m &= m - 1) {
+                  const int r = __ffs(m) - 1;
+                  p[static_cast<long long>(32 * k + r) * g.v_pad + u] =
+                      v - g.n_vertices;
+                  atomicOr(buf.oi + uw + r, 1u << (u & 31));
+                }
+                pending &= ~hit;
+              }
+            } else if (pending) {
+              n = d > kBuPiece
+                      ? (min(b1, c1) - s + kBuPiece - 1) / kBuPiece
+                      : 1;
+              asm volatile("prefetch.global.L2 [%0];" ::"l"(g.rows + s));
+            }
+          }
+        }
+        int incl = n;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
+        }
+        const int total = __shfl_sync(0xffffffffu, incl, 31);
+        if (!total) continue;
+        if (lane < chunk) {
+          rec_u[lane] = u;
+          rec_s[lane] = s;
+          rec_p[lane] = pending;
+          rec_off[lane] = incl - n;
+        }
+        __syncwarp();
+        for (int i = grp; i < total; i += 32 / kBuLanes) {
+          // the record that holds unit i: the last whose offset <= i
+          int r = 0;
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1)
+            if (r + step < chunk && rec_off[r + step] <= i) r += step;
+          const int uu = rec_u[r];
+          int e0 = rec_s[r] + (i - rec_off[r]) * kBuPiece;
+          unsigned left = rec_p[r];
+          const int end = min(e0 + kBuPiece, __ldg(g.cs + uu + 1));
+          const long long uw = (uu >> 5) * B + 32 * k;
+          const unsigned ubit = 1u << (uu & 31);
+          int v_next = e0 + q < end ? __ldg(g.rows + e0 + q) : -1;
+          for (; left && e0 < end; e0 += kBuLanes) {
+            const int v = v_next;
+            v_next = e0 + kBuLanes + q < end
+                         ? __ldg(g.rows + e0 + kBuLanes + q)
+                         : -1;
+            unsigned hit = 0u;
+            if (v >= 0) {
+              hit = root_bits(buf.fi + (v >> 5) * B + 32 * k, left, nb,
+                              vec4, v & 31);
+              if constexpr (kTraced) ++examined;
+            }
+            // the roots found by a lane before this one, and by any
+            unsigned incl_hit = hit;
+#pragma unroll
+            for (int o = 1; o < kBuLanes; o <<= 1) {
+              const unsigned y =
+                  __shfl_up_sync(gmask, incl_hit, o, kBuLanes);
+              if (q >= o) incl_hit |= y;
+            }
+            unsigned before = __shfl_up_sync(gmask, incl_hit, 1, kBuLanes);
+            if (q == 0) before = 0u;
+            const unsigned all =
+                __shfl_sync(gmask, incl_hit, kBuLanes - 1, kBuLanes);
+            for (unsigned m = hit & ~before; m; m &= m - 1) {
+              const int j = __ffs(m) - 1;
+              p[static_cast<long long>(32 * k + j) * g.v_pad + uu] =
+                  v - g.n_vertices;
+              atomicOr(buf.oi + uw + j, ubit);
+            }
+            left &= ~all;
+          }
+        }
+        __syncwarp();                   // the records are rewritten
+      }
+    }
+  }
+  if constexpr (kTraced) {
+    if (walked != nullptr) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        examined += __shfl_down_sync(0xffffffffu, examined, o);
+        slots += __shfl_down_sync(0xffffffffu, slots, o);
+      }
+      if (lane == 0) {
+        if (examined) atomicAdd(walked, examined);
+        if (slots) atomicAdd(walked + 1, slots);
+      }
+    }
+  }
 }
 
 // The SELL walk: one CTA per slab group of `items` (the planner's union,

@@ -170,10 +170,12 @@ def union_scratch(n_items: int, n_batch: int, n_words: int, grid: int,
     """K5's and K9's scratch in one ``torch.empty``: (n_active (B,),
     the buffer, pointers to rmask, ulist, ucount, cnt, then the
     interleaved fi, vi, oi).  The kernel writes every word before it
-    reads it."""
+    reads it.  Each array starts on 16 bytes (K6's bottom-up walk reads
+    a vertex's words of 4 roots at once)."""
     n_mask_words = -(-n_batch // 32)
     sizes = (n_items * n_mask_words, n_items, 1, (n_batch + 1) * grid) \
         + (n_words * n_batch,) * 3
+    sizes = tuple(-(-n // 4) * 4 for n in sizes)
     buf = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
     ptrs = [buf.data_ptr() + 4 * o
             for o in itertools.accumulate((0,) + sizes[:-1])]

@@ -171,13 +171,15 @@ def loop_buffers(code: PolicyCode, n_batch: int, max_layers: int, dev):
             torch.empty((max_layers, N_STATS), **i32), simd_layer)
 
 
-def _phase_buffers(max_layers: int, dev):
-    """The launch's (collector, stamps, waits) while a traced call
-    records (`repro_torch.obs.trace.PHASES`), else Nones."""
+def _phase_buffers(max_layers: int, dev, walked: bool = False):
+    """The launch's (collector, stamps, waits, walk counters) while a
+    traced call records (`repro_torch.obs.trace.PHASES`; the walk
+    counters with ``walked``, K6's, else None), else Nones."""
     from repro_torch.obs.trace import PHASES
     if not PHASES.on:
-        return None, None, None
-    return (PHASES, *PHASES.buffers(max_layers, dev))
+        return None, None, None, None
+    return (PHASES, *PHASES.buffers(max_layers, dev),
+            PHASES.walked_buffer(max_layers, dev) if walked else None)
 
 
 def _ptr(t):
@@ -220,7 +222,8 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
                                          grid, g.rows.device)
     acc, depths, layers, stats, simd_layer = loop_buffers(
         code, n_batch, max_layers, g.rows.device)
-    phases, stamps, waits = _phase_buffers(max_layers, g.rows.device)
+    phases, stamps, waits, walked = _phase_buffers(
+        max_layers, g.rows.device, walked=True)
     _build.check(_build.load().repro_traversal_fused(
         g.rows.data_ptr(), g.colstarts.data_ptr(), g.blk_lo.data_ptr(),
         g.blk_hi.data_ptr(), g.nz.data_ptr(), g.deg.data_ptr(),
@@ -228,14 +231,15 @@ def traversal_fused_cuda(g: lf.FusedCsr, frontier, visited, parent, *,
         f_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), *ptrs[:4],
         na.data_ptr(), *ptrs[4:], acc.data_ptr(), depths.data_ptr(),
         layers.data_ptr(), stats.data_ptr(), simd_layer.data_ptr(),
-        _ptr(stamps), _ptr(waits), n_batch, g.n_blocks, g.tile,
+        _ptr(stamps), _ptr(waits), _ptr(walked), n_batch, g.n_blocks,
+        g.tile,
         int(g.colstarts.shape[0]), n_words, int(g.deg.shape[0]),
         g.n_vertices, depth, sub, int(max_layers), code.kind, code.alpha,
         code.v_over_beta, code.threshold, grid, _build.stream_of(parent)),
         "traversal_fused")
     if phases is not None:
         phases.add("traversal_fused", n_batch, grid, int(max_layers),
-                   stamps, waits, stats, layers)
+                   stamps, waits, stats, layers, walked)
     return f_out, v_out, p_out, depths, layers, stats
 
 
@@ -259,7 +263,7 @@ def sell_traversal_fused_cuda(g: se.SellGraph, frontier, visited, parent,
                                          grid, g.cols.device)
     acc, depths, layers, stats, simd_layer = loop_buffers(
         code, n_batch, max_layers, g.cols.device)
-    phases, stamps, waits = _phase_buffers(max_layers, g.cols.device)
+    phases, stamps, waits, _ = _phase_buffers(max_layers, g.cols.device)
     _build.check(_build.load().repro_sell_traversal_fused(
         g.cols.data_ptr(), g.slab_rows.data_ptr(), g.deg.data_ptr(),
         frontier.data_ptr(), visited.data_ptr(), parent.data_ptr(),

@@ -87,13 +87,21 @@ def wait_count(max_layers: int) -> int:
     return 4 * (max_layers + 1) + 2
 
 
+def walked_count(max_layers: int) -> int:
+    """K6's walk counters of a launch: for each layer, the neighbour
+    entries its bottom-up walk tested and the slots of the blocks it
+    walked (both 0 on a top-down or scalar layer)."""
+    return 2 * max_layers
+
+
 class Launch(NamedTuple):
     """One traced K6 / K10 launch, its tensors still on the device:
     ``kernel`` is ``"traversal_fused"`` (K6) or
     ``"sell_traversal_fused"`` (K10); ``stamps`` (`stamp_count`) and
     ``waits`` (`wait_count`, uint64 bits in int64) are the kernel's
     tracing buffers, ``stats`` (max_layers, 8) and ``layers`` (1,) its
-    outputs."""
+    outputs; ``walked`` (`walked_count`, K6 only, else None) its
+    bottom-up walk's counters."""
     kernel: str
     n_batch: int
     grid: int
@@ -102,6 +110,7 @@ class Launch(NamedTuple):
     waits: torch.Tensor
     stats: torch.Tensor
     layers: torch.Tensor
+    walked: torch.Tensor | None = None
 
 
 class Phases(NamedTuple):
@@ -111,7 +120,9 @@ class Phases(NamedTuple):
     the stamp before to the stamp after its barrier; ``wait_cycles``
     (layers + 1, 4) every CTA's summed barrier waits, the last row the
     start-up's; ``cta_cycles`` every CTA's entry-to-exit cycles, summed
-    over ``ctas`` CTAs; ``modes`` the layers' stats column 3."""
+    over ``ctas`` CTAs; ``modes`` the layers' stats column 3;
+    ``walked`` (layers, 2) each layer's bottom-up neighbour entries
+    tested and slots walked (K6), else None."""
     kernel: str
     n_batch: int
     grid: int
@@ -121,6 +132,7 @@ class Phases(NamedTuple):
     cta_cycles: int
     ctas: int
     modes: np.ndarray
+    walked: np.ndarray | None = None
 
     @property
     def layers(self) -> int:
@@ -161,10 +173,14 @@ def read_phases(launch: Launch) -> Phases:
     m = launch.max_layers
     wait_cycles = np.concatenate(
         [waits[:4 * layers].reshape(layers, 4), waits[4 * m:4 * m + 4][None]])
+    walked = None
+    if launch.walked is not None:
+        walked = launch.walked.cpu().numpy().view(np.uint64)[
+            :2 * layers].reshape(layers, 2)
     return Phases(launch.kernel, launch.n_batch, launch.grid, stamps,
                   np.diff(stamps[2:]).reshape(layers, 4), wait_cycles,
                   int(waits[4 * (m + 1)]), int(waits[4 * (m + 1) + 1]),
-                  launch.stats[:layers, 3].cpu().numpy())
+                  launch.stats[:layers, 3].cpu().numpy(), walked)
 
 
 def align_us(phases: Phases, event_ts_us: float) -> np.ndarray:
@@ -209,11 +225,18 @@ class KernelPhases:
                           device=device)
         return buf[:n], buf[n:]
 
+    @staticmethod
+    def walked_buffer(max_layers: int, device) -> torch.Tensor:
+        """K6's zeroed walk counters (`walked_count`) for one launch."""
+        return torch.zeros((walked_count(max_layers),), dtype=torch.int64,
+                           device=device)
+
     def add(self, kernel: str, n_batch: int, grid: int, max_layers: int,
-            stamps, waits, stats, layers) -> None:
+            stamps, waits, stats, layers, walked=None) -> None:
         with self._lock:
             self.launches.append(Launch(kernel, n_batch, grid, max_layers,
-                                        stamps, waits, stats, layers))
+                                        stamps, waits, stats, layers,
+                                        walked))
             self.added += 1
 
     def last(self, kernel: str, n: int) -> list[Launch]:

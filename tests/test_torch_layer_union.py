@@ -134,9 +134,11 @@ def test_union_scratch_holds_every_buffer(n_batch):
                                      "cpu")
     sizes = [n_items * -(-n_batch // 32), n_items, 1, (n_batch + 1) * grid]
     sizes += [n_words * n_batch] * 3
+    sizes = [-(-n // 4) * 4 for n in sizes]       # each on 16 bytes
     assert na.shape == (n_batch,) and buf.numel() == sum(sizes)
     assert ptrs == [buf.data_ptr() + 4 * sum(sizes[:i])
                     for i in range(len(sizes))]
+    assert all((x - buf.data_ptr()) % 16 == 0 for x in ptrs)
 
 
 def test_wrappers_refuse_a_misaligned_parent():

@@ -112,9 +112,11 @@ def test_traversal_scratch_holds_every_buffer(rmat10, layout, n_batch):
     na, buf, ptrs = lf.union_scratch(n_items, n_batch, n_words, grid, "cpu")
     sizes = [n_items * -(-n_batch // 32), n_items, 1, (n_batch + 1) * grid]
     sizes += [n_words * n_batch] * 3
+    sizes = [-(-n // 4) * 4 for n in sizes]       # each on 16 bytes
     assert na.shape == (n_batch,) and buf.numel() == sum(sizes)
     assert ptrs == [buf.data_ptr() + 4 * sum(sizes[:i])
                     for i in range(len(sizes))]
+    assert all((x - buf.data_ptr()) % 16 == 0 for x in ptrs)
     code = t_tf.PolicyCode(t_tf.PAPER_LAYERS, simd_layers=(1, 3))
     acc, depths, layers, stats, simd = t_tf.loop_buffers(
         code, n_batch, max_layers, "cpu")

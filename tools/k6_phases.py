@@ -17,6 +17,10 @@ script only keeps its trace and driver and reads, afterwards:
   time, the barrier wait share of each phase, layers a launch and the
   bottom-up ones (stats column 3), the same split by layer direction,
   and the stamped time against the kernel events' durations;
+* K6's walk counters (``walked``): in each bottom-up layer the neighbour
+  entries tested over the slots of the blocks walked (``examined /
+  slots``; the slot walk tested every slot), over all bottom-up layers
+  and by layer position;
 * the %globaltimer step: the greatest common divisor of the stamps'
   differences;
 * the device's idle seconds inside each of the port's per-call ranges;
@@ -104,6 +108,30 @@ def _spread(values) -> float:
     return (q[2] - q[0]) / statistics.median(values)
 
 
+def walk_counts(launches) -> dict | None:
+    """``examined / slots`` of the bottom-up layers of the launches that
+    carry K6's walk counters: over all of them and by layer position
+    (None where no launch carries them)."""
+    got = [p for p in launches if p.walked is not None]
+    if not got:
+        return None
+    by_layer: dict = {}
+    for p in got:
+        for l in range(p.layers):
+            if int(p.modes[l]) != 2:
+                continue
+            row = by_layer.setdefault(l, [0, 0])
+            row[0] += int(p.walked[l, 0])
+            row[1] += int(p.walked[l, 1])
+    examined = sum(e for e, _ in by_layer.values())
+    slots = sum(s for _, s in by_layer.values())
+    return {"examined": examined, "slots": slots,
+            "examined_over_slots": examined / slots if slots else None,
+            "by_layer": [{"layer": l, "examined": e, "slots": s,
+                          "examined_over_slots": e / s if s else None}
+                         for l, (e, s) in sorted(by_layer.items())]}
+
+
 def phase_table(trace, launches) -> dict:
     """The K6 launches of the stretch, phase by phase."""
     from repro_torch.obs.trace import LAYER_PHASES
@@ -160,6 +188,7 @@ def phase_table(trace, launches) -> dict:
          **{k: float(v) / len(launches) / 1e6
             for k, v in zip(LAYER_PHASES, per_layer[l])}}
         for l in range(depth)]
+    out["bottom_up_walked"] = walk_counts(launches)
     # stamps against the kernel events, in launch order
     if len(events) == len(launches):
         dur = np.asarray([d for _, d in events]) * 1e3          # ns
